@@ -6,13 +6,17 @@
 Phases, in order; any failure raises and the process exits non-zero:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the flash-attention kernels from ops/csrc (nvcc, sm_90a);
+2. build the flash-attention kernels from ops/csrc (nvcc, sm_90a); the
+   four wgmma kernels (forward and dK/dV at D 64 and 128) must show no
+   spill stores in ptxas's report;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the main path's shape [4, 2048, 16, 64] bf16 and the large preset's
-   head dim [2, 2048, 16, 128], with times (CUDA events), the plain
-   version's time, the one-call PyTorch yardstick (PyTorch's fused causal
-   attention and its backward, timed here and used nowhere in the port) and
-   the bound;
+   head dim [2, 2048, 16, 128], with times (CUDA events around back-to-back
+   calls), the plain version's time, the one-call PyTorch yardstick
+   (PyTorch's fused causal attention and its backward, timed here and used
+   nowhere in the port), the bound and the achieved TFLOP/s; each record
+   names its design (design() in ops/flash_attention.py: "wgmma" for the
+   bf16 D 64/128 forward and dK/dV, "fma" otherwise);
    plus short correctness checks of every (dtype, head dim) instantiation;
 4. model: TransformerLM at the base preset's full width and depth, flash vs
    naive attention on the same weights (held in f32; bf16 printed);
@@ -71,27 +75,55 @@ def card_line() -> str:
     return out[0]
 
 
-def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    """Median over ``reps`` CUDA-event-timed calls of ``fn``."""
+def time_ms(torch, fn, reps: int, warmup: int = 2,
+            span_ms: float = 2.0) -> float:
+    """Per-call time of ``fn``: the median over ``reps`` CUDA-event pairs,
+    each pair around N back-to-back calls (N doubled until a pair spans at
+    least ``span_ms``), divided by N. One pair per call would count the
+    wrapper's checks, allocation and ctypes launch into a ~0.1 ms
+    kernel."""
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(reps):
+
+    def run(n):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(n):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
+        return start.elapsed_time(end)
+
+    n = 1
+    while run(n) < span_ms and n < 4096:
+        n *= 2
+    times = sorted(run(n) / n for _ in range(reps))
     return times[len(times) // 2]
+
+
+def wgmma_ptxas_report(log_text: str) -> dict:
+    """{"flash_fwd_wgmma_kernel<64>": (registers, spill store bytes), ...}
+    from the build log's ptxas report of each wgmma kernel."""
+    out = {}
+    lines = log_text.splitlines()
+    for i, line in enumerate(lines):
+        m = re.search(r"Function properties for \S*"
+                      r"(flash_(?:fwd|dkv)_wgmma_kernel)ILi(\d+)E", line)
+        if m is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores", lines[i + 1])
+        regs = re.search(r"Used (\d+) registers", lines[i + 2])
+        out[f"{m.group(1)}<{m.group(2)}>"] = (
+            int(regs.group(1)) if regs else None, int(spill.group(1)))
+    return out
 
 
 def bounds(B, S, H, D, elem):
     """Least time (ms) for each kernel's work: max(FLOPs / bf16 peak,
     bytes / HBM rate), counting each input read once and each output
-    written once, over the causal half (the tiles the inputs need)."""
+    written once, over the causal half (the tiles the inputs need); with
+    what bounds it and the FLOP count."""
     pairs = B * H * S * (S + 1) / 2
     t = B * S * H * D * elem          # one [B, S, H, D] tensor
     vec = B * S * H * 4               # one f32 [B, S, H, 1] vector
@@ -105,7 +137,7 @@ def bounds(B, S, H, D, elem):
     for name, (flops, nbytes) in work.items():
         t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM_BYTES_S * 1e3
         out[name] = (max(t_ops, t_bytes),
-                     "operations" if t_ops >= t_bytes else "bytes")
+                     "operations" if t_ops >= t_bytes else "bytes", flops)
     return out
 
 
@@ -161,11 +193,11 @@ def kernel_phase(torch, fa, shape, dtype, seed, timed=True):
         return []
 
     ms = {
-        "flash_fwd": time_ms(torch, lambda: fa._fwd(q, k, v), 10),
+        "flash_fwd": time_ms(torch, lambda: fa._fwd(q, k, v), 7),
         "flash_dq": time_ms(torch, lambda: fa._dq(
-            q, k, v, do, lse_r, delta), 10),
+            q, k, v, do, lse_r, delta), 7),
         "flash_dkv": time_ms(torch, lambda: fa._dkv(
-            q, k, v, do, lse_r, delta), 10),
+            q, k, v, do, lse_r, delta), 7),
     }
     plain_ms = {
         "flash_fwd": time_ms(torch, lambda: fa._fwd_reference(q, k, v), 3, 1),
@@ -178,29 +210,35 @@ def kernel_phase(torch, fa, shape, dtype, seed, timed=True):
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
     sdpa = lambda a, b, c: F.scaled_dot_product_attention(
         a, b, c, is_causal=True, scale=1.0)
-    lib_fwd = time_ms(torch, lambda: sdpa(qt, kt, vt), 10)
+    lib_fwd = time_ms(torch, lambda: sdpa(qt, kt, vt), 7)
     qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
     out = sdpa(qg, kg, vg)
     lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
-        out, (qg, kg, vg), dot, retain_graph=True), 10)
+        out, (qg, kg, vg), dot, retain_graph=True), 7)
     library_ms = {"flash_fwd": lib_fwd, "flash_dq": lib_bwd,
                   "flash_dkv": lib_bwd}
     bnd = bounds(B, S, H, D, q.element_size())
     recs = []
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        design = fa.design(dtype, D, name)
+        tflops = bnd[name][2] / (ms[name] * 1e-3) / 1e12
         recs.append({
-            "name": name, "shape": list(shape),
+            "name": name, "design": design, "shape": list(shape),
             "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": errs[name][0], "max_err": errs[name][1],
             "ms": ms[name], "plain_ms": plain_ms[name],
             "library_ms": library_ms[name],
             "bound_ms": bnd[name][0], "bound_by": bnd[name][1],
+            "tflops": tflops,
         })
-        log(f"kernel {name} {tag} max_abs_err={errs[name][0]:.3g} "
+        log(f"kernel {name} ({design}) {tag} "
+            f"max_abs_err={errs[name][0]:.3g} "
             f"max_err={errs[name][1]:.3g} ms={ms[name]:.4f} "
             f"plain_ms={plain_ms[name]:.4f} "
             f"library_ms={library_ms[name]:.4f} "
-            f"bound_ms={bnd[name][0]:.4f} ({bnd[name][1]})")
+            f"bound_ms={bnd[name][0]:.4f} ({bnd[name][1]}) "
+            f"tflops={tflops:.1f} "
+            f"share_of_bound={bnd[name][0] / ms[name]:.3f}")
     return recs
 
 
@@ -333,6 +371,11 @@ def main() -> int:
     log(f"build_seconds={time.perf_counter() - t0:.1f} "
         f"lib={build.BUILD_DIR / build.LIB_NAME} "
         f"(nvcc and ptxas report: {build.BUILD_DIR / 'build.log'})")
+    ptxas = wgmma_ptxas_report((build.BUILD_DIR / "build.log").read_text())
+    check(len(ptxas) == 4, f"ptxas report of the wgmma kernels: {ptxas}")
+    for kern, (regs, spill) in sorted(ptxas.items()):
+        log(f"ptxas {kern}: {regs} registers, {spill} bytes spill stores")
+        check(spill == 0, f"{kern} spills {spill} bytes")
 
     # 3. kernels
     for D in (64, 128, 192, 256):
@@ -352,19 +395,23 @@ def main() -> int:
     launches = main_path_phase(torch, fa)
 
     # 6. report
-    meta = {
-        "flash_fwd": ("kubeflow_tpu_torch/ops/csrc/flash_fwd.cu",
+    csrc = "kubeflow_tpu_torch/ops/csrc/"
+    meta = {  # name: ({design: source}, the TPU kernel it replaces)
+        "flash_fwd": ({"fma": csrc + "flash_fwd.cu",
+                       "wgmma": csrc + "flash_fwd_wgmma.cu"},
                       "kubeflow_tpu/ops/flash_attention.py:64"),
-        "flash_dq": ("kubeflow_tpu_torch/ops/csrc/flash_bwd.cu",
+        "flash_dq": ({"fma": csrc + "flash_bwd.cu"},
                      "kubeflow_tpu/ops/flash_attention.py:127"),
-        "flash_dkv": ("kubeflow_tpu_torch/ops/csrc/flash_bwd.cu",
+        "flash_dkv": ({"fma": csrc + "flash_bwd.cu",
+                       "wgmma": csrc + "flash_dkv_wgmma.cu"},
                       "kubeflow_tpu/ops/flash_attention.py:158"),
     }
 
     def entries(recs, with_launches):
         out = []
         for r in recs:
-            src, rep = meta[r["name"]]
+            srcs, rep = meta[r["name"]]
+            src = srcs[r["design"]]
             e = {"name": r["name"], "route": "cuda", "source": src,
                  "replaces": rep,
                  "launches": launches[r["name"]] if with_launches else None}

@@ -7,6 +7,12 @@ runs in parallel, then one link. The library is rebuilt whenever the
 hash of the sources differs from the one it was built from; the build
 log (with ``-Xptxas -v`` register/shared-memory reports) lands beside it.
 Nothing here runs at import time.
+
+The wgmma kernels' TMA tensor maps are encoded by the CUDA driver API's
+``cuTensorMapEncodeTiled``, which ``csrc/hopper.cuh`` fetches at run time
+through ``cudaGetDriverEntryPointByVersion`` (``cudaGetDriverEntryPoint``
+before CUDA 12.5), so the library links no ``-lcuda``; nor does it need
+CUTLASS: the wgmma, TMA and mbarrier pieces are inline PTX.
 """
 
 from __future__ import annotations

@@ -11,17 +11,20 @@
 // card's ~295 FLOP/byte ridge in bf16, so the kernel is compute-bound and its
 // floor is the tensor cores' 989 TFLOP/s.
 //
-// This first design is the simple, right one: it does not reach that floor.
-// One 256-thread block per (64-row Q tile, head, batch) stages Q, then each
-// K/V tile up to the diagonal, in shared memory as f32 and runs the online
-// softmax with f32 running max, denominator and accumulator in registers.
+// This is the FMA design, for f32 inputs at every head dim and bf16 at
+// D in {192, 256}; bf16 at D in {64, 128} (every preset) runs the tensor-core
+// kernel of flash_fwd_wgmma.cu instead, chosen by (dtype, D) alone in
+// kfx_flash_fwd below. It does not reach that floor. One 256-thread block
+// per (64-row Q tile, head, batch) stages Q, then each K/V tile up to the
+// diagonal, in shared memory as f32 and runs the online softmax with f32
+// running max, denominator and accumulator in registers.
 // Both products are plain FMA on the CUDA cores (each thread a 4 x 4 score
 // tile and a 4 x D/16 slice of the output), so its ceiling is the f32 FMA
 // rate, not the tensor cores'. Tiles above the diagonal are skipped, so the
-// work is triangular like the math. Moving the two products onto
-// wgmma with TMA-fed shared-memory rings is the later step (ROADMAP).
+// work is triangular like the math.
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace kfx {
 
@@ -153,10 +156,14 @@ extern "C" int kfx_flash_fwd(const void* q, const void* k, const void* v,
                              int dtype, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kfx::use_wgmma(dtype, D))
+    return kfx::flash_fwd_wgmma(q, k, v, o, lse, B, S, H, D, st);
   KFX_DISPATCH(dtype, D,
                (kfx::launch_fwd<T, D>(q, k, v, o, lse, B, S, H, st)));
 }
 
 extern "C" const char* kfx_cuda_error_string(int code) {
+  if (code >= kfx::hopper::TENSOR_MAP_ERROR)
+    return "cuTensorMapEncodeTiled failed (CUresult = code - 10000)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -17,6 +17,16 @@ Dispatch is by the tensors' device and nothing else: CPU tensors take
 the plain version (what the CPU tests run), CUDA tensors launch the
 kernel or raise. There is no fallback from one to the other.
 
+Two kernel designs sit behind the same C entry points, chosen by
+``design(dtype, head_dim)`` alone (the C side applies the same rule):
+``"wgmma"`` for bf16 at D in {64, 128} -- the forward and dK/dV kernels
+on the tensor cores (``csrc/flash_fwd_wgmma.cu``,
+``csrc/flash_dkv_wgmma.cu``), bf16 operands in shared memory fed by TMA,
+f32 accumulators -- and ``"fma"`` for everything else (f32 at every D,
+bf16 at D in {192, 256}), the f32 FMA kernels of ``flash_fwd.cu`` and
+``flash_bwd.cu``. f32 on the tensor cores would be TF32, which cannot hold
+the f32 kernels' 1e-4 bound. The dQ kernel has only the FMA design.
+
 ``LAUNCHES`` counts kernel launches per kernel (plain-version calls do
 not count), so a run can show its main path went through the kernels.
 
@@ -43,6 +53,23 @@ LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+WGMMA_HEAD_DIMS = (64, 128)
+
+
+def design(dtype: torch.dtype, head_dim: int, kernel: str = "flash_fwd"
+           ) -> str:
+    """Which CUDA design ``kernel`` runs for (dtype, head_dim): "wgmma"
+    (tensor cores) for bf16 at D in {64, 128} for the forward and dK/dV
+    kernels, "fma" (f32 FMA on the CUDA cores) otherwise. A pure function
+    of its arguments, mirrored by ``use_wgmma`` in ``csrc/hopper.cuh``."""
+    if kernel not in LAUNCHES:
+        raise ValueError(f"unknown kernel {kernel!r}; one of {list(LAUNCHES)}")
+    if (kernel != "flash_dq" and dtype == torch.bfloat16
+            and head_dim in WGMMA_HEAD_DIMS):
+        return "wgmma"
+    return "fma"
 
 
 def _pick_block(s: int, want: int = 256) -> int:
@@ -182,8 +209,9 @@ def _on_cuda(x: torch.Tensor) -> bool:
 def _launch(name: str, *args: torch.Tensor) -> None:
     """Launch kernel ``name`` on the current stream with ``args`` in its C
     entry point's order (q first): [B, S, H, D] tensors in q's dtype and
-    f32 [B, S, H, 1] vectors, all contiguous on q's device. Validates what
-    the kernel takes and raises on a refused launch."""
+    f32 [B, S, H, 1] vectors, all contiguous on q's device (and 16-byte
+    aligned where the design is "wgmma": its TMA tensor maps need it).
+    Validates what the kernel takes and raises on a refused launch."""
     from .build import cuda_error_string, load_library
 
     q = args[0]
@@ -199,15 +227,18 @@ def _launch(name: str, *args: torch.Tensor) -> None:
                          f"and <= {MAX_HEAD_DIM}, got D={D}")
     if S % 64:
         raise ValueError(f"flash kernels need seq_len % 64 == 0, got S={S}")
+    align = 16 if design(q.dtype, D, name) == "wgmma" else 1
     for t in args:
         shape, dtype = (((B, S, H, 1), torch.float32) if t.shape[-1] == 1
                         else (q.shape, q.dtype))
         if (t.shape != shape or t.dtype != dtype or t.device != q.device
-                or not t.is_contiguous()):
+                or not t.is_contiguous() or t.data_ptr() % align):
             raise ValueError(
                 f"{name}: got a {tuple(t.shape)} {t.dtype} tensor on "
-                f"{t.device} (contiguous={t.is_contiguous()}), expected "
-                f"{tuple(shape)} {dtype} on {q.device}, contiguous")
+                f"{t.device} (contiguous={t.is_contiguous()}, address % "
+                f"{align} = {t.data_ptr() % align}), expected "
+                f"{tuple(shape)} {dtype} on {q.device}, contiguous, "
+                f"{align}-byte aligned")
     fn = getattr(load_library(), "kfx_" + name)
     with torch.cuda.device(q.device):
         rc = fn(*(t.data_ptr() for t in args), B, S, H, D,
@@ -219,10 +250,17 @@ def _launch(name: str, *args: torch.Tensor) -> None:
     LAUNCHES[name] += 1
 
 
+def _dense(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous, with a 16-byte aligned start (the TMA tensor maps of the
+    wgmma kernels need it; a view at an odd offset is copied)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     if not _on_cuda(q):
         return _fwd_reference(q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _dense(q), _dense(k), _dense(v)
     o = torch.empty_like(q)
     lse = torch.empty(*q.shape[:3], 1, dtype=torch.float32, device=q.device)
     _launch("flash_fwd", q, k, v, o, lse)
@@ -242,8 +280,7 @@ def _dq(q, k, v, do, lse, delta) -> torch.Tensor:
 def _dkv(q, k, v, do, lse, delta) -> Tuple[torch.Tensor, torch.Tensor]:
     if not _on_cuda(q):
         return _dkv_reference(q, k, v, do, lse, delta)
-    q, k, v, do, lse, delta = (x.contiguous()
-                               for x in (q, k, v, do, lse, delta))
+    q, k, v, do, lse, delta = (_dense(x) for x in (q, k, v, do, lse, delta))
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _launch("flash_dkv", q, k, v, do, lse, delta, dk, dv)

@@ -46,8 +46,9 @@ def _rel(a, b):
 @pytest.mark.parametrize("D", [64, 128, 192, 256])
 def test_kernels_match_plain_version(cuda, dtype, D):
     """Each kernel against its plain version on the same inputs. bf16:
-    outputs round once to bf16, so 2e-2 (the reference's bound); f32:
-    only summation order differs, 1e-4."""
+    outputs round once to bf16 (and, in the wgmma design at D 64/128, P
+    and dS before their second products), so 2e-2 (the reference's
+    bound); f32 (the FMA design): only summation order differs, 1e-4."""
     dt = getattr(torch, dtype)
     q, k, v, do = _inputs((2, 256, 2, D), D, cuda, dt)
     before = dict(fa.LAUNCHES)
@@ -69,9 +70,100 @@ def test_kernels_match_plain_version(cuda, dtype, D):
         assert _rel(a, b) <= tol
 
 
+def _wgmma_run(q, k, v, do):
+    """The forward and dK/dV kernels on bf16 inputs (the wgmma design),
+    the dK/dV kernel fed the plain forward's lse and delta."""
+    o, lse = fa._fwd(q, k, v)
+    o_r, lse_r = fa._fwd_reference(q, k, v)
+    delta = torch.sum(do.float() * o_r.float(), -1, keepdim=True)
+    dk, dv = fa._dkv(q, k, v, do, lse_r, delta)
+    return (o, lse, dk, dv), (o_r, lse_r, delta)
+
+
+@pytest.mark.parametrize("shape", [(2, 2048, 4, 64), (1, 2048, 4, 128),
+                                   (1, 320, 2, 64), (1, 320, 2, 128),
+                                   (1, 64, 2, 64), (3, 192, 3, 128)])
+def test_wgmma_kernels_match_plain_version(cuda, shape):
+    """flash_fwd and flash_dkv in their wgmma design (bf16, D 64/128; S =
+    320 and 192 leave a ragged half tile, S % 128 == 64, and S = 64 is
+    less than one tile) against the plain
+    versions: o 2e-2 abs, lse 1e-3 abs, dk/dv 2e-2 relative to the max,
+    chip_smoke.py's bounds. The new rounding is P and dS to bf16 before
+    their second products (tests/test_torch_flash.py bounds it on the
+    CPU)."""
+    assert fa.design(torch.bfloat16, shape[-1], "flash_fwd") == "wgmma"
+    assert fa.design(torch.bfloat16, shape[-1], "flash_dkv") == "wgmma"
+    q, k, v, do = _inputs(shape, 11, cuda, torch.bfloat16)
+    before = dict(fa.LAUNCHES)
+    (o, lse, dk, dv), (o_r, lse_r, delta) = _wgmma_run(q, k, v, do)
+    dk_r, dv_r = fa._dkv_reference(q, k, v, do, lse_r, delta)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_fwd"] == before["flash_fwd"] + 1
+    assert fa.LAUNCHES["flash_dkv"] == before["flash_dkv"] + 1
+    assert bool(torch.isfinite(o.float()).all())
+    assert float((o.float() - o_r.float()).abs().max()) <= 2e-2
+    assert float((lse - lse_r).abs().max()) <= 1e-3
+    assert _rel(dk, dk_r) <= 2e-2
+    assert _rel(dv, dv_r) <= 2e-2
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_wgmma_kernels_are_deterministic(cuda, D):
+    """Two runs of each wgmma kernel on the same inputs are bit-identical
+    (no atomics; every output element is written once)."""
+    q, k, v, do = _inputs((2, 1024, 4, D), 5, cuda, torch.bfloat16)
+    first, _ = _wgmma_run(q, k, v, do)
+    second, _ = _wgmma_run(q, k, v, do)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_wgmma_inputs_at_odd_offsets(cuda):
+    """A bf16 view that starts 2 bytes into its allocation is copied to an
+    aligned tensor before the TMA-fed kernel sees it; _launch itself
+    refuses it."""
+    q, k, v, _ = _inputs((1, 256, 2, 64), 3, cuda, torch.bfloat16)
+    buf = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    q_odd = buf[1:].view(q.shape)
+    q_odd.copy_(q)
+    assert q_odd.data_ptr() % 16
+    o, _ = fa._fwd(q_odd, k, v)
+    o_r, _ = fa._fwd_reference(q, k, v)
+    assert float((o.float() - o_r.float()).abs().max()) <= 2e-2
+    lse = torch.empty(1, 256, 2, 1, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        fa._launch("flash_fwd", q_odd, k, v, torch.empty_like(q), lse)
+
+
+def test_base_preset_launches_through_wgmma(cuda, capsys):
+    """The main path's configuration (base preset, bf16, D = 64) takes the
+    wgmma design, and the runner's launch counts are what they were: per
+    train step one forward, one dQ and one dK/dV launch a layer, plus one
+    forward a layer for the eval batch."""
+    from kubeflow_tpu_torch.models.transformer import preset_config
+    from kubeflow_tpu_torch.runners import lm_runner
+
+    cfg = preset_config("base")
+    assert cfg.dtype == torch.bfloat16 and cfg.head_dim == 64
+    assert fa.design(torch.bfloat16, 64) == "wgmma"
+    assert fa.design(torch.bfloat16, 64, "flash_dkv") == "wgmma"
+    assert fa.design(torch.bfloat16, 64, "flash_dq") == "fma"
+    fa.reset_launches()
+    rc = lm_runner.main(["--preset", "base", "--dataset", "lm-small",
+                         "--steps", "2", "--batch-size", "1",
+                         "--warmup-steps", "1", "--log-every", "1"])
+    out = capsys.readouterr().out
+    assert rc == 0 and "seq_len=2048" in out
+    L = cfg.n_layers
+    assert fa.LAUNCHES == {"flash_fwd": L * 2 + L, "flash_dq": L * 2,
+                           "flash_dkv": L * 2}
+
+
 def test_autograd_on_cuda_matches_cpu(cuda):
     """The autograd Function on CUDA tensors (the kernels) against the
-    same Function on CPU tensors (the plain versions), f32."""
+    same Function on CPU tensors (the plain versions), f32 (the FMA
+    design alone)."""
     q, k, v, do = _inputs((1, 384, 2, 64), 7, "cpu", torch.float32)
     outs = {}
     for dev in ("cpu", cuda):

@@ -95,6 +95,103 @@ def test_cuda_tensors_never_take_the_plain_path():
         port.flash_attention_fwd(x, x, x)
 
 
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_design_is_a_function_of_dtype_and_head_dim(dtype, D):
+    """Every (dtype, D) that _launch accepts: the forward and dK/dV kernels
+    run on the tensor cores ("wgmma") for bf16 at D 64/128 and as f32 FMA
+    otherwise; the dQ kernel has only the FMA design."""
+    wgmma = dtype == torch.bfloat16 and D in (64, 128)
+    assert port.design(dtype, D) == port.design(dtype, D, "flash_fwd")
+    assert port.design(dtype, D, "flash_fwd") == ("wgmma" if wgmma else "fma")
+    assert port.design(dtype, D, "flash_dkv") == ("wgmma" if wgmma else "fma")
+    assert port.design(dtype, D, "flash_dq") == "fma"
+
+
+def test_design_rejects_unknown_kernels():
+    with pytest.raises(ValueError, match="unknown kernel"):
+        port.design(torch.bfloat16, 64, "flash_bwd")
+
+
+# The wgmma kernels' rounding, emulated in plain torch: bf16 operands with
+# products summed in f32 (a product of two bf16 numbers is exact in f32),
+# the forward's online softmax over the kernel's own tiles (128 query rows;
+# 128 keys at D = 64, 64 at D = 128) with P rounded to bf16 before P V, and
+# P^T and dS^T rounded to bf16 before the dV and dK products.
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _emulate_wgmma_fwd(q, k, v):
+    B, S, H, D = q.shape
+    bq, bk = 128, (128 if D == 64 else 64)
+    qt, kt, vt = port._heads_first(q, k, v)
+    o = torch.empty_like(qt)
+    lse = torch.empty(B, H, S, 1)
+    for q0 in range(0, S, bq):
+        rows = slice(q0, min(q0 + bq, S))
+        qb = qt[:, :, rows]
+        n = qb.shape[2]
+        m = torch.full((B, H, n, 1), port.NEG_INF)
+        den = torch.zeros(B, H, n, 1)
+        acc = torch.zeros_like(qb)
+        for k0 in range(0, q0 + n, bk):
+            cols = slice(k0, min(k0 + bk, S))
+            s = qb @ kt[:, :, cols].transpose(-1, -2)
+            s = torch.where(port._causal_mask(q0, n, k0, s.shape[-1], "cpu"),
+                            s, port.NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            alpha = torch.exp(m - m_new)
+            den = den * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + _bf16(p) @ vt[:, :, cols]
+            m = m_new
+        o[:, :, rows] = acc / den
+        lse[:, :, rows] = m + torch.log(den)
+    return port._seq_first(o, q.dtype), port._seq_first(lse, torch.float32)
+
+
+def _emulate_wgmma_dkv(q, k, v, do, lse, delta):
+    S = q.shape[1]
+    qt, kt, vt, dot, lset, dt = port._heads_first(q, k, v, do, lse, delta)
+    s = qt @ kt.transpose(-1, -2)
+    p = torch.where(port._causal_mask(0, S, 0, S, "cpu"),
+                    torch.exp(s - lset), 0.0)
+    dv = _bf16(p).transpose(-1, -2) @ dot
+    ds = p * (dot @ vt.transpose(-1, -2) - dt)
+    dk = _bf16(ds).transpose(-1, -2) @ qt
+    return port._seq_first(dk, k.dtype), port._seq_first(dv, v.dtype)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("shape", [(1, 512, 2, 64), (1, 256, 2, 128)])
+def test_wgmma_rounding_stays_within_budget_of_reference(shape, seed):
+    """The wgmma kernels' bf16 numerics (emulated above) against the
+    reference's Pallas kernels (interpret mode) on the same bf16 inputs,
+    within chip_smoke.py's bounds: o 2e-2 abs, lse 1e-3 abs, dk/dv 2e-2
+    relative to the max."""
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
+                   for x in _inputs(shape, seed))
+    qj, kj, vj, doj = (jnp.asarray(x.float().numpy(), dtype=jnp.bfloat16)
+                       for x in (q, k, v, do))
+    o_r, lse_r = ref.flash_attention_fwd(qj, kj, vj, interpret=True)
+    _, dk_r, dv_r = jax.grad(lambda q, k, v: jnp.sum(
+        ref.flash_attention(q, k, v, interpret=True).astype(jnp.float32)
+        * doj.astype(jnp.float32)), argnums=(0, 1, 2))(qj, kj, vj)
+
+    o, lse = _emulate_wgmma_fwd(q, k, v)
+    delta = torch.sum(do.float() * o.float(), -1, keepdim=True)
+    dk, dv = _emulate_wgmma_dkv(q, k, v, do, lse, delta)
+    as_np = lambda x: np.asarray(x.astype(jnp.float32))
+    assert np.max(np.abs(o.float().numpy() - as_np(o_r))) <= 2e-2
+    assert np.max(np.abs(lse.numpy() - as_np(lse_r))) <= 1e-3
+    for a, b in ((dk, dk_r), (dv, dv_r)):
+        b = as_np(b)
+        assert np.max(np.abs(a.float().numpy() - b)) / np.max(np.abs(b)) \
+            <= 2e-2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", SHAPES)
 def test_cuda_kernels_match_reference_kernels(shape):

@@ -81,9 +81,12 @@ def test_source_has_no_banned_import(path):
         assert "scaled_dot_product_attention" not in src
         assert "torch.compile" not in src
     if path.endswith((".cu", ".cuh")):
+        # The CUDA toolkit's own headers and the port's; no torch headers
+        # (plain C interface) and no library of finished kernels.
         includes = re.findall(r'#include\s*[<"]([^>"]+)[>"]', src)
-        assert set(includes) <= {"cuda_runtime.h", "cuda_bf16.h",
-                                 "stddef.h", "flash_common.cuh"}, includes
+        assert set(includes) <= {"cuda.h", "cuda_runtime.h", "cuda_bf16.h",
+                                 "stddef.h", "stdint.h", "flash_common.cuh",
+                                 "hopper.cuh"}, includes
 
 
 def test_chip_smoke_names_sdpa_only_for_library_timing():
