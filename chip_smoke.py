@@ -7,7 +7,7 @@ Phases, in order; any failure raises and the process exits non-zero:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the flash-attention kernels from ops/csrc (nvcc, sm_90a); the
-   four wgmma kernels (forward and dK/dV at D 64 and 128) must show no
+   six wgmma kernels (forward, dQ and dK/dV at D 64 and 128) must show no
    spill stores in ptxas's report;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the main path's shape [4, 2048, 16, 64] bf16 and the large preset's
@@ -15,8 +15,10 @@ Phases, in order; any failure raises and the process exits non-zero:
    calls), the plain version's time, the one-call PyTorch yardstick
    (PyTorch's fused causal attention and its backward, timed here and used
    nowhere in the port), the bound and the achieved TFLOP/s; each record
-   names its design (design() in ops/flash_attention.py: "wgmma" for the
-   bf16 D 64/128 forward and dK/dV, "fma" otherwise);
+   names its design (design() in ops/flash_attention.py: "wgmma" for all
+   three kernels in bf16 at D 64/128, flash_fwd_wgmma.cu,
+   flash_dq_wgmma.cu and flash_dkv_wgmma.cu; "fma" for f32 at every D and
+   bf16 at D 192/256, flash_fwd.cu and flash_bwd.cu);
    plus short correctness checks of every (dtype, head dim) instantiation;
 4. model: TransformerLM at the base preset's full width and depth, flash vs
    naive attention on the same weights (held in f32; bf16 printed);
@@ -109,7 +111,7 @@ def wgmma_ptxas_report(log_text: str) -> dict:
     lines = log_text.splitlines()
     for i, line in enumerate(lines):
         m = re.search(r"Function properties for \S*"
-                      r"(flash_(?:fwd|dkv)_wgmma_kernel)ILi(\d+)E", line)
+                      r"(flash_(?:fwd|dq|dkv)_wgmma_kernel)ILi(\d+)E", line)
         if m is None:
             continue
         spill = re.search(r"(\d+) bytes spill stores", lines[i + 1])
@@ -372,7 +374,7 @@ def main() -> int:
         f"lib={build.BUILD_DIR / build.LIB_NAME} "
         f"(nvcc and ptxas report: {build.BUILD_DIR / 'build.log'})")
     ptxas = wgmma_ptxas_report((build.BUILD_DIR / "build.log").read_text())
-    check(len(ptxas) == 4, f"ptxas report of the wgmma kernels: {ptxas}")
+    check(len(ptxas) == 6, f"ptxas report of the wgmma kernels: {ptxas}")
     for kern, (regs, spill) in sorted(ptxas.items()):
         log(f"ptxas {kern}: {regs} registers, {spill} bytes spill stores")
         check(spill == 0, f"{kern} spills {spill} bytes")
@@ -400,7 +402,8 @@ def main() -> int:
         "flash_fwd": ({"fma": csrc + "flash_fwd.cu",
                        "wgmma": csrc + "flash_fwd_wgmma.cu"},
                       "kubeflow_tpu/ops/flash_attention.py:64"),
-        "flash_dq": ({"fma": csrc + "flash_bwd.cu"},
+        "flash_dq": ({"fma": csrc + "flash_bwd.cu",
+                      "wgmma": csrc + "flash_dq_wgmma.cu"},
                      "kubeflow_tpu/ops/flash_attention.py:127"),
         "flash_dkv": ({"fma": csrc + "flash_bwd.cu",
                        "wgmma": csrc + "flash_dkv_wgmma.cu"},

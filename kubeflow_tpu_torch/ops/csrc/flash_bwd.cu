@@ -16,11 +16,11 @@
 // B*S*H*D elements moved: several hundred FLOPs per byte, so both are
 // compute-bound, and their floor is the tensor cores' 989 TFLOP/s in bf16.
 //
-// These are the FMA designs. The dQ kernel runs for every dtype and head
-// dim; the dK/dV kernel here runs for f32 at every head dim and bf16 at
-// D in {192, 256}, while bf16 at D in {64, 128} (every preset) runs the
-// tensor-core kernel of flash_dkv_wgmma.cu, chosen by (dtype, D) alone in
-// kfx_flash_dkv below. Neither design here reaches that floor:
+// These are the FMA designs, for f32 at every head dim and bf16 at
+// D in {192, 256}. bf16 at D in {64, 128} (every preset) runs the
+// tensor-core kernels of flash_dq_wgmma.cu and flash_dkv_wgmma.cu instead,
+// chosen by (dtype, D) alone in kfx_flash_dq and kfx_flash_dkv below.
+// Neither design here reaches that floor:
 // the TPU kernels kept whole K/V (or Q/dO) rows of one head in VMEM, which
 // does not fit in an SM's shared memory, so here each 256-thread block owns
 // one 64-row tile (32 rows above D = 128) and streams the other operand's
@@ -303,6 +303,8 @@ extern "C" int kfx_flash_dq(const void* q, const void* k, const void* v,
                             int D, int dtype, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kfx::use_wgmma(dtype, D))
+    return kfx::flash_dq_wgmma(q, k, v, dout, lse, delta, dq, B, S, H, D, st);
   KFX_DISPATCH(dtype, D, (kfx::launch_dq<T, D>(q, k, v, dout, lse, delta, dq,
                                                 B, S, H, st)));
 }

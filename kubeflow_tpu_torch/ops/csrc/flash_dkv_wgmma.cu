@@ -74,24 +74,6 @@ struct DkvCfg {
   static constexpr size_t SMEM = 2 * KV_BYTES + 2 * DKV_STAGES * Q_BYTES + 1024;
 };
 
-// Thread 0 fills ring slot t % DKV_STAGES with the Q and dO tiles at query
-// row q0.
-template <int D>
-__device__ __forceinline__ void dkv_issue_q(
-    int t, int q0, const CUtensorMap* tq, const CUtensorMap* tdo,
-    uint32_t sQ, uint32_t sDO, uint64_t* full, int h, int b) {
-  using C = DkvCfg<D>;
-  const int slot = t % DKV_STAGES;
-  mbar_expect_tx(&full[slot], 2 * C::Q_BYTES);
-#pragma unroll
-  for (int c = 0; c < D / 64; ++c) {
-    tma_load_4d(sQ + slot * C::Q_BYTES + c * C::Q_BOX, tq, &full[slot],
-                c * 64, h, q0, b);
-    tma_load_4d(sDO + slot * C::Q_BYTES + c * C::Q_BOX, tdo, &full[slot],
-                c * 64, h, q0, b);
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(DKV_THREADS, 1)
 flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -104,7 +86,6 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        __nv_bfloat16* __restrict__ dv, int S, int H) {
   using C = DkvCfg<D>;
   constexpr int STAGES = DKV_STAGES;
-  constexpr int CH = D / 64;  // 64-column boxes in a row
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar_kv;
   __shared__ __align__(8) uint64_t full[STAGES];
@@ -124,6 +105,14 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int tid = threadIdx.x;
   const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
   const int tl = tid % 128;
+  // Thread 0 fills ring slot t % STAGES with the Q and dO tiles t places
+  // below the diagonal.
+  auto issue_q = [&](int t) {
+    const int slot = t % STAGES;
+    tma_load_pair<D>(&tq, sQ + slot * C::Q_BYTES, &tdo,
+                     sDO + slot * C::Q_BYTES, &full[slot], C::Q_BOX, h,
+                     (first + t) * DKV_BQ, b);
+  };
 
   if (tid == 0) {
     mbar_init(&bar_kv, 1);
@@ -137,14 +126,8 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
 
   if (tid == 0) {
-    mbar_expect_tx(&bar_kv, 2 * C::KV_BYTES);
-#pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      tma_load_4d(sK + c * C::KV_BOX, &tk, &bar_kv, c * 64, h, k0, b);
-      tma_load_4d(sV + c * C::KV_BOX, &tv, &bar_kv, c * 64, h, k0, b);
-    }
-    for (int t = 0; t < STAGES - 1 && t < count; ++t)
-      dkv_issue_q<D>(t, (first + t) * DKV_BQ, &tq, &tdo, sQ, sDO, full, h, b);
+    tma_load_pair<D>(&tk, sK, &tv, sV, &bar_kv, C::KV_BOX, h, k0, b);
+    for (int t = 0; t < STAGES - 1 && t < count; ++t) issue_q(t);
   }
   __syncwarp();
 
@@ -176,8 +159,7 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       if (tt < count) {
         // The slot last held tile tt - STAGES; wait until all warps are done.
         if (tt >= STAGES) mbar_wait(&empty[tt % STAGES], (tt / STAGES - 1) & 1);
-        dkv_issue_q<D>(tt, (first + tt) * DKV_BQ, &tq, &tdo, sQ, sDO, full,
-                       h, b);
+        issue_q(tt);
       }
     }
     __syncwarp();  // warp 0 whole again before the .aligned ops

@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the wgmma kernels (flash_fwd_wgmma.cu,
-// flash_dkv_wgmma.cu): TMA tensor maps and loads, mbarriers, and the
-// warpgroup matrix multiply (wgmma) with its shared-memory descriptors.
+// flash_dq_wgmma.cu, flash_dkv_wgmma.cu): TMA tensor maps and loads,
+// mbarriers, and the warpgroup matrix multiply (wgmma) with its
+// shared-memory descriptors.
 //
 // Shared-memory tiles: every bf16 operand tile is what one TMA box of
 // 64 columns (128 bytes) by R rows writes with CU_TENSOR_MAP_SWIZZLE_128B:
@@ -18,7 +19,7 @@
 //   the contraction runs over D): 8-row groups 1024 bytes apart (SBO); a
 //   16-wide k step moves the start address by 32 bytes inside the swizzled
 //   row; LBO is unused (1).
-//   MN-major (the output dim contiguous, as v and dO are when the
+//   MN-major (the output dim contiguous, as v, k, q and dO are when the
 //   contraction runs over rows): 8-row groups of the contraction dim 1024
 //   bytes apart (SBO); the next 64 output columns are the next box (LBO);
 //   a 16-wide k step moves the start address by 16 rows, 2048 bytes.
@@ -157,6 +158,25 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
          "r"(c2), "r"(c3), "r"(smem_u32(bar))
       : "memory");
+}
+
+// The same rows (r0 .. r0 + rows - 1 of head h, batch b) of two [B, S, H, D]
+// tensors into the tiles at `dst_x` and `dst_y`, each D / 64 boxes of
+// `box_bytes` (rows * 128), both completing on `bar`, which is told their
+// byte count. Issued by one thread.
+template <int D>
+__device__ __forceinline__ void tma_load_pair(const CUtensorMap* x,
+                                              uint32_t dst_x,
+                                              const CUtensorMap* y,
+                                              uint32_t dst_y, uint64_t* bar,
+                                              uint32_t box_bytes, int h,
+                                              int r0, int b) {
+  mbar_expect_tx(bar, 2 * (D / 64) * box_bytes);
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) {
+    tma_load_4d(dst_x + c * box_bytes, x, bar, c * 64, h, r0, b);
+    tma_load_4d(dst_y + c * box_bytes, y, bar, c * 64, h, r0, b);
+  }
 }
 
 // Barrier over the 128 threads of one warpgroup (ids 1.. ; 0 is
@@ -365,11 +385,14 @@ inline bool use_wgmma(int dtype, int D) {
   return dtype == 1 && (D == 64 || D == 128);
 }
 
-// flash_fwd_wgmma.cu, flash_dkv_wgmma.cu: bf16 tensors, D in {64, 128};
-// return 0 or a CUDA error (or TENSOR_MAP_ERROR + CUresult).
+// flash_fwd_wgmma.cu, flash_dq_wgmma.cu, flash_dkv_wgmma.cu: bf16 tensors,
+// D in {64, 128}; return 0 or a CUDA error (or TENSOR_MAP_ERROR + CUresult).
 int flash_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
                     void* lse, int B, int S, int H, int D,
                     cudaStream_t stream);
+int flash_dq_wgmma(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dq, int B, int S, int H, int D, cudaStream_t stream);
 int flash_dkv_wgmma(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dk, void* dv, int B, int S, int H, int D,

@@ -1,6 +1,6 @@
 """Causal flash attention for Hopper: hand-written CUDA forward, dQ and
-dK/dV kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), each beside
-a plain PyTorch version of the same blocked online-softmax algorithm.
+dK/dV kernels (``csrc/*.cu``), each beside a plain PyTorch version of the
+same blocked online-softmax algorithm.
 
 Port of ``kubeflow_tpu/ops/flash_attention.py``. Same contract:
 
@@ -19,13 +19,13 @@ kernel or raise. There is no fallback from one to the other.
 
 Two kernel designs sit behind the same C entry points, chosen by
 ``design(dtype, head_dim)`` alone (the C side applies the same rule):
-``"wgmma"`` for bf16 at D in {64, 128} -- the forward and dK/dV kernels
-on the tensor cores (``csrc/flash_fwd_wgmma.cu``,
+``"wgmma"`` for bf16 at D in {64, 128} -- all three kernels on the
+tensor cores (``csrc/flash_fwd_wgmma.cu``, ``csrc/flash_dq_wgmma.cu``,
 ``csrc/flash_dkv_wgmma.cu``), bf16 operands in shared memory fed by TMA,
 f32 accumulators -- and ``"fma"`` for everything else (f32 at every D,
 bf16 at D in {192, 256}), the f32 FMA kernels of ``flash_fwd.cu`` and
 ``flash_bwd.cu``. f32 on the tensor cores would be TF32, which cannot hold
-the f32 kernels' 1e-4 bound. The dQ kernel has only the FMA design.
+the f32 kernels' 1e-4 bound.
 
 ``LAUNCHES`` counts kernel launches per kernel (plain-version calls do
 not count), so a run can show its main path went through the kernels.
@@ -61,13 +61,12 @@ WGMMA_HEAD_DIMS = (64, 128)
 def design(dtype: torch.dtype, head_dim: int, kernel: str = "flash_fwd"
            ) -> str:
     """Which CUDA design ``kernel`` runs for (dtype, head_dim): "wgmma"
-    (tensor cores) for bf16 at D in {64, 128} for the forward and dK/dV
-    kernels, "fma" (f32 FMA on the CUDA cores) otherwise. A pure function
+    (tensor cores) for bf16 at D in {64, 128}, "fma" (f32 FMA on the CUDA
+    cores) otherwise, the same rule for all three kernels. A pure function
     of its arguments, mirrored by ``use_wgmma`` in ``csrc/hopper.cuh``."""
     if kernel not in LAUNCHES:
         raise ValueError(f"unknown kernel {kernel!r}; one of {list(LAUNCHES)}")
-    if (kernel != "flash_dq" and dtype == torch.bfloat16
-            and head_dim in WGMMA_HEAD_DIMS):
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "fma"
 
@@ -270,8 +269,7 @@ def _fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
 def _dq(q, k, v, do, lse, delta) -> torch.Tensor:
     if not _on_cuda(q):
         return _dq_reference(q, k, v, do, lse, delta)
-    q, k, v, do, lse, delta = (x.contiguous()
-                               for x in (q, k, v, do, lse, delta))
+    q, k, v, do, lse, delta = (_dense(x) for x in (q, k, v, do, lse, delta))
     dq = torch.empty_like(q)
     _launch("flash_dq", q, k, v, do, lse, delta, dq)
     return dq

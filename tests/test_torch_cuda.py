@@ -22,8 +22,10 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("flash_fwd/flash_dq/flash_dkv CUDA kernels "
-                    "(ops/csrc/flash_fwd.cu, flash_bwd.cu) need an NVIDIA "
-                    "GPU; torch.cuda.is_available() is false")
+                    "(ops/csrc/flash_fwd.cu, flash_bwd.cu, "
+                    "flash_fwd_wgmma.cu, flash_dq_wgmma.cu, "
+                    "flash_dkv_wgmma.cu) need an NVIDIA GPU; "
+                    "torch.cuda.is_available() is false")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -71,38 +73,41 @@ def test_kernels_match_plain_version(cuda, dtype, D):
 
 
 def _wgmma_run(q, k, v, do):
-    """The forward and dK/dV kernels on bf16 inputs (the wgmma design),
-    the dK/dV kernel fed the plain forward's lse and delta."""
+    """The three kernels on bf16 inputs (the wgmma design), the dQ and
+    dK/dV kernels fed the plain forward's lse and delta."""
     o, lse = fa._fwd(q, k, v)
     o_r, lse_r = fa._fwd_reference(q, k, v)
     delta = torch.sum(do.float() * o_r.float(), -1, keepdim=True)
+    dq = fa._dq(q, k, v, do, lse_r, delta)
     dk, dv = fa._dkv(q, k, v, do, lse_r, delta)
-    return (o, lse, dk, dv), (o_r, lse_r, delta)
+    return (o, lse, dq, dk, dv), (o_r, lse_r, delta)
 
 
 @pytest.mark.parametrize("shape", [(2, 2048, 4, 64), (1, 2048, 4, 128),
                                    (1, 320, 2, 64), (1, 320, 2, 128),
                                    (1, 64, 2, 64), (3, 192, 3, 128)])
 def test_wgmma_kernels_match_plain_version(cuda, shape):
-    """flash_fwd and flash_dkv in their wgmma design (bf16, D 64/128; S =
-    320 and 192 leave a ragged half tile, S % 128 == 64, and S = 64 is
-    less than one tile) against the plain
-    versions: o 2e-2 abs, lse 1e-3 abs, dk/dv 2e-2 relative to the max,
-    chip_smoke.py's bounds. The new rounding is P and dS to bf16 before
-    their second products (tests/test_torch_flash.py bounds it on the
-    CPU)."""
-    assert fa.design(torch.bfloat16, shape[-1], "flash_fwd") == "wgmma"
-    assert fa.design(torch.bfloat16, shape[-1], "flash_dkv") == "wgmma"
+    """flash_fwd, flash_dq and flash_dkv in their wgmma design (bf16, D
+    64/128; S = 320 and 192 leave a ragged half tile, S % 128 == 64, and
+    S = 64 is less than one tile) against the plain versions: o 2e-2 abs,
+    lse 1e-3 abs, dq/dk/dv 2e-2 relative to the max, chip_smoke.py's
+    bounds. The new rounding is P and dS to bf16 before their second
+    products (tests/test_torch_flash.py bounds it on the CPU)."""
+    for name in fa.LAUNCHES:
+        assert fa.design(torch.bfloat16, shape[-1], name) == "wgmma"
     q, k, v, do = _inputs(shape, 11, cuda, torch.bfloat16)
     before = dict(fa.LAUNCHES)
-    (o, lse, dk, dv), (o_r, lse_r, delta) = _wgmma_run(q, k, v, do)
+    (o, lse, dq, dk, dv), (o_r, lse_r, delta) = _wgmma_run(q, k, v, do)
+    dq_r = fa._dq_reference(q, k, v, do, lse_r, delta)
     dk_r, dv_r = fa._dkv_reference(q, k, v, do, lse_r, delta)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_fwd"] == before["flash_fwd"] + 1
-    assert fa.LAUNCHES["flash_dkv"] == before["flash_dkv"] + 1
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
     assert bool(torch.isfinite(o.float()).all())
+    assert bool(torch.isfinite(dq.float()).all())
     assert float((o.float() - o_r.float()).abs().max()) <= 2e-2
     assert float((lse - lse_r).abs().max()) <= 1e-3
+    assert _rel(dq, dq_r) <= 2e-2
     assert _rel(dk, dk_r) <= 2e-2
     assert _rel(dv, dv_r) <= 2e-2
 
@@ -121,19 +126,25 @@ def test_wgmma_kernels_are_deterministic(cuda, D):
 
 def test_wgmma_inputs_at_odd_offsets(cuda):
     """A bf16 view that starts 2 bytes into its allocation is copied to an
-    aligned tensor before the TMA-fed kernel sees it; _launch itself
-    refuses it."""
-    q, k, v, _ = _inputs((1, 256, 2, 64), 3, cuda, torch.bfloat16)
+    aligned tensor before a TMA-fed kernel sees it (forward and dQ);
+    _launch itself refuses it."""
+    q, k, v, do = _inputs((1, 256, 2, 64), 3, cuda, torch.bfloat16)
     buf = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
     q_odd = buf[1:].view(q.shape)
     q_odd.copy_(q)
     assert q_odd.data_ptr() % 16
     o, _ = fa._fwd(q_odd, k, v)
-    o_r, _ = fa._fwd_reference(q, k, v)
+    o_r, lse_r = fa._fwd_reference(q, k, v)
     assert float((o.float() - o_r.float()).abs().max()) <= 2e-2
+    delta = torch.sum(do.float() * o_r.float(), -1, keepdim=True)
+    dq = fa._dq(q_odd, k, v, do, lse_r, delta)
+    assert _rel(dq, fa._dq_reference(q, k, v, do, lse_r, delta)) <= 2e-2
     lse = torch.empty(1, 256, 2, 1, device=cuda)
     with pytest.raises(ValueError, match="aligned"):
         fa._launch("flash_fwd", q_odd, k, v, torch.empty_like(q), lse)
+    with pytest.raises(ValueError, match="aligned"):
+        fa._launch("flash_dq", q_odd, k, v, do, lse_r, delta,
+                   torch.empty_like(q))
 
 
 def test_base_preset_launches_through_wgmma(cuda, capsys):
@@ -148,7 +159,7 @@ def test_base_preset_launches_through_wgmma(cuda, capsys):
     assert cfg.dtype == torch.bfloat16 and cfg.head_dim == 64
     assert fa.design(torch.bfloat16, 64) == "wgmma"
     assert fa.design(torch.bfloat16, 64, "flash_dkv") == "wgmma"
-    assert fa.design(torch.bfloat16, 64, "flash_dq") == "fma"
+    assert fa.design(torch.bfloat16, 64, "flash_dq") == "wgmma"
     fa.reset_launches()
     rc = lm_runner.main(["--preset", "base", "--dataset", "lm-small",
                          "--steps", "2", "--batch-size", "1",

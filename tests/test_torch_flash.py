@@ -98,14 +98,14 @@ def test_cuda_tensors_never_take_the_plain_path():
 @pytest.mark.parametrize("D", [64, 128, 192, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_design_is_a_function_of_dtype_and_head_dim(dtype, D):
-    """Every (dtype, D) that _launch accepts: the forward and dK/dV kernels
-    run on the tensor cores ("wgmma") for bf16 at D 64/128 and as f32 FMA
-    otherwise; the dQ kernel has only the FMA design."""
+    """Every (dtype, D) that _launch accepts: all three kernels run on the
+    tensor cores ("wgmma") for bf16 at D 64/128 and as f32 FMA
+    otherwise."""
     wgmma = dtype == torch.bfloat16 and D in (64, 128)
     assert port.design(dtype, D) == port.design(dtype, D, "flash_fwd")
     assert port.design(dtype, D, "flash_fwd") == ("wgmma" if wgmma else "fma")
     assert port.design(dtype, D, "flash_dkv") == ("wgmma" if wgmma else "fma")
-    assert port.design(dtype, D, "flash_dq") == "fma"
+    assert port.design(dtype, D, "flash_dq") == ("wgmma" if wgmma else "fma")
 
 
 def test_design_rejects_unknown_kernels():
@@ -116,8 +116,9 @@ def test_design_rejects_unknown_kernels():
 # The wgmma kernels' rounding, emulated in plain torch: bf16 operands with
 # products summed in f32 (a product of two bf16 numbers is exact in f32),
 # the forward's online softmax over the kernel's own tiles (128 query rows;
-# 128 keys at D = 64, 64 at D = 128) with P rounded to bf16 before P V, and
-# P^T and dS^T rounded to bf16 before the dV and dK products.
+# 128 keys at D = 64, 64 at D = 128) with P rounded to bf16 before P V,
+# P^T and dS^T rounded to bf16 before the dV and dK products, and dS (P in
+# f32) rounded to bf16 before dS K.
 
 def _bf16(x):
     return x.to(torch.bfloat16).float()
@@ -164,6 +165,39 @@ def _emulate_wgmma_dkv(q, k, v, do, lse, delta):
     return port._seq_first(dk, k.dtype), port._seq_first(dv, v.dtype)
 
 
+def _emulate_wgmma_dq(q, k, v, do, lse, delta):
+    S = q.shape[1]
+    qt, kt, vt, dot, lset, dt = port._heads_first(q, k, v, do, lse, delta)
+    s = qt @ kt.transpose(-1, -2)
+    p = torch.where(port._causal_mask(0, S, 0, S, "cpu"),
+                    torch.exp(s - lset), 0.0)
+    ds = p * (dot @ vt.transpose(-1, -2) - dt)
+    return port._seq_first(_bf16(ds) @ kt, q.dtype)
+
+
+def _bf16_case(shape, seed):
+    """bf16 inputs, the reference's Pallas forward and its three gradients
+    (jax.grad through the custom VJP: _dq_kernel and _dkv_kernel,
+    interpret mode), and the emulated wgmma forward with its delta."""
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
+                   for x in _inputs(shape, seed))
+    qj, kj, vj, doj = (jnp.asarray(x.float().numpy(), dtype=jnp.bfloat16)
+                       for x in (q, k, v, do))
+    o_r, lse_r = ref.flash_attention_fwd(qj, kj, vj, interpret=True)
+    grads = jax.grad(lambda q, k, v: jnp.sum(
+        ref.flash_attention(q, k, v, interpret=True).astype(jnp.float32)
+        * doj.astype(jnp.float32)), argnums=(0, 1, 2))(qj, kj, vj)
+    as_np = lambda x: np.asarray(x.astype(jnp.float32))
+    o, lse = _emulate_wgmma_fwd(q, k, v)
+    delta = torch.sum(do.float() * o.float(), -1, keepdim=True)
+    return ((q, k, v, do), (as_np(o_r), as_np(lse_r)),
+            [as_np(g) for g in grads], (o, lse, delta))
+
+
+def _max_rel(a, b):
+    return np.max(np.abs(a.float().numpy() - b)) / np.max(np.abs(b))
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("shape", [(1, 512, 2, 64), (1, 256, 2, 128)])
 def test_wgmma_rounding_stays_within_budget_of_reference(shape, seed):
@@ -171,25 +205,26 @@ def test_wgmma_rounding_stays_within_budget_of_reference(shape, seed):
     reference's Pallas kernels (interpret mode) on the same bf16 inputs,
     within chip_smoke.py's bounds: o 2e-2 abs, lse 1e-3 abs, dk/dv 2e-2
     relative to the max."""
-    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
-                   for x in _inputs(shape, seed))
-    qj, kj, vj, doj = (jnp.asarray(x.float().numpy(), dtype=jnp.bfloat16)
-                       for x in (q, k, v, do))
-    o_r, lse_r = ref.flash_attention_fwd(qj, kj, vj, interpret=True)
-    _, dk_r, dv_r = jax.grad(lambda q, k, v: jnp.sum(
-        ref.flash_attention(q, k, v, interpret=True).astype(jnp.float32)
-        * doj.astype(jnp.float32)), argnums=(0, 1, 2))(qj, kj, vj)
-
-    o, lse = _emulate_wgmma_fwd(q, k, v)
-    delta = torch.sum(do.float() * o.float(), -1, keepdim=True)
+    (q, k, v, do), (o_r, lse_r), (_, dk_r, dv_r), (o, lse, delta) = \
+        _bf16_case(shape, seed)
     dk, dv = _emulate_wgmma_dkv(q, k, v, do, lse, delta)
-    as_np = lambda x: np.asarray(x.astype(jnp.float32))
-    assert np.max(np.abs(o.float().numpy() - as_np(o_r))) <= 2e-2
-    assert np.max(np.abs(lse.numpy() - as_np(lse_r))) <= 1e-3
+    assert np.max(np.abs(o.float().numpy() - o_r)) <= 2e-2
+    assert np.max(np.abs(lse.numpy() - lse_r)) <= 1e-3
     for a, b in ((dk, dk_r), (dv, dv_r)):
-        b = as_np(b)
-        assert np.max(np.abs(a.float().numpy() - b)) / np.max(np.abs(b)) \
-            <= 2e-2
+        assert _max_rel(a, b) <= 2e-2
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("shape", [(1, 512, 2, 64), (1, 256, 2, 128)])
+def test_wgmma_dq_rounding_stays_within_budget_of_reference(shape, seed):
+    """The wgmma dQ kernel's bf16 numerics (emulated above: P in f32, dS to
+    bf16 before dS K) against the dq of the reference's Pallas _dq_kernel
+    (interpret mode) on the same bf16 inputs: 2e-2 relative to the max,
+    chip_smoke.py's bound."""
+    (q, k, v, do), _, (dq_r, _, _), (_, lse, delta) = _bf16_case(shape, seed)
+    dq = _emulate_wgmma_dq(q, k, v, do, lse, delta)
+    assert dq.dtype == torch.bfloat16 and tuple(dq.shape) == shape
+    assert _max_rel(dq, dq_r) <= 2e-2
 
 
 @pytest.mark.cuda
