@@ -15,7 +15,8 @@ The reference's ``TransformerLM`` params (under ``nn.scan``) are::
 The port keeps every kernel's layout, so conversion renames the leaves
 and splits the stacked ``[L, ...]`` leaves per layer
 (``layers.{i}.attn.query.kernel`` ...). Trees are nested dicts of numpy
-arrays; nothing here imports JAX.
+arrays (a bfloat16 leaf, which numpy cannot hold, may be a torch
+tensor); nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -50,8 +51,16 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
         if isinstance(v, Mapping):
             out.update(_flatten(v, prefix + (k,)))
         else:
-            out[prefix + (k,)] = np.asarray(v)
+            out[prefix + (k,)] = v if isinstance(v, torch.Tensor) \
+                else np.asarray(v)
     return out
+
+
+def _tensor(x) -> torch.Tensor:
+    """A CPU tensor that owns a copy of ``x`` (an array or a tensor)."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    return torch.from_numpy(np.array(x))
 
 
 def _set(tree: dict, path: tuple, value) -> None:
@@ -73,16 +82,14 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     if missing or extra:
         raise KeyError(f"param tree does not match the dense TransformerLM: "
                        f"missing {missing}, unexpected {extra}")
-    out = {key: torch.from_numpy(np.array(flat[path]))
-           for path, key in _TOP.items()}
+    out = {key: _tensor(flat[path]) for path, key in _TOP.items()}
     depths = {flat[("layers",) + p].shape[0] for p in _LAYER}
     if len(depths) != 1:
         raise ValueError(f"stacked layer leaves disagree on depth: {depths}")
     for path, suffix in _LAYER.items():
         stacked = flat[("layers",) + path]
         for i in range(stacked.shape[0]):
-            out[f"layers.{i}.{suffix}"] = torch.from_numpy(
-                np.array(stacked[i]))
+            out[f"layers.{i}.{suffix}"] = _tensor(stacked[i])
     return out
 
 

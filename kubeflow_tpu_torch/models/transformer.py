@@ -1,5 +1,6 @@
 """Decoder-only transformer LM — PyTorch port of
-``kubeflow_tpu/models/transformer.py`` (dense training path).
+``kubeflow_tpu/models/transformer.py`` (dense training path and dense
+KV-cache decode).
 
 Same math and the same precision rules as the flax reference:
 
@@ -15,6 +16,9 @@ Same math and the same precision rules as the flax reference:
     stack.
 
 Layers are an ``nn.ModuleList`` (eager PyTorch has no use for a scan).
+Decode mode (``decode=True``) keeps the reference's dense cache as an
+explicit ``KVCache`` the caller allocates and passes to ``forward``
+instead of a flax "cache" collection.
 Initialisation matches flax's distributions, not its bits: lecun-normal
 (truncated) kernels by fan-in, embeddings normal with std 1/sqrt(d_model),
 norm scales 1.
@@ -24,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -46,12 +50,10 @@ _NOT_IN_SLICE = (
     ("kv_quant", lambda c: bool(c.kv_quant),
      "Queue A 5, the engine (int8 weights/KV)"),
     ("lora_rank", lambda c: c.lora_rank > 0, "Queue A 5, the engine (LoRA)"),
-    ("decode", lambda c: c.decode, "Queue A 1, serving slice"),
-    ("remat", lambda c: c.remat,
-     "Queue A 2, remat with the fwd/apply split"),
-    ("loss_chunk", lambda c: c.loss_chunk > 0,
-     "Queue A 3, chunked cross-entropy"),
 )
+# ``remat`` and ``loss_chunk`` only matter to training, so they are refused
+# where training would use them (parallel/lm_train.py), not here: every
+# dense export loads and serves whatever it was trained with.
 
 
 def _as_dtype(x: Any) -> torch.dtype:
@@ -152,8 +154,8 @@ class TransformerConfig:
             if used(self):
                 raise NotImplementedError(
                     f"TransformerConfig.{name}={getattr(self, name)!r} is not "
-                    f"ported yet (ROADMAP.md, {item}); this slice is dense "
-                    "training with remat=False")
+                    f"ported yet (ROADMAP.md, {item}); the port has dense "
+                    "training and dense one-shot decode")
 
     @property
     def qkv_features(self) -> int:
@@ -173,6 +175,46 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+
+
+@dataclasses.dataclass
+class LayerKV:
+    """One layer's dense cache: ``key``/``value`` [B, L, H, D] in
+    ``cfg.dtype`` and the cached position id of each slot, ``pos`` [B, L]
+    int32 (-1 = empty or a right-pad token, masked)."""
+
+    key: torch.Tensor
+    value: torch.Tensor
+    pos: torch.Tensor
+
+
+@dataclasses.dataclass
+class KVCache:
+    """The decode-mode cache of every layer, L = ``cfg.max_seq_len`` slots
+    per batch row, and each row's write cursor ``cursor`` [B] int32.
+
+    ``TransformerLM.forward(tokens, positions, cache)`` writes the S new
+    K/V (pad tokens included) at each row's cursor and advances it by S.
+    Rows advance together, so ``length`` (host side) is every row's
+    cursor: the write guard reads it without waiting for the device. The
+    reference relies on XLA dropping out-of-range scatter updates; PyTorch
+    raises or faults instead, so a write past L is refused up front."""
+
+    layers: List[LayerKV]
+    cursor: torch.Tensor
+    length: int = 0
+
+    @classmethod
+    def allocate(cls, cfg: "TransformerConfig", batch: int,
+                 device: Any = None) -> "KVCache":
+        L, H, D = cfg.max_seq_len, cfg.n_heads, cfg.head_dim
+        layers = [LayerKV(
+            torch.zeros(batch, L, H, D, dtype=cfg.dtype, device=device),
+            torch.zeros(batch, L, H, D, dtype=cfg.dtype, device=device),
+            torch.full((batch, L), -1, dtype=torch.int32, device=device))
+            for _ in range(cfg.n_layers)]
+        return cls(layers, torch.zeros(batch, dtype=torch.int32,
+                                       device=device))
 
 
 def flash_window_ok(cfg: TransformerConfig, seq_len: int) -> bool:
@@ -260,8 +302,9 @@ class Attention(nn.Module):
         # the reference off-TPU).
         return ok and device.type == "cuda" and flash_window_ok(cfg, seq_len)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                kv: Optional[LayerKV] = None,
+                cursor: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         B, S, _ = x.shape
         q = self.query(x)
@@ -271,7 +314,9 @@ class Attention(nn.Module):
         q = rope(q, pos)
         k = rope(k, pos)
         q = q / math.sqrt(cfg.head_dim)
-        if self._use_flash(S, x.device):
+        if kv is not None:
+            out = self._decode_attend(q, k, v, positions, kv, cursor)
+        elif self._use_flash(S, x.device):
             out = flash_ops.flash_attention(q, k, v)
         else:
             # Dense causal attention: scores in the compute dtype, masked
@@ -283,6 +328,29 @@ class Attention(nn.Module):
             probs = torch.softmax(scores.to(torch.float32), -1)
             out = torch.einsum("bhqk,bkhd->bqhd", probs.to(cfg.dtype), v)
         return self.out(out)
+
+    def _decode_attend(self, q, k, v, positions, kv: LayerKV,
+                       cursor: torch.Tensor) -> torch.Tensor:
+        """The reference's dense ``_decode_attend`` branch: write the S new
+        K/V and their position ids at each row's cursor, then attend over
+        the whole cache, masked by cached position (``0 <= kp <= qp``), so
+        pad slots (-1) and not-yet-written slots never contribute and
+        query i of a multi-token window sees the window's earlier
+        tokens."""
+        cfg = self.cfg
+        B, S = q.shape[:2]
+        rows = torch.arange(B, device=q.device)[:, None]
+        at = cursor.long()[:, None] + torch.arange(S, device=q.device)[None]
+        kv.key[rows, at] = k.to(cfg.dtype)
+        kv.value[rows, at] = v.to(cfg.dtype)
+        kv.pos[rows, at] = positions.to(torch.int32)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, kv.key)   # [B, H, S, L]
+        kp = kv.pos[:, None, None, :]
+        qp = positions[:, None, :, None]
+        mask = (kp >= 0) & (kp <= qp)
+        scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
+        probs = torch.softmax(scores.to(torch.float32), -1)
+        return torch.einsum("bhqk,bkhd->bqhd", probs.to(cfg.dtype), kv.value)
 
 
 class DenseFFN(nn.Module):
@@ -306,9 +374,10 @@ class Block(nn.Module):
         self.ln2 = RMSNorm(cfg.d_model, cfg.dtype)
         self.mlp = DenseFFN(cfg)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor
-                ) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), positions)
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                kv: Optional[LayerKV] = None,
+                cursor: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), positions, kv, cursor)
         return x + self.mlp(self.ln2(x))
 
 
@@ -358,13 +427,32 @@ class TransformerLM(nn.Module):
                 mod.reset_parameters(generator)
 
     def forward(self, tokens: torch.Tensor,
-                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                positions: Optional[torch.Tensor] = None,
+                cache: Optional[KVCache] = None) -> torch.Tensor:
+        """``cache`` is required with ``cfg.decode`` and refused without
+        it: a decode model always reads and extends its cache, as the
+        reference's does."""
+        cfg = self.cfg
+        if cfg.decode != (cache is not None):
+            raise ValueError("a KVCache is passed exactly when cfg.decode "
+                             f"is set (decode={cfg.decode})")
+        S = tokens.shape[1]
+        if cache is not None and cache.length + S > cfg.max_seq_len:
+            raise ValueError(
+                f"KV cache overflow: {cache.length} cached + {S} new tokens "
+                f"exceed max_seq_len {cfg.max_seq_len}")
         x = self.embed(tokens)
         if positions is None:
-            positions = torch.arange(tokens.shape[1], device=tokens.device,
+            positions = torch.arange(S, device=tokens.device,
                                      dtype=torch.int32).expand(tokens.shape)
-        for layer in self.layers:
-            x = layer(x, positions)
+        for i, layer in enumerate(self.layers):
+            if cache is None:
+                x = layer(x, positions)
+            else:
+                x = layer(x, positions, cache.layers[i], cache.cursor)
+        if cache is not None:
+            cache.cursor += S
+            cache.length += S
         return self.lm_head(self.ln_f(x)).to(torch.float32)
 
 

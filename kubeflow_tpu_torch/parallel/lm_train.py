@@ -103,6 +103,15 @@ class LMTrainLoop:
     def __init__(self, cfg: TransformerConfig,
                  hp: Optional[LMHyperParams] = None,
                  device: Union[str, torch.device] = "cuda"):
+        for name, item in (("remat", "Queue A 2, remat with the fwd/apply "
+                                     "split"),
+                           ("loss_chunk", "Queue A 3, chunked "
+                                          "cross-entropy")):
+            if getattr(cfg, name):
+                raise NotImplementedError(
+                    f"training with TransformerConfig.{name}="
+                    f"{getattr(cfg, name)!r} is not ported yet "
+                    f"(ROADMAP.md, {item})")
         self.cfg = cfg
         self.hp = hp or LMHyperParams()
         self.device = resolve_device(device)

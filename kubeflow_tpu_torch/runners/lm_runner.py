@@ -4,13 +4,16 @@
 Same flags and the same stdout contract (``runner_start …``,
 ``model_params=…``, ``step=… loss=… accuracy=… step_time=…
 tokens_per_s=…``, ``train_done …``, ``loss=``, ``accuracy=``,
-``entropy_floor=``), plus ``--device {cuda,cpu}``:
+``entropy_floor=``, and ``exported_lm dir=…`` after ``--export-dir``), plus
+``--device {cuda,cpu}``:
 
     python -m kubeflow_tpu_torch.runners.lm_runner --preset=base \
         --dataset=lm-small --steps=100 --batch-size=4
 
-Flags that need parts of the reference not ported yet (meshes, remat,
-MoE, export, checkpoints) exit 2 naming the ROADMAP item that brings
+``--export-dir`` writes the reference's LM export format
+(``serving/lm_server.py``), which both packages serve. Flags that need
+parts of the reference not ported yet (meshes, remat, MoE, checkpoints)
+exit 2 naming the ROADMAP item that brings
 them. ``--collective-overlap`` has no counterpart on one GPU: ``auto`` and
 ``off`` are accepted as no-ops, ``on`` exits 2.
 """
@@ -105,8 +108,6 @@ def _unported(args) -> str:
         (args.experts > 0, "--experts needs ROADMAP.md Queue A 4, MoE"),
         (args.remat, "--remat needs ROADMAP.md Queue A 2, remat with the "
                      "fwd/apply split"),
-        (bool(args.export_dir), "--export-dir needs ROADMAP.md Queue A 1, "
-                                "serving slice (the LM export)"),
         (bool(os.environ.get("KFX_CHECKPOINT_DIR")) and not
          args.no_checkpoint, "KFX_CHECKPOINT_DIR needs ROADMAP.md Queue A 7 "
                              "(training/checkpoint.py); pass "
@@ -213,6 +214,12 @@ def main(argv=None) -> int:
     print(f"loss={metrics['loss']:.6f}", flush=True)
     print(f"accuracy={metrics['accuracy']:.6f}", flush=True)
     print(f"entropy_floor={ds.entropy_floor():.6f}", flush=True)
+    if args.export_dir:
+        from ..models.convert import params_to_jax
+        from ..serving.lm_server import export_lm
+
+        export_lm(args.export_dir, cfg, params_to_jax(model.state_dict()))
+        print(f"exported_lm dir={args.export_dir}", flush=True)
     return 0
 
 

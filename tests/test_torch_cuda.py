@@ -224,3 +224,88 @@ def test_runner_on_cuda_goes_through_kernels(cuda, capsys):
     assert rc == 0 and "device=cuda" in out and "train_done" in out
     assert fa.LAUNCHES == {"flash_fwd": 8 * 3, "flash_dq": 8 * 2,
                            "flash_dkv": 8 * 2}
+
+
+@pytest.fixture
+def cuda_serving():
+    if not torch.cuda.is_available():
+        pytest.skip("the LM serving path on the card (KV-cache decode, "
+                    "LMGenerator, ModelServer :generate) needs an NVIDIA "
+                    "GPU; torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _tiny_gapped_lm(device):
+    """A tiny f32 LM on ``device`` with wide argmax gaps (lm_head tied to
+    the embedding, attn.out and mlp.wo scaled by 0.35)."""
+    from kubeflow_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM)
+
+    cfg = TransformerConfig(vocab_size=64, d_model=32, n_heads=2,
+                            head_dim=16, n_layers=2, d_ff=64, max_seq_len=64,
+                            dtype="float32", attn_impl="naive")
+    model = TransformerLM(cfg, device=device,
+                          generator=torch.Generator(device).manual_seed(0))
+    with torch.no_grad():
+        model.lm_head.kernel.copy_(model.embed.embedding.T)
+        for layer in model.layers:
+            layer.attn.out.kernel.mul_(0.35)
+            layer.mlp.wo.kernel.mul_(0.35)
+    return cfg, model
+
+
+def test_generator_greedy_equals_recompute_on_cuda(cuda_serving):
+    """Cache decode on the card equals the argmax of a full no-cache
+    forward over the growing sequence (gap asserted first), and touches
+    no flash kernel."""
+    from kubeflow_tpu_torch.models.generate import LMGenerator
+
+    cfg, model = _tiny_gapped_lm(cuda_serving)
+    prompts = [[5, 9, 11, 3, 7], [2], [40, 41, 42, 43, 44, 45, 46]]
+    fa.reset_launches()
+    gen = LMGenerator(cfg, model.state_dict(), device=cuda_serving)
+    got = gen.generate(prompts, max_new_tokens=8)
+    for p, row in zip(prompts, got):
+        toks, gap = list(p), float("inf")
+        with torch.no_grad():
+            for _ in range(8):
+                last = model(torch.tensor([toks], device=cuda_serving))[0, -1]
+                top2 = torch.topk(last, 2).values
+                gap = min(gap, float(top2[0] - top2[1]))
+                toks.append(int(torch.argmax(last)))
+        assert gap > 1e-3
+        assert row == toks[len(p):]
+    assert fa.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+
+
+def test_model_server_generates_on_cuda(cuda_serving, tmp_path):
+    import json
+    import urllib.request
+
+    from kubeflow_tpu_torch.models.convert import params_to_jax
+    from kubeflow_tpu_torch.models.generate import LMGenerator
+    from kubeflow_tpu_torch.serving.lm_server import LMPredictor, export_lm
+    from kubeflow_tpu_torch.serving.server import ModelServer
+
+    cfg, model = _tiny_gapped_lm(cuda_serving)
+    export_lm(str(tmp_path), cfg, params_to_jax(model.state_dict()))
+    p = LMPredictor(str(tmp_path), name="lm")
+    p.load()
+    assert p.device == "cuda" and p.ready
+    srv = ModelServer(port=0)
+    srv.register(p)
+    srv.start()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/v1/models/lm:generate",
+            data=json.dumps({"prompt_tokens": [[5, 9, 11], [7]],
+                             "max_new_tokens": 6}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            body = json.load(r)
+    finally:
+        srv.stop()
+    want = LMGenerator(cfg, model.state_dict(), device=cuda_serving).generate(
+        [[5, 9, 11], [7]], max_new_tokens=6)
+    assert body["generated_tokens"] == want

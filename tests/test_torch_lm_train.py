@@ -151,7 +151,7 @@ def test_runner_cuda_without_gpu_raises():
 @pytest.mark.parametrize("argv,env", [
     (["--tp", "2"], {}), (["--pp", "2"], {}), (["--cp", "2"], {}),
     (["--sp"], {}), (["--fsdp"], {}), (["--experts", "4"], {}),
-    (["--remat"], {}), (["--export-dir", "/nonexistent"], {}),
+    (["--remat"], {}), ([], {"KFX_PARALLELISM": '{"pipeline": 2}'}),
     (["--collective-overlap", "on"], {}),
     ([], {"KFX_CHECKPOINT_DIR": "/nonexistent"}),
     ([], {"KFX_PARALLELISM": '{"tensor": 2}'}),

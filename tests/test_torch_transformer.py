@@ -137,13 +137,26 @@ def test_config_validation_matches_reference(kw):
 UNPORTED = [
     dict(n_experts=2), dict(cp=2), dict(sp=True), dict(quant="int8"),
     dict(kv_page_size=16, kv_pages=4), dict(lora_rank=4),
-    dict(decode=True), dict(remat=True), dict(loss_chunk=128),
+    # Dense decode is ported; the paged cache is the engine's.
+    pytest.param(dict(decode=True, kv_page_size=16, kv_pages=4),
+                 id="decode"),
+    dict(remat=True), dict(loss_chunk=128),
 ]
+# Training-only fields: every export loads and serves with them (decode
+# uses neither); training with them raises.
+TRAINING_ONLY = {"remat", "loss_chunk"}
 
 
 @pytest.mark.parametrize("kw", UNPORTED, ids=lambda kw: ",".join(kw))
 def test_unported_fields_raise_not_implemented(kw):
     ref.TransformerConfig(**kw)  # valid in the reference
+    if set(kw) <= TRAINING_ONLY:
+        from kubeflow_tpu_torch.parallel.lm_train import LMTrainLoop
+
+        cfg = port.TransformerConfig(**kw)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            LMTrainLoop(cfg, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.TransformerConfig(**kw)
 
