@@ -28,15 +28,31 @@ Phases, in order; any failure raises and the process exits non-zero:
 6. serving, with the launch counters set to 0 just before and read just
    after (the decode path reaches no flash kernel, as in the reference):
    (a) that export loaded by LMPredictor on the card behind an in-process
-   ModelServer: one HTTP :generate of 8 prompts (64-512 tokens, greedy,
-   64 new) equal to a direct LMGenerator call, an SSE stream equal to the
-   buffered answer, /metrics; (b) cache decode against full recompute on
-   the base preset in f32 with wide-gap weights; (c) seeded sampling
-   determinism and top_k=1 == greedy; (e) load seconds, prefill and
-   decode-step times against the decode step's bound, decode tokens/s,
-   the device's busy share in a decode step, peak memory;
-7. one JSON line per kernel set, the serving line, the card's name and
-   power limit, and the last line {"ok": true, "device": {...}}.
+   ModelServer on the one-shot path (KFX_LM_ENGINE=0, set explicitly: the
+   engine is the default): one HTTP :generate of 8 prompts (64-512
+   tokens, greedy, 64 new) equal to a direct LMGenerator call, an SSE
+   stream equal to the buffered answer, /metrics; (b) cache decode against
+   full recompute on the base preset in f32 with wide-gap weights; (c)
+   seeded sampling determinism and top_k=1 == greedy; (e) load seconds,
+   prefill and decode-step times against the decode step's bound, decode
+   tokens/s, the device's busy share in a decode step, peak memory;
+   (f) the continuous-batching DecodeEngine (the default serving path),
+   counters set to 0 just before and read just after: on (b)'s wide-gap
+   f32 base weights the engine's greedy tokens for (a)'s 8 prompts x 64
+   equal LMGenerator's (smallest top-1/top-2 gap asserted first), the
+   512-token prompt repeated hits the prefix cache with unchanged tokens,
+   a pool of one max-length request's pages preempts with unchanged
+   tokens, and no page leaks; on the base export behind an engine-backed
+   ModelServer, 8 concurrent single-prompt HTTP :generate requests (one
+   per thread, streamed) all answer, and in a second and third wave
+   (prompts cached) the SSE streams equal the buffered answers; the
+   first wave's aggregate tokens/s against the same 8 served one after
+   another by the one-shot path, time to first token, and the decode
+   chunk at 8 active slots against its bound, with its host enqueue
+   time, kernels and busy share;
+7. one JSON line per kernel set, the serving line, the engine line, the
+   card's name and power limit, and the last line {"ok": true, "device":
+   {...}}.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or without the port's package beside it, it exits non-zero
@@ -82,6 +98,18 @@ GAP_PROMPTS = (17, 64, 100)
 GAP_NEW = 16
 GAP_ALPHA = 0.35
 MIN_GAP = 1e-3      # top-1/top-2 logit gap required before comparing argmax
+
+# Engine phase (f): the reference's engine defaults (8 slots, 8-step decode
+# chunks, 32-token pages, prefix cache on, 256-token prefill chunks), and
+# a small pool of one max-length request's pages (2048 / 32) that the 8
+# prompts outgrow, so the engine must preempt.
+ENGINE_SLOTS = 8
+ENGINE_CHUNK = 8
+ENGINE_PAGE = 32
+ENGINE_PREFILL_CHUNK = 256
+ENGINE_SMALL_POOL = 64
+ENGINE_PROBE_STEP = 2   # the token whose logits the two paths compare
+GAP_MARGIN = 10         # smallest argmax gap / measured logit disagreement
 
 
 def log(msg: str) -> None:
@@ -545,7 +573,13 @@ def serving_phase(torch, fa, export_dir, gap_cfg, dev):
         "max_seq_len")}
     rec["export"]["dtype"] = str(cfg.dtype).replace("torch.", "")
     rec["export"]["param_dtype"] = str(cfg.param_dtype).replace("torch.", "")
-    pred = LMPredictor(export_dir, name="lm", device=dev.type)
+    # The one-shot path, pinned: the engine is the default.
+    os.environ["KFX_LM_ENGINE"] = "0"
+    try:
+        pred = LMPredictor(export_dir, name="lm", device=dev.type)
+    finally:
+        del os.environ["KFX_LM_ENGINE"]
+    check(pred.engine is None, "phase (a) is not on the one-shot path")
     t0 = time.perf_counter()
     pred.load()
     rec["predictor_load_seconds"] = time.perf_counter() - t0
@@ -653,6 +687,332 @@ def serving_phase(torch, fa, export_dir, gap_cfg, dev):
     rec["flash_launches"] = launches_all
     log(f"serving (d) flash launches {launches_all}; peak memory "
         f"{rec['peak_memory_gb']:.2f} GB")
+    return rec, prompts
+
+
+def run_threads(fn, items, timeout=600):
+    """``fn(item)`` for every item, one thread each, started together;
+    the results in item order. Any thread's exception fails the call."""
+    import threading
+
+    out, errs = [None] * len(items), []
+
+    def run(i):
+        try:
+            out[i] = fn(items[i])
+        except BaseException as e:  # re-raised on the calling thread
+            errs.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(items))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    check(not any(t.is_alive() for t in threads), "a request thread hung")
+    if errs:
+        raise errs[0]
+    return out
+
+
+def sse_first(url, payload, t_start, timeout=600):
+    """One ``"stream": true`` :generate read event by event: (tokens,
+    seconds from ``t_start`` to the first token event)."""
+    req = urllib.request.Request(url, data=json.dumps(
+        dict(payload, stream=True)).encode())
+    toks, first, done = [], None, False
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        check(r.headers.get("Content-Type") == "text/event-stream",
+              "SSE content type")
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            ev = json.loads(line[len("data: "):])
+            if ev.get("done"):
+                done = True
+                break
+            check("token" in ev, f"SSE error event {ev}")
+            if first is None:
+                first = time.perf_counter() - t_start
+            toks.append(ev["token"])
+    check(done, "SSE stream did not finish")
+    return toks, first
+
+
+def greedy_with_gap(gen, prompts, n, probe_step):
+    """``gen.generate(prompts, n)`` greedy; the smallest top-1/top-2 logit
+    gap over every row of every step it sampled from; and the [B, V]
+    logits it sampled token ``probe_step`` from."""
+    from kubeflow_tpu_torch.models import generate as gen_mod
+
+    gaps, seen, real = [], [], gen_mod._sample
+
+    def spy(logits, *a):
+        top2 = logits.topk(2, dim=-1).values
+        gaps.append(float((top2[:, 0] - top2[:, 1]).min()))
+        if len(seen) == probe_step:
+            seen.append(logits.clone())
+        elif len(seen) < probe_step:
+            seen.append(None)
+        return real(logits, *a)
+
+    gen_mod._sample = spy
+    try:
+        toks = gen.generate(prompts, n)
+    finally:
+        gen_mod._sample = real
+    return toks, min(gaps[:n]), seen[probe_step]
+
+
+def percentile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, math.ceil(q * len(xs)) - 1))]
+
+
+def engine_phase(torch, fa, export_dir, gap_cfg, prompts, dev):
+    """The DecodeEngine, the default serving path; see the module
+    docstring (6f). Returns the {"engine": ...} record."""
+    from kubeflow_tpu_torch.models.generate import LMGenerator
+    from kubeflow_tpu_torch.models.transformer import TransformerLM
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+    from kubeflow_tpu_torch.serving.lm_server import LMPredictor
+    from kubeflow_tpu_torch.serving.server import ModelServer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    rec = {"slots": ENGINE_SLOTS, "chunk_tokens": ENGINE_CHUNK,
+           "page": ENGINE_PAGE, "prefill_chunk": ENGINE_PREFILL_CHUNK,
+           "new_tokens": SERVE_NEW}
+    kw = dict(n_slots=ENGINE_SLOTS, chunk_tokens=ENGINE_CHUNK,
+              kv_page_size=ENGINE_PAGE,
+              prefill_chunk_tokens=ENGINE_PREFILL_CHUNK, device=dev)
+
+    # (f1) greedy equality, prefix cache, preemption: wide-gap f32 weights.
+    # 512 greedy decisions at full width reach closer ties than (b)'s 48,
+    # so the gap is held against the two paths' measured disagreement:
+    # the logits each samples token ENGINE_PROBE_STEP from (the engine's
+    # are its logits buffer after a request of that many tokens: a paged
+    # prefill and decode steps through the block tables at 8 slots).
+    g = torch.Generator(device=dev).manual_seed(0)
+    model = TransformerLM(gap_cfg, device=dev, generator=g)
+    wide_gap_(torch, model)
+    sd = model.state_dict()
+    gen32 = LMGenerator(gap_cfg, sd, device=dev)
+    want, gap, ref_logits = greedy_with_gap(gen32, prompts, SERVE_NEW,
+                                            ENGINE_PROBE_STEP)
+    probe = DecodeEngine(gap_cfg, sd, name="f32-probe", prefix_cache=False,
+                         **kw)
+    try:
+        probe.generate(prompts, ENGINE_PROBE_STEP)
+        diff = max_abs(probe._logbuf[:len(prompts)], ref_logits)
+    finally:
+        probe.close()
+    rec["min_gap"], rec["logits_max_abs_diff"] = gap, diff
+    check(gap > GAP_MARGIN * diff,
+          f"argmax gap {gap:.3g} too small against the paths' logit "
+          f"disagreement {diff:.3g}")
+    eng = DecodeEngine(gap_cfg, sd, name="f32", **kw)
+    try:
+        got = eng.generate(prompts, SERVE_NEW)
+        bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        check(not bad, f"engine greedy tokens differ from LMGenerator in "
+                       f"rows {bad}")
+        i512 = max(range(len(prompts)), key=lambda i: len(prompts[i]))
+        hits0 = eng.prefix_stats()["hits"]
+        again = eng.generate([prompts[i512]], SERVE_NEW)[0]
+        st = eng.prefix_stats()
+        check(st["hits"] > hits0, f"no prefix-cache hit: {st}")
+        check(again == want[i512], "prefix-hit tokens changed")
+        pages = eng.page_stats()
+        check(pages["free"] + pages["cached"] == pages["pages"],
+              f"page leak: {pages}")
+        rec["prefix"] = dict(st, repeat_prompt=len(prompts[i512]))
+    finally:
+        eng.close()
+    small = DecodeEngine(gap_cfg, sd, name="f32-small",
+                         kv_pages=ENGINE_SMALL_POOL, **kw)
+    try:
+        got = small.generate(prompts, SERVE_NEW)
+        pages = small.page_stats()
+        check(got == want, "tokens changed under preemption")
+        check(pages["preemptions"] >= 1, f"no preemption: {pages}")
+        check(pages["free"] + pages["cached"] == pages["pages"],
+              f"page leak after preemption: {pages}")
+        rec["preemption"] = pages
+    finally:
+        small.close()
+    log(f"engine (f1) f32 d={gap_cfg.d_model} L={gap_cfg.n_layers} greedy "
+        f"== LMGenerator for {len(prompts)} x {SERVE_NEW} (smallest "
+        f"top-1/top-2 gap {gap:.4g}, logits of the two paths within "
+        f"{diff:.3g}); prefix {rec['prefix']}; pool of "
+        f"{ENGINE_SMALL_POOL} pages: {pages}, tokens unchanged")
+    del model, sd, gen32
+    torch.cuda.empty_cache()
+
+    # (f2) the base export behind an engine-backed server, 8 concurrent
+    # single-prompt requests; then the one-shot path one after another.
+    n_tok = len(prompts) * SERVE_NEW
+    pred = LMPredictor(export_dir, name="lm", device=dev.type)
+    check(pred.engine is None and pred.use_engine, "engine not the default")
+    pred.load()
+    pred._warm_thread.join(600)
+    server = ModelServer(port=0)
+    server.register(pred)
+    server.start()
+    try:
+        url = f"http://127.0.0.1:{server.port}"
+        gen_url = f"{url}/v1/models/lm:generate"
+        one = lambda p: {"prompt_tokens": [p], "max_new_tokens": SERVE_NEW}
+
+        def sse_wave():
+            t0 = time.perf_counter()
+            out = run_threads(lambda p: sse_first(gen_url, one(p), t0),
+                              prompts)
+            return out, time.perf_counter() - t0
+
+        # The timed wave: cold (no prompt cached yet), streamed, so each
+        # request's first token event gives its TTFT.
+        chunks = pred.metrics.counter("kfx_lm_engine_chunks_total")
+        n0 = sum(v for _, v in chunks.samples())
+        streams, wall = sse_wave()
+        rec["wave_chunks"] = sum(v for _, v in chunks.samples()) - n0
+        first = [s[0] for s in streams]
+        ttft = [s[1] for s in streams]
+        check(all(len(t) == SERVE_NEW for t in first),
+              f"engine answers {[len(t) for t in first]}")
+        # SSE against buffered in one cache state: after the first wave
+        # every prompt hits the prefix cache, and in bf16 a prefill of the
+        # uncached tail alone rounds differently from the whole prompt's.
+        bodies = run_threads(lambda p: http_json(gen_url, one(p)), prompts)
+        buffered = [b["generated_tokens"][0] for b in bodies]
+        again, sse_wall = sse_wave()
+        check([s[0] for s in again] == buffered,
+              "SSE streams differ from the buffered answers")
+        blk = http_json(f"{url}/metrics?format=json")["engine"]["lm"]
+        check(blk["slots"] == ENGINE_SLOTS, f"engine block {blk}")
+        check(http_json(f"{url}/healthz") == {"status": "alive"},
+              "healthz")
+    finally:
+        server.stop()
+    eng = pred.engine
+    eng.close()
+    rec["engine_tokens_per_second"] = n_tok / wall
+    rec["engine_seconds"] = wall
+    rec["sse_seconds"] = sse_wall
+    rec["ttft_s"] = {"p50": percentile(ttft, 0.5),
+                     "p99": percentile(ttft, 0.99), "all": ttft}
+    os.environ["KFX_LM_ENGINE"] = "0"
+    try:
+        oneshot = LMPredictor(export_dir, name="lm", device=dev.type)
+    finally:
+        del os.environ["KFX_LM_ENGINE"]
+    oneshot.load()
+    server = ModelServer(port=0)
+    server.register(oneshot)
+    server.start()
+    try:
+        gen_url = f"http://127.0.0.1:{server.port}/v1/models/lm:generate"
+        serial, each = [], []
+        for p in prompts:
+            t0 = time.perf_counter()
+            serial.append(http_json(gen_url, one(p))["generated_tokens"][0])
+            each.append(time.perf_counter() - t0)
+        serial_wall = sum(each)
+        # The same 8 on the generator directly (no HTTP), for the spread.
+        direct = []
+        for p in prompts:
+            t0 = time.perf_counter()
+            oneshot._gen.generate([p], SERVE_NEW)
+            direct.append(time.perf_counter() - t0)
+    finally:
+        server.stop()
+    del oneshot
+    rec["oneshot_tokens_per_second"] = n_tok / serial_wall
+    rec["oneshot_seconds"] = serial_wall
+    rec["oneshot_request_seconds"] = each
+    rec["oneshot_direct_request_seconds"] = direct
+    rec["oneshot_direct_tokens_per_second"] = n_tok / sum(direct)
+    rec["ratio"] = rec["engine_tokens_per_second"] / \
+        rec["oneshot_tokens_per_second"]
+    # bf16 on trained random weights: equality is informative only (the
+    # f32 wide-gap check above is the held one).
+    rec["rows_equal_oneshot_bf16"] = sum(
+        a == b for a, b in zip(first, serial))
+    rec["rows_equal_cold_warm_bf16"] = sum(
+        a == b for a, b in zip(first, buffered))
+    log(f"engine (f2) {len(prompts)} concurrent HTTP x {SERVE_NEW}: "
+        f"{wall:.3f} s, {rec['engine_tokens_per_second']:.1f} tokens/s; "
+        f"SSE == buffered (warm cache, {sse_wall:.3f} s); one-shot one "
+        f"after another {serial_wall:.3f} s, "
+        f"{rec['oneshot_tokens_per_second']:.1f} tokens/s; ratio "
+        f"{rec['ratio']:.2f}; TTFT p50 {rec['ttft_s']['p50']:.3f} s p99 "
+        f"{rec['ttft_s']['p99']:.3f} s")
+
+    # (f3) the decode chunk at 8 active slots, driven by hand on the
+    # stopped engine: 8 of the prompts admitted whole, each with a budget
+    # of a quarter of the cache (512 tokens) so no slot retires.
+    with torch.inference_mode():
+        eng._cache.pos.fill_(-1)
+        eng.prefill_chunk_tokens = 0
+        budget = eng.cfg.max_seq_len // 4
+        for slot, p in enumerate(prompts[:ENGINE_SLOTS]):
+            eng._admit(eng._make_request(p, budget, 0.0, 0, 0, None), slot)
+
+        def chunk():
+            eng._ensure_chunk_pages()
+            eng._decode_chunk()
+
+        chunk()
+        chunk()
+        check(int(eng._active.sum()) == ENGINE_SLOTS, "slots not active")
+        chunk_ms = event_ms(torch, chunk, 5)
+        enq = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            packed = eng._chunk_launch()
+            enq.append((time.perf_counter() - t0) * 1e3)
+            eng._chunk_collect(packed)
+        prof = step_profile(torch, chunk, 3)
+    cfg = eng.cfg
+    n_weights = sum(p.numel() for n, p in eng.model.named_parameters()
+                    if n != "embed.embedding")
+    bound, by, nbytes = decode_bound(cfg, n_weights, ENGINE_SLOTS)
+    # The plain paged attention materialises each row's gathered [L] K/V
+    # view (written, then read by the products) in every layer.
+    gathered = (2 * ENGINE_SLOTS * cfg.max_seq_len * cfg.n_heads
+                * cfg.head_dim * 2 * cfg.n_layers)
+    step_ms = chunk_ms / ENGINE_CHUNK
+    busy = prof.get("kernel_ms")
+    rec["chunk"] = {
+        "chunk_ms": chunk_ms, "step_ms": step_ms,
+        "ms_per_token": step_ms / ENGINE_SLOTS,
+        "tokens_per_s": ENGINE_SLOTS * 1e3 / step_ms,
+        "step_bound_ms": bound, "step_bound_by": by,
+        "step_bound_bytes": nbytes,
+        "gathered_bytes": 2 * gathered,
+        "step_bound_with_gather_ms":
+            (nbytes + 2 * gathered) / HBM_BYTES_S * 1e3,
+        "share_of_bound": bound / step_ms,
+        "host_enqueue_ms": sorted(enq)[1],
+        "busy_share": busy / chunk_ms if busy else None, **prof}
+    rec["pool_bytes"] = eng.pool_bytes
+    rec["kv_bytes_per_token"] = eng.kv_bytes_per_token
+    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    launches = dict(fa.LAUNCHES)
+    check(all(v == 0 for v in launches.values()),
+          f"flash kernels launched by the engine: {launches}")
+    rec["flash_launches"] = launches
+    log(f"engine (f3) decode chunk at {ENGINE_SLOTS} slots: {chunk_ms:.2f} "
+        f"ms for {ENGINE_CHUNK} steps ({step_ms:.3f} ms a step, bound "
+        f"{bound:.3f} ms ({by}), "
+        f"{rec['chunk']['step_bound_with_gather_ms']:.3f} ms with the "
+        f"gathered views); host enqueue "
+        f"{rec['chunk']['host_enqueue_ms']:.2f} ms; profile "
+        f"{json.dumps(prof)}; pool {eng.pool_bytes / 1e9:.3f} GB; peak "
+        f"{rec['peak_memory_gb']:.2f} GB; flash launches {launches}")
     return rec
 
 
@@ -714,8 +1074,11 @@ def main() -> int:
     # 6. serving
     from kubeflow_tpu_torch.models.transformer import preset_config
 
-    serving = serving_phase(torch, fa, export_dir, preset_config(
-        "base", max_seq_len=2048, dtype="float32", attn_impl="naive"), dev)
+    gap_cfg = preset_config("base", max_seq_len=2048, dtype="float32",
+                            attn_impl="naive")
+    serving, prompts = serving_phase(torch, fa, export_dir, gap_cfg, dev)
+    torch.cuda.empty_cache()
+    engine = engine_phase(torch, fa, export_dir, gap_cfg, prompts, dev)
 
     # 7. report
     csrc = "kubeflow_tpu_torch/ops/csrc/"
@@ -746,6 +1109,7 @@ def main() -> int:
     log(json.dumps({"kernels_large_head_dim": entries(large_recs, False)}))
     log(json.dumps({"kernels": entries(main_recs, True)}))
     log(json.dumps({"serving": serving}))
+    log(json.dumps({"engine": engine}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

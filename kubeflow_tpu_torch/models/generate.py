@@ -43,8 +43,8 @@ def pow2_bucket(n: int, cap: int) -> int:
 def prefill_chunks(tail_len: int, chunk: int, cap: int) -> list:
     """The chunked-prefill schedule for a ``tail_len``-token prompt tail:
     [(offset, length, bucket)], every chunk ``chunk`` tokens except the
-    remainder, each bucketed by ``pow2_bucket`` (the reference's contract,
-    kept for the engine of a later slice)."""
+    remainder, each bucketed by ``pow2_bucket`` (the reference's contract;
+    the engine's chunked admission dispatches exactly these)."""
     out = []
     off = 0
     while off < tail_len:
@@ -91,6 +91,19 @@ def _state_dict(params: Mapping[str, Any]) -> Mapping[str, Any]:
     return params
 
 
+def load_decode_model(cfg: TransformerConfig, params: Mapping[str, Any],
+                      device: torch.device) -> TransformerLM:
+    """The decode-mode ``TransformerLM`` for ``cfg`` with ``params`` (a
+    reference param tree or a port ``state_dict``) on ``device``. Params go
+    to the device once (the reference's device_put); the model is built on
+    the meta device so no random init is drawn."""
+    sd = {k: torch.as_tensor(v).to(device, cfg.param_dtype)
+          for k, v in _state_dict(params).items()}
+    model = TransformerLM(cfg, device="meta")
+    model.load_state_dict(sd, assign=True)
+    return model.eval().requires_grad_(False)
+
+
 class LMGenerator:
     """Owns the decode-mode model on one device. Holds nothing a call
     mutates (the KV cache and the sampling generator are made per call),
@@ -101,13 +114,7 @@ class LMGenerator:
                  device: Union[str, torch.device] = "cuda"):
         self.cfg = decode_config(cfg, max_len)
         self.device = resolve_device(device)
-        # Params go to the device once (the reference's device_put); the
-        # model is built on the meta device so no random init is drawn.
-        sd = {k: torch.as_tensor(v).to(self.device, self.cfg.param_dtype)
-              for k, v in _state_dict(params).items()}
-        self.model = TransformerLM(self.cfg, device="meta")
-        self.model.load_state_dict(sd, assign=True)
-        self.model.eval().requires_grad_(False)
+        self.model = load_decode_model(self.cfg, params, self.device)
 
     @torch.inference_mode()
     def generate(self, prompts, max_new_tokens: int = 32,

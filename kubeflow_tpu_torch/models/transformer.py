@@ -1,6 +1,6 @@
 """Decoder-only transformer LM — PyTorch port of
-``kubeflow_tpu/models/transformer.py`` (dense training path and dense
-KV-cache decode).
+``kubeflow_tpu/models/transformer.py`` (dense training path, dense
+KV-cache decode and the engine's paged KV-cache decode).
 
 Same math and the same precision rules as the flax reference:
 
@@ -16,9 +16,11 @@ Same math and the same precision rules as the flax reference:
     stack.
 
 Layers are an ``nn.ModuleList`` (eager PyTorch has no use for a scan).
-Decode mode (``decode=True``) keeps the reference's dense cache as an
-explicit ``KVCache`` the caller allocates and passes to ``forward``
-instead of a flax "cache" collection.
+Decode mode (``decode=True``) keeps the reference's caches as explicit
+state the caller allocates and passes to ``forward`` instead of a flax
+"cache" collection: the dense ``KVCache`` (``kv_page_size == 0``, the
+one-shot path) or the paged ``PagedKVCache`` (``kv_page_size > 0``, the
+serving engine's pool, addressed through per-row block tables).
 Initialisation matches flax's distributions, not its bits: lecun-normal
 (truncated) kernels by fan-in, embeddings normal with std 1/sqrt(d_model),
 norm scales 1.
@@ -28,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -45,8 +47,6 @@ _NOT_IN_SLICE = (
     ("sp", lambda c: c.sp, "Queue A 6, multi-GPU"),
     ("quant", lambda c: bool(c.quant),
      "Queue A 5, the engine (int8 weights/KV)"),
-    ("kv_page_size", lambda c: c.kv_page_size > 0,
-     "Queue A 5, the engine (paged decode)"),
     ("kv_quant", lambda c: bool(c.kv_quant),
      "Queue A 5, the engine (int8 weights/KV)"),
     ("lora_rank", lambda c: c.lora_rank > 0, "Queue A 5, the engine (LoRA)"),
@@ -217,6 +217,50 @@ class KVCache:
                                        device=device))
 
 
+@dataclasses.dataclass
+class PagedKVCache:
+    """The engine's paged decode cache: ONE pool of ``cfg.kv_pages``
+    pages of ``cfg.kv_page_size`` token slots each, shared by every
+    request slot and independent of the batch. Each layer's pool is
+    ``key``/``value`` [N, P, H, D] in ``cfg.dtype`` and ``pos`` [N, P]
+    int32 (the cached position id, -1 = empty), stored stacked over the
+    layers ([n_layers, N + 1, ...]) so that one op invalidates or copies
+    a page in every layer.
+
+    Page N (one past the pool) is the SINK: every write the reference
+    drops (a pad position, a negative location, a block the row's table
+    has not allocated) lands there instead, because PyTorch has no
+    dropping scatter. No block table maps it and the gather clips table
+    entries to N - 1, so it is never read. Routing writes to it keeps
+    the decode step free of host syncs (no boolean-mask indexing)."""
+
+    key: torch.Tensor
+    value: torch.Tensor
+    pos: torch.Tensor
+
+    @classmethod
+    def allocate(cls, cfg: "TransformerConfig",
+                 device: Any = None) -> "PagedKVCache":
+        if cfg.kv_page_size < 1:
+            raise ValueError("PagedKVCache needs cfg.kv_page_size > 0")
+        n, N, P = cfg.n_layers, cfg.kv_pages, cfg.kv_page_size
+        H, D = cfg.n_heads, cfg.head_dim
+        return cls(
+            torch.zeros(n, N + 1, P, H, D, dtype=cfg.dtype, device=device),
+            torch.zeros(n, N + 1, P, H, D, dtype=cfg.dtype, device=device),
+            torch.full((n, N + 1, P), -1, dtype=torch.int32, device=device))
+
+    @property
+    def layers(self) -> List[LayerKV]:
+        return [LayerKV(self.key[i], self.value[i], self.pos[i])
+                for i in range(self.key.shape[0])]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.key, self.value, self.pos))
+
+
 def flash_window_ok(cfg: TransformerConfig, seq_len: int) -> bool:
     """Whether ``seq_len`` falls in the configured attn_impl="auto"
     flash window (flash_max_seq <= 0 means unbounded above)."""
@@ -304,7 +348,10 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 kv: Optional[LayerKV] = None,
-                cursor: Optional[torch.Tensor] = None) -> torch.Tensor:
+                cursor: Optional[torch.Tensor] = None,
+                block_tables: Optional[torch.Tensor] = None,
+                write_locations: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         cfg = self.cfg
         B, S, _ = x.shape
         q = self.query(x)
@@ -314,7 +361,10 @@ class Attention(nn.Module):
         q = rope(q, pos)
         k = rope(k, pos)
         q = q / math.sqrt(cfg.head_dim)
-        if kv is not None:
+        if kv is not None and block_tables is not None:
+            out = self._paged_attend(q, k, v, positions, kv, block_tables,
+                                     write_locations)
+        elif kv is not None:
             out = self._decode_attend(q, k, v, positions, kv, cursor)
         elif self._use_flash(S, x.device):
             out = flash_ops.flash_attention(q, k, v)
@@ -344,13 +394,56 @@ class Attention(nn.Module):
         kv.key[rows, at] = k.to(cfg.dtype)
         kv.value[rows, at] = v.to(cfg.dtype)
         kv.pos[rows, at] = positions.to(torch.int32)
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, kv.key)   # [B, H, S, L]
-        kp = kv.pos[:, None, None, :]
+        return self._attend_cached(q, kv.key, kv.value, kv.pos, positions)
+
+    def _paged_attend(self, q, k, v, positions, kv: LayerKV,
+                      block_tables: torch.Tensor,
+                      write_locations: Optional[torch.Tensor]
+                      ) -> torch.Tensor:
+        """The reference's paged ``_decode_attend`` branch (vLLM-style):
+        ``kv`` is one layer of a ``PagedKVCache`` ([N + 1, P, ...], page
+        N the sink) and ``block_tables`` [B, L/P] maps each row's logical
+        block to a physical page (-1 = unallocated). Each token writes at
+        its LOCATION in the row's logical space (page = table[loc // P],
+        slot = loc % P): ``write_locations`` [B, S], defaulting to the
+        position id (exact for prefill); the engine's decode steps pass
+        the dense-equivalent location, so the logical layout, pad gaps
+        included, is the one-shot cache's. Writes of pad positions, of
+        negative or out-of-range locations and into unallocated blocks go
+        to the sink page. Then each row gathers its logical [L] view
+        through its table: unallocated blocks read page 0 with position
+        -1, so the same ``0 <= kp <= qp`` rule masks them."""
+        cfg = self.cfg
+        B, S, H, D = q.shape
+        P, N, L = cfg.kv_page_size, cfg.kv_pages, cfg.max_seq_len
+        loc = positions if write_locations is None else write_locations
+        ok = (positions >= 0) & (loc >= 0) & (loc < L)
+        blk = torch.where(ok, loc // P, 0).long()
+        page = torch.gather(block_tables, 1, blk)               # [B, S]
+        page = torch.where(ok & (page >= 0), page, N).long()
+        slot = torch.where(ok, loc % P, 0).long()
+        kv.key[page, slot] = k.to(cfg.dtype)
+        kv.value[page, slot] = v.to(cfg.dtype)
+        kv.pos[page, slot] = positions.to(torch.int32)
+        pt = block_tables.clamp(0, N - 1).long()                # [B, L/P]
+        gk = kv.key[pt].reshape(B, L, H, D)
+        gv = kv.value[pt].reshape(B, L, H, D)
+        gp = torch.where(block_tables[..., None] >= 0, kv.pos[pt],
+                         -1).reshape(B, L)
+        return self._attend_cached(q, gk, gv, gp, positions)
+
+    def _attend_cached(self, q, gk, gv, gp, positions) -> torch.Tensor:
+        """Attention of the S queries over a cached [B, L] view, masked by
+        cached position (``0 <= kp <= qp``): empty and pad slots (-1) and
+        not-yet-written slots never contribute, and query i of a
+        multi-token window sees the window's earlier tokens."""
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, gk)       # [B, H, S, L]
+        kp = gp[:, None, None, :]
         qp = positions[:, None, :, None]
         mask = (kp >= 0) & (kp <= qp)
         scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
         probs = torch.softmax(scores.to(torch.float32), -1)
-        return torch.einsum("bhqk,bkhd->bqhd", probs.to(cfg.dtype), kv.value)
+        return torch.einsum("bhqk,bkhd->bqhd", probs.to(self.cfg.dtype), gv)
 
 
 class DenseFFN(nn.Module):
@@ -376,8 +469,12 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 kv: Optional[LayerKV] = None,
-                cursor: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), positions, kv, cursor)
+                cursor: Optional[torch.Tensor] = None,
+                block_tables: Optional[torch.Tensor] = None,
+                write_locations: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), positions, kv, cursor, block_tables,
+                          write_locations)
         return x + self.mlp(self.ln2(x))
 
 
@@ -428,16 +525,31 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
-                cache: Optional[KVCache] = None) -> torch.Tensor:
+                cache: Union[KVCache, PagedKVCache, None] = None,
+                block_tables: Optional[torch.Tensor] = None,
+                write_locations: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         """``cache`` is required with ``cfg.decode`` and refused without
         it: a decode model always reads and extends its cache, as the
-        reference's does."""
+        reference's does. ``kv_page_size > 0`` takes a ``PagedKVCache``
+        with ``block_tables`` [B, L/P] int32 and optional
+        ``write_locations`` [B, S] (see ``Attention._paged_attend``);
+        otherwise a dense ``KVCache``."""
         cfg = self.cfg
         if cfg.decode != (cache is not None):
             raise ValueError("a KVCache is passed exactly when cfg.decode "
                              f"is set (decode={cfg.decode})")
+        paged = cfg.kv_page_size > 0
+        if cache is not None and (
+                isinstance(cache, PagedKVCache) != paged
+                or (block_tables is not None) != paged):
+            raise ValueError(
+                "kv_page_size > 0 decodes through a PagedKVCache with "
+                "block_tables; kv_page_size == 0 through a dense KVCache "
+                f"without them (kv_page_size={cfg.kv_page_size})")
         S = tokens.shape[1]
-        if cache is not None and cache.length + S > cfg.max_seq_len:
+        if isinstance(cache, KVCache) and \
+                cache.length + S > cfg.max_seq_len:
             raise ValueError(
                 f"KV cache overflow: {cache.length} cached + {S} new tokens "
                 f"exceed max_seq_len {cfg.max_seq_len}")
@@ -445,12 +557,16 @@ class TransformerLM(nn.Module):
         if positions is None:
             positions = torch.arange(S, device=tokens.device,
                                      dtype=torch.int32).expand(tokens.shape)
+        layers_kv = cache.layers if cache is not None else None
         for i, layer in enumerate(self.layers):
             if cache is None:
                 x = layer(x, positions)
+            elif paged:
+                x = layer(x, positions, layers_kv[i], None, block_tables,
+                          write_locations)
             else:
-                x = layer(x, positions, cache.layers[i], cache.cursor)
-        if cache is not None:
+                x = layer(x, positions, layers_kv[i], cache.cursor)
+        if isinstance(cache, KVCache):
             cache.cursor += S
             cache.length += S
         return self.lm_head(self.ln_f(x)).to(torch.float32)

@@ -7,6 +7,9 @@
     wall-clock start, duration, ok/error status and string attributes;
     the server opens one per request, parented to the caller's
     ``X-Kfx-Span-Id`` header, and returns its id in the same header;
+  * ``span`` scopes one onto the current thread around a block (the
+    engine's ``engine.admit`` / ``engine.prefill_chunk`` /
+    ``engine.chunk`` spans, parented to the submitting request's span);
   * spans nest per thread, and finished spans append to a per-process
     JSONL file ``<KFX_WORKDIR>/spans/<component>-<pid>.jsonl`` in the
     reference's record format, so its ``obs.timeline`` merges the port's
@@ -15,12 +18,13 @@
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
 import time
 import uuid
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 TRACE_ENV = "KFX_TRACE_ID"
 TRACE_HEADER = "X-Kfx-Trace-Id"
@@ -225,3 +229,18 @@ def finish_span(sp: Span, status: str = "") -> Span:
     _tls.trace_id = sp._prev_trace
     _emit(sp)
     return sp
+
+
+@contextlib.contextmanager
+def span(name: str, trace_id: str = "", parent_id: str = "",
+         **attrs: str) -> Iterator[Span]:
+    """Scope a span (and its trace ID) onto the current thread around the
+    body; an escaping exception marks status=error."""
+    sp = start_span(name, trace_id=trace_id, parent_id=parent_id, **attrs)
+    try:
+        yield sp
+    except BaseException:
+        sp.status = "error"
+        raise
+    finally:
+        finish_span(sp)

@@ -1,0 +1,1584 @@
+"""Continuous-batching LM decode engine — port of the core of
+``kubeflow_tpu/serving/engine.py`` ``DecodeEngine``: paged KV cache plus
+in-flight admission (Orca-style iteration-level scheduling; vLLM's block
+manager in a fixed-shape form) with content-hashed shared-prefix reuse.
+
+The one-shot path (models/generate.LMGenerator) runs each request to
+completion, so concurrent single-prompt traffic serializes. The engine
+owns ONE global pool of ``kv_pages`` pages of ``kv_page_size`` tokens
+(``models/transformer.PagedKVCache``) and a per-slot block table mapping
+logical blocks to physical pages:
+
+  * pages are allocated at prefill and chunk boundaries, so a request
+    holds pages only for tokens it has produced;
+  * admission is gated on free pages, at iteration boundaries;
+    ``n_slots`` is just the max concurrency;
+  * retirement returns pages to the free list; a recycled page's
+    position ids are invalidated in one batched scatter before reuse;
+  * a content-hashed prefix cache keeps retired prompt pages: a request
+    whose prompt starts with a cached prefix points its table at the
+    refcounted pages and skips that much prefill (a partially-filled
+    boundary page is shared by a device copy-on-write); cache pages are
+    reclaimed LRU when the pool needs them;
+  * chunked prefill (``prefill_chunk_tokens > 0``): a prompt tail longer
+    than a chunk admits without a dispatch and advances by at most one
+    page-multiple chunk per iteration, bounding the stall a long prompt
+    puts on active decode slots;
+  * when the pool runs dry mid-decode the youngest slot is preempted and
+    re-queued as a recompute continuation; a request nothing in flight
+    can make room for fails with ``PageAllocError`` (503 + Retry-After).
+
+Exactness: attention masks by cached position id, and decode writes land
+at the dense-equivalent location (prompt bucket + step), so greedy tokens
+equal the one-shot oracle's (``KFX_LM_ENGINE=0``).
+
+What PyTorch changes: the reference compiles a prefill per prompt-tail
+bucket and one ``lax.scan`` decode chunk; here the same work runs eagerly
+on the loop thread. A decode chunk is ``chunk_tokens`` steps over every
+slot at fixed shapes ([n_slots, 1] feed, [n_slots, L/P] tables), with the
+per-slot state (position, location, active, produced count) kept on the
+device for the whole chunk: the host uploads the state once and reads
+the tokens and the state back once per chunk, never inside it. Sampling
+is counter-based (``sample_slots``): each slot's uniforms are a hash of
+(request seed, token index, vocab id), so a request's stream depends on
+neither its slot nor its batch mates and survives preemption, at one set
+of launches per step whatever ``n_slots`` is. The streams cannot match
+the reference's threefry ones; they are deterministic per seed and follow
+the same distribution (greedy at T <= 0; ties at the k-th value kept).
+
+Not in this slice (ROADMAP.md Queue A 5b): speculative decoding, int8
+weights/KV, LoRA adapters, QoS/deadlines/rate limits, the flight
+recorder, KV transfer/offload/roles, the weight pool, chaos points.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import threading
+import time
+from collections import OrderedDict, deque
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models.generate import decode_config, load_decode_model, pow2_bucket
+from ..models.transformer import PagedKVCache
+from ..obs import trace as obs_trace
+from ..obs.metrics import MetricsRegistry, default_registry
+from .prefix import chain_hash as _chain_hash
+
+# Admission wait buckets (seconds): a healthy engine admits within one
+# chunk; the tail is queueing behind a full pool.
+QUEUE_WAIT_BUCKETS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0, 10.0, 30.0)
+
+
+class EngineOverloaded(RuntimeError):
+    """Admission queue full — bounded queueing. The server maps this to
+    503 + Retry-After (shed load, don't 400 a well-formed request)."""
+
+
+class EngineDraining(EngineOverloaded):
+    """The engine is in drain mode: it stops admitting, finishes the slots
+    already decoding, and resolves queued requests with THIS error (503 +
+    Retry-After; another replica can serve them)."""
+
+
+class PageAllocError(EngineOverloaded):
+    """KV page pool exhausted for a request that nothing in flight can
+    unblock (the 503 + Retry-After shed contract)."""
+
+
+class Request:
+    """One in-flight generation: token budget, sampling knobs, and a
+    completion event the submitting thread waits on. ``tokens`` doubles
+    as the recompute-continuation state: a preempted request re-enters
+    the queue with its generated ids intact and prefills
+    prompt+generated on re-admission (its sampling stream is indexed by
+    ``len(tokens)``, so it resumes exactly)."""
+
+    __slots__ = ("prompt", "max_new", "temperature", "top_k", "seed",
+                 "stop", "tokens", "error", "t_enqueue", "t_admitted",
+                 "t_first", "t_done", "counted", "trace_id", "span_id",
+                 "rid", "preempts", "on_token", "_event")
+
+    _rid_counter = itertools.count(1)
+
+    def __init__(self, prompt: List[int], max_new: int, temperature: float,
+                 top_k: int, seed: int, stop: int):
+        self.prompt = prompt
+        self.max_new = max_new
+        self.temperature = temperature
+        self.top_k = top_k
+        self.seed = seed
+        self.stop = stop              # -1 = no stop token
+        # Streaming sink: called with each generated token id on the LOOP
+        # thread as it lands, then with None at retirement. Recompute
+        # re-prefills and never re-emits, so a token streams once.
+        self.on_token: Optional[Callable[[Optional[int]], None]] = None
+        self.tokens: List[int] = []   # generated ids, filled by the loop
+        # Admission stats count once, at the FIRST admission: a requeued
+        # preempt is recompute, not a new client admission.
+        self.counted = False
+        self.error: Optional[BaseException] = None
+        self.t_enqueue = time.monotonic()
+        self.t_admitted = 0.0
+        self.t_first = 0.0            # first generated token landed
+        self.t_done = 0.0
+        # Captured on the submitting thread so the loop's admit/chunk
+        # spans join the request's trace tree.
+        self.trace_id = obs_trace.current_trace_id()
+        self.span_id = obs_trace.current_span_id()
+        self.rid = next(Request._rid_counter)
+        self.preempts = 0
+        self._event = threading.Event()
+
+    def done(self) -> bool:
+        return self._event.is_set()
+
+    def _notify(self, token: Optional[int]) -> None:
+        """Fire the streaming sink (loop thread). A broken sink is dropped,
+        never propagated: one disconnected stream must not kill the loop
+        serving everyone else."""
+        cb = self.on_token
+        if cb is None:
+            return
+        try:
+            cb(token)
+        except Exception:
+            self.on_token = None
+
+    def _finish(self, error: Optional[BaseException] = None) -> None:
+        self.error = error
+        self.t_done = time.monotonic()
+        # End-of-stream marker BEFORE the event: a streamer that woke on
+        # the sentinel can rely on result() returning immediately.
+        self._notify(None)
+        self._event.set()
+
+    def result(self, timeout: Optional[float] = None) -> List[int]:
+        if not self._event.wait(timeout):
+            raise TimeoutError(
+                f"engine did not complete the request within {timeout}s")
+        if self.error is not None:
+            raise self.error
+        return self.tokens
+
+
+class BlockManager:
+    """Host-side page-pool bookkeeping: a free list plus per-page
+    refcounts (a page shared by k block tables — slots and/or the prefix
+    cache — carries ref k and returns to the free list only when the last
+    holder releases it). Freed pages are remembered as ``dirty`` until
+    their cached position ids are invalidated on the device (the engine
+    batches that into one scatter per reuse)."""
+
+    def __init__(self, n_pages: int, page_size: int):
+        if n_pages < 1 or page_size < 1:
+            raise ValueError("n_pages and page_size must be >= 1")
+        self.n_pages = n_pages
+        self.page_size = page_size
+        self._free: List[int] = list(range(n_pages - 1, -1, -1))
+        self.ref = np.zeros((n_pages,), np.int32)
+        self.dirty: set = set()
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    def alloc(self, n: int) -> List[int]:
+        """Take ``n`` pages (ref 1 each). All-or-nothing: raises
+        PageAllocError without side effects when the free list is short
+        (the caller reclaims prefix-cache pages first)."""
+        if n > len(self._free):
+            raise PageAllocError(
+                f"KV page pool exhausted ({len(self._free)} free, "
+                f"{n} needed, {self.n_pages} total)")
+        pages = [self._free.pop() for _ in range(n)]
+        for p in pages:
+            self.ref[p] = 1
+        return pages
+
+    def incref(self, page: int) -> None:
+        assert self.ref[page] > 0, f"incref of free page {page}"
+        self.ref[page] += 1
+
+    def decref(self, pages: Sequence[int]) -> List[int]:
+        """Release one reference per page; pages hitting zero return to
+        the free list (marked dirty) and are listed back."""
+        freed = []
+        for p in pages:
+            assert self.ref[p] > 0, f"decref of free page {p}"
+            self.ref[p] -= 1
+            if self.ref[p] == 0:
+                self._free.append(p)
+                self.dirty.add(p)
+                freed.append(p)
+        return freed
+
+
+class _PrefixEntry:
+    __slots__ = ("key", "parent", "page", "tokens", "partial",
+                 "nchildren", "root")
+
+    def __init__(self, key: bytes, parent: bytes, page: int,
+                 tokens: Tuple[int, ...], partial: bool,
+                 root: bytes = b""):
+        self.key = key          # lru/map key (chain hash; partial: parent)
+        self.parent = parent
+        self.page = page
+        self.tokens = tokens    # partial entries: the page's real tokens
+        self.partial = partial
+        self.nchildren = 0      # cached entries extending this one
+        self.root = root        # chain seed
+
+
+class PrefixCache:
+    """Content-hashed prompt-page cache over the shared pool.
+
+    Full pages are keyed by the CHAIN hash of their content (page i's key
+    folds page i-1's key, so a match is a match of the whole prefix). At
+    most one PARTIAL entry per parent key remembers a request's last,
+    partially-filled prompt page — matched by exact token comparison and
+    shared via device copy-on-write (the copy drops everything past the
+    matched tokens, so a stale tail can never leak). The cache holds one
+    pool ref per entry; eviction is LRU over childless entries whose page
+    no live slot still uses (ref == 1)."""
+
+    def __init__(self, manager: BlockManager):
+        self.mgr = manager
+        self.full: Dict[bytes, _PrefixEntry] = {}
+        self.partial: Dict[bytes, _PrefixEntry] = {}
+        self._lru: "OrderedDict[Tuple[bool, bytes], _PrefixEntry]" = \
+            OrderedDict()
+        self.hits = 0
+        self.tokens_reused = 0
+
+    def __len__(self) -> int:
+        return len(self._lru)
+
+    def _touch(self, e: _PrefixEntry) -> None:
+        self._lru.move_to_end((e.partial, e.key))
+
+    def match(self, tokens: Sequence[int], max_reuse: int,
+              root: bytes = b""
+              ) -> Tuple[List[int], Optional[Tuple[int, int]], int, bytes]:
+        """Longest cached prefix of ``tokens`` reusable within
+        ``max_reuse`` (the caller caps at len-1: the last prompt token
+        must run through the model for its logits). Returns (full_pages,
+        cow, matched_tokens, chain_key) where ``cow`` is (source_page,
+        n_tokens) when a partial boundary page extends the match via
+        copy-on-write. ``root`` seeds the chain."""
+        ps = self.mgr.page_size
+        pages: List[int] = []
+        key, matched = root, 0
+        while matched + ps <= max_reuse:
+            nxt = _chain_hash(key, tokens[matched:matched + ps])
+            e = self.full.get(nxt)
+            if e is None:
+                break
+            pages.append(e.page)
+            key, matched = nxt, matched + ps
+            self._touch(e)
+        cow = None
+        pe = self.partial.get(key)
+        if pe is not None:
+            # Longest agreeing prefix of the boundary page (the COW copy
+            # keeps exactly this many token slots valid).
+            cap = min(len(pe.tokens), max_reuse - matched)
+            extra = 0
+            while extra < cap and \
+                    tokens[matched + extra] == pe.tokens[extra]:
+                extra += 1
+            if extra > 0:
+                cow = (pe.page, extra)
+                matched += extra
+                self._touch(pe)
+        return pages, cow, matched, key
+
+    def insert_full(self, parent: bytes, page_tokens: Sequence[int],
+                    page: int, root: bytes = b"") -> bytes:
+        """Register one full prompt page; returns its chain key. A
+        pre-existing identical entry is refreshed, not duplicated."""
+        key = _chain_hash(parent, page_tokens)
+        e = self.full.get(key)
+        if e is not None:
+            self._touch(e)
+            return key
+        e = _PrefixEntry(key, parent, page, (), False, root=root)
+        self.mgr.incref(page)
+        self.full[key] = e
+        self._lru[(False, key)] = e
+        pe = self.full.get(parent)
+        if pe is not None:
+            pe.nchildren += 1
+        return key
+
+    def insert_partial(self, parent: bytes, tokens: Sequence[int],
+                       page: int, root: bytes = b"") -> None:
+        """Register a partially-filled boundary page (first writer wins
+        per parent — replacing a hot partial with an equivalent one would
+        only churn refcounts)."""
+        if not tokens or parent in self.partial:
+            return
+        e = _PrefixEntry(parent, parent, page, tuple(tokens), True,
+                         root=root)
+        self.mgr.incref(page)
+        self.partial[parent] = e
+        self._lru[(True, parent)] = e
+        pe = self.full.get(parent)
+        if pe is not None:
+            pe.nchildren += 1
+
+    def _drop(self, e: _PrefixEntry) -> List[int]:
+        del (self.partial if e.partial else self.full)[e.key]
+        del self._lru[(e.partial, e.key)]
+        pe = self.full.get(e.parent)
+        if pe is not None:
+            pe.nchildren -= 1
+        return self.mgr.decref([e.page])
+
+    def evict_one(self) -> bool:
+        """Reclaim the least-recently-used childless entry whose page no
+        slot is still reading (pool ref == 1). Returns whether a page went
+        back to the free list."""
+        for e in list(self._lru.values()):
+            if e.nchildren == 0 and self.mgr.ref[e.page] == 1:
+                self._drop(e)
+                return True
+        return False
+
+
+class _WRRBand:
+    """One weighted-round-robin rotation over per-tenant FIFO queues (the
+    FairQueue building block; a FairQueue holds one band per QoS class).
+    The rotation serves up to ``weights[tenant]`` (default 1) requests per
+    visit before moving on, so a trickling tenant's next request is at
+    most one rotation away instead of behind another tenant's burst."""
+
+    def __init__(self, weights: Dict[str, int]):
+        self._qs: "OrderedDict[str, deque]" = OrderedDict()
+        self._weights = weights
+        self._rr: deque = deque()   # tenant rotation
+        self._credit = 0
+
+    def push(self, req) -> None:
+        tenant = getattr(req, "adapter", "") or ""
+        q = self._qs.get(tenant)
+        if q is None:
+            q = self._qs[tenant] = deque()
+            self._rr.append(tenant)
+        q.append(req)
+
+    def pop(self):
+        for _ in range(len(self._rr)):
+            tenant = self._rr[0]
+            q = self._qs.get(tenant)
+            if not q:
+                self._rr.rotate(-1)
+                self._credit = 0
+                continue
+            if self._credit <= 0:
+                self._credit = max(1, int(self._weights.get(tenant, 1)))
+            self._credit -= 1
+            req = q.popleft()
+            if self._credit <= 0 or not q:
+                self._rr.rotate(-1)
+                self._credit = 0
+            return req
+        return None
+
+    def shed_newest(self):
+        """Remove and return the NEWEST queued request (None when empty):
+        sheds cost the least-progressed work."""
+        victim, vq = None, None
+        for q in self._qs.values():
+            if q and (victim is None
+                      or q[-1].t_enqueue > victim.t_enqueue):
+                victim, vq = q[-1], q
+        if vq is not None:
+            vq.pop()
+        return victim
+
+    def drain(self) -> List[Any]:
+        out: List[Any] = []
+        for q in self._qs.values():
+            out.extend(q)
+            q.clear()
+        self._credit = 0
+        return out
+
+
+class FairQueue:
+    """Per-tenant FIFO queues with weighted round-robin pop, split into
+    QoS class bands — the port's copy of ``kubeflow_tpu/serving/
+    adapters.py`` ``FairQueue``. The tenant key is the request's
+    ``adapter`` attribute ("" = base traffic, the only tenant until the
+    LoRA slice); the band is its ``qos`` attribute (interactive unless
+    set). Pop order: the ``push_front`` recompute-continuation lane
+    (preempt requeues, absolute priority), then the ``interactive``
+    band's rotation, then ``batch``. Not thread-safe: the engine
+    serializes access under its condition lock."""
+
+    def __init__(self, weights: Optional[Dict[str, int]] = None):
+        self._weights = dict(weights or {})
+        self._front: deque = deque()
+        self._bands = {"interactive": _WRRBand(self._weights),
+                       "batch": _WRRBand(self._weights)}
+        self._len = 0
+
+    def __len__(self) -> int:
+        return self._len
+
+    def push(self, req) -> None:
+        cls = getattr(req, "qos", "") or "interactive"
+        self._bands.get(cls, self._bands["interactive"]).push(req)
+        self._len += 1
+
+    def push_front(self, req) -> None:
+        self._front.appendleft(req)
+        self._len += 1
+
+    def pop(self):
+        """Next request (None when empty): front lane, then interactive
+        WRR, then batch WRR."""
+        if self._front:
+            self._len -= 1
+            return self._front.popleft()
+        for cls in ("interactive", "batch"):
+            req = self._bands[cls].pop()
+            if req is not None:
+                self._len -= 1
+                return req
+        return None
+
+    def shed_batch(self, n: int) -> List[Any]:
+        """Remove up to ``n`` queued BATCH-class requests (newest first);
+        never touches interactive requests or the recompute lane."""
+        out = []
+        while len(out) < n:
+            victim = self._bands["batch"].shed_newest()
+            if victim is None:
+                break
+            self._len -= 1
+            out.append(victim)
+        return out
+
+    def drain_all(self) -> List[Any]:
+        """Every queued request (front lane first), clearing the queue."""
+        out = list(self._front)
+        self._front.clear()
+        out.extend(self._bands["interactive"].drain())
+        out.extend(self._bands["batch"].drain())
+        self._len = 0
+        return out
+
+
+# -- counter-based per-slot sampling -----------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for int64 ``x`` in [0, 2**32) and a 32-bit
+    constant, in two 16-bit halves so no product leaves int64."""
+    hi = (((x >> 16) * c) & 0xFFFF) << 16
+    return (hi + (x & 0xFFFF) * c) & _M32
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """MurmurHash3's 32-bit finalizer (a bijection that avalanches)."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def seed32(seed: int) -> int:
+    """A request seed (any Python int) folded to 32 bits."""
+    s = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return (s ^ (s >> 32)) & _M32
+
+
+def slot_uniforms(seeds: torch.Tensor, counters: torch.Tensor,
+                  vocab: int) -> torch.Tensor:
+    """[B, vocab] float32 uniforms in (0, 1), a pure function of each
+    row's (32-bit seed, token index) and the vocab id: the same request
+    draws the same numbers whatever slot it sits in and whoever shares
+    the batch."""
+    row = _fmix32(_fmix32(seeds & _M32)
+                  ^ _mul32((counters + 1) & _M32, 0x9E3779B9))
+    col = _mul32(torch.arange(1, vocab + 1, device=seeds.device),
+                 0x27D4EB2F)
+    h = _fmix32(_fmix32(row[:, None] ^ col[None, :]) ^ row[:, None])
+    # 23 bits: (2**23 - 0.5) / 2**23 is exact in float32, so u < 1 and
+    # the Gumbel noise -log(-log(u)) stays finite.
+    return ((h >> 9).to(torch.float32) + 0.5) * (1.0 / (1 << 23))
+
+
+def sample_slots(logits: torch.Tensor, temp: torch.Tensor,
+                 topk: torch.Tensor, seeds: torch.Tensor,
+                 counters: torch.Tensor, sampled: bool = True,
+                 with_topk: bool = True) -> torch.Tensor:
+    """logits [B, V] f32 -> token ids [B] int64, each row with its own
+    knobs: ``temp <= 0`` is greedy (the first argmax); otherwise
+    Gumbel-max over ``logits / max(T, 1e-6)`` with every logit below the
+    k-th largest (``srt[V - top_k]`` of an ascending sort, so ties at the
+    k-th value survive) masked where ``top_k > 0`` — the rule of
+    ``models/generate._sample`` — drawn from ``slot_uniforms``.
+    ``sampled``/``with_topk`` say (host-side) whether any row samples or
+    uses top-k, so an all-greedy batch runs one argmax and no hash."""
+    greedy = torch.argmax(logits, dim=-1)
+    if not sampled:
+        return greedy
+    V = logits.shape[-1]
+    scaled = logits / temp.clamp_min(1e-6)[:, None]
+    if with_topk:
+        srt = torch.sort(scaled, dim=-1).values
+        kth = srt.gather(1, (V - topk).clamp(0, V - 1)[:, None].long())
+        scaled = scaled.masked_fill((topk[:, None] > 0) & (scaled < kth),
+                                    float("-inf"))
+    u = slot_uniforms(seeds, counters, V)
+    drawn = torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1)
+    return torch.where(temp > 0, drawn, greedy)
+
+
+# -- the engine ---------------------------------------------------------------
+
+class DecodeEngine:
+    """Owns the paged KV pool, the block tables, the prefix cache, the
+    decode-mode model and the decode-loop thread. One instance per served
+    LM. ``device`` is "cuda" unless the caller asks for "cpu"."""
+
+    def __init__(self, cfg, params, n_slots: int = 8,
+                 chunk_tokens: int = 8, max_queue: Optional[int] = None,
+                 name: str = "model",
+                 registry: Union[MetricsRegistry,
+                                 Callable[[], MetricsRegistry],
+                                 None] = None,
+                 request_timeout_s: float = 50.0,
+                 kv_page_size: int = 32,
+                 kv_pages: Optional[int] = None,
+                 prefix_cache: bool = True,
+                 stall_threshold_s: float = 10.0,
+                 prefill_chunk_tokens: int = 0,
+                 device: Union[str, torch.device] = "cuda"):
+        if n_slots < 1:
+            raise ValueError("n_slots must be >= 1")
+        if chunk_tokens < 1:
+            raise ValueError("chunk_tokens must be >= 1")
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # The loop thread selects the device itself; pin the index of
+            # the creating thread's current device.
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        base = decode_config(cfg)
+        L = base.max_seq_len
+        ps = min(int(kv_page_size), L)
+        if ps < 1:
+            raise ValueError(f"kv_page_size must be >= 1, got {ps}")
+        while L % ps:
+            # The gathered view must tile max_seq_len exactly; fall back
+            # to the largest divisor at or below the request.
+            ps -= 1
+        self.page_size = ps
+        self.n_blocks = L // ps
+        # Default pool = the dense layout's memory (n_slots full rows);
+        # shrink kv_pages to cap KV memory below that — admission then
+        # gates on pages, and n_slots is just max concurrency.
+        self.n_pages = int(kv_pages) if kv_pages else n_slots * self.n_blocks
+        if self.n_pages < self.n_blocks:
+            # One request must always be placeable.
+            raise ValueError(
+                f"kv_pages {self.n_pages} < blocks per max-length "
+                f"request {self.n_blocks}")
+        self.cfg = dataclasses.replace(base, kv_page_size=ps,
+                                       kv_pages=self.n_pages)
+        self.name = name
+        self.n_slots = n_slots
+        self.chunk_tokens = chunk_tokens
+        # Chunked prefill: 0 = monolithic; any other value rounds UP to a
+        # whole number of pages so chunk and page boundaries coincide.
+        if prefill_chunk_tokens < 0:
+            raise ValueError("prefill_chunk_tokens must be >= 0 "
+                             "(0 = monolithic prefill)")
+        if prefill_chunk_tokens:
+            prefill_chunk_tokens = -(-int(prefill_chunk_tokens) // ps) * ps
+        self.prefill_chunk_tokens = prefill_chunk_tokens
+        self.max_queue = max_queue if max_queue is not None else 4 * n_slots
+        self.request_timeout_s = request_timeout_s
+        self._registry = registry
+        self.model = load_decode_model(self.cfg, params, self.device)
+
+        self.prompt_buckets: List[int] = []
+        b = 8
+        while b <= max(8, L // 2):
+            self.prompt_buckets.append(min(b, L))
+            b *= 2
+
+        # -- pool bookkeeping (touched only by the loop thread)
+        self._mgr = BlockManager(self.n_pages, ps)
+        self._prefix: Optional[PrefixCache] = \
+            PrefixCache(self._mgr) if prefix_cache else None
+        self._prompt_tokens = 0  # prompt tokens admitted (for skip frac)
+
+        # -- device state (touched only by the loop thread after start)
+        self._cache = PagedKVCache.allocate(self.cfg, self.device)
+        self._logbuf = torch.zeros(n_slots, self.cfg.vocab_size,
+                                   dtype=torch.float32, device=self.device)
+        # -- host slot state (uploaded and read back once per chunk)
+        B = n_slots
+        self._tables = np.full((B, self.n_blocks), -1, np.int32)
+        self._slot_pages: List[List[int]] = [[] for _ in range(B)]
+        self._pos = np.zeros((B,), np.int64)       # next decode position
+        self._loc = np.zeros((B,), np.int64)       # next decode write loc
+        self._max_loc = np.zeros((B,), np.int64)   # last writable loc
+        self._active = np.zeros((B,), np.bool_)
+        self._produced = np.zeros((B,), np.int64)
+        self._seeds = np.zeros((B,), np.int64)
+        self._temp = np.zeros((B,), np.float32)
+        self._topk = np.zeros((B,), np.int64)
+        self._stop = np.full((B,), -1, np.int64)
+        self._max_new = np.zeros((B,), np.int64)
+        self._slots: List[Optional[Request]] = [None] * B
+        # Chunked-prefill cursors: slot -> {"req", "full", "n", "next"
+        # (absolute index of the next chunk's first token), "key"/
+        # "reg_block" (incremental prefix registration), "bucket",
+        # "remaining", "fresh"}. A slot with a cursor holds its request
+        # (in ``_slots``: drain/occupancy/heartbeat count it) but is NOT
+        # ``_active``: the decode dispatch masks it until it completes.
+        self._prefilling: Dict[int, Dict[str, Any]] = {}
+        # Seconds of prefill dispatch that active decode slots waited on
+        # this iteration (the kfx_lm_decode_stall_seconds histogram).
+        self._iter_stall = 0.0
+
+        # -- heartbeat + drain mode: a wedged loop leaves
+        # ``_last_progress`` stale while slots are active, which /healthz
+        # reports; drain stops admitting and lets in-flight work finish.
+        self.stall_threshold_s = float(stall_threshold_s)
+        self._iterations = 0
+        self._last_progress = time.monotonic()
+        self._draining = False
+        self._preempts = 0
+
+        self._cond = threading.Condition()
+        self._queue = FairQueue()
+        # The request inside _admit (popped, not yet in a slot): without
+        # it drain()/heartbeat() would read an admitting engine as empty.
+        self._admitting: Optional[Request] = None
+        self._stopped = False
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name=f"kfx-engine-{name}")
+        self._thread.start()
+        self._touch_gauges()
+
+    # -- metrics -------------------------------------------------------------
+    def _reg(self) -> MetricsRegistry:
+        r = self._registry
+        if callable(r):
+            return r()
+        return r if r is not None else default_registry()
+
+    @property
+    def kv_bytes_per_token(self) -> int:
+        """KV bytes per cached token: 2 (K+V) x layers x heads x head_dim x
+        entry bytes, plus the page's position-id word (4 bytes a layer,
+        as stored)."""
+        c = self.cfg
+        item = torch.empty((), dtype=c.dtype).element_size()
+        return (2 * c.n_layers * c.n_heads * c.head_dim * item
+                + 4 * c.n_layers)
+
+    @property
+    def pool_bytes(self) -> int:
+        """Device bytes of the KV pool (sink page included)."""
+        return self._cache.nbytes
+
+    def prefix_stats(self) -> Dict[str, int]:
+        """Cumulative prefix-cache counters (zeros while the cache is
+        off): cache hits, prompt tokens admitted and tokens served from
+        cached pages."""
+        if self._prefix is None:
+            return {"hits": 0, "tokens_reused": 0,
+                    "prompt_tokens": self._prompt_tokens}
+        return {"hits": self._prefix.hits,
+                "tokens_reused": self._prefix.tokens_reused,
+                "prompt_tokens": self._prompt_tokens}
+
+    def page_stats(self) -> Dict[str, int]:
+        """Pool accounting: pages, free pages, pages the prefix cache
+        holds, cumulative preemptions. With nothing in flight, free +
+        cached == pages (no leak)."""
+        return {"pages": self.n_pages, "free": self._mgr.n_free,
+                "cached": len(self._prefix) if self._prefix is not None
+                else 0,
+                "preemptions": self._preempts}
+
+    def _occupancy(self) -> float:
+        """Token-weighted occupancy: slot capacity scaled by the pool
+        fraction active slots' DISTINCT pages pin (prefix-shared pages
+        appear in every sharer's list but pin one physical page)."""
+        held = len({pg for i, r in enumerate(self._slots)
+                    if r is not None for pg in self._slot_pages[i]})
+        return self.n_slots * held / float(self.n_pages)
+
+    def _touch_gauges(self) -> None:
+        reg = self._reg()
+        reg.gauge("kfx_lm_slots",
+                  "Decode-engine request slots (max concurrency).").set(
+                      self.n_slots, model=self.name)
+        reg.gauge("kfx_lm_slot_occupancy",
+                  "Token-weighted engine load: slot capacity scaled by "
+                  "the KV-page fraction active slots hold.").set(
+                      round(self._occupancy(), 4), model=self.name)
+        reg.gauge("kfx_lm_queue_depth",
+                  "Requests waiting for a decode-engine slot.").set(
+                      len(self._queue), model=self.name)
+        reg.gauge("kfx_lm_kv_pages",
+                  "KV cache pages in the engine's pool.").set(
+                      self.n_pages, model=self.name)
+        reg.gauge("kfx_lm_kv_pages_free",
+                  "KV cache pages on the free list.").set(
+                      self._mgr.n_free, model=self.name)
+        reg.gauge("kfx_lm_kv_bytes_per_token",
+                  "KV-cache bytes per cached token (entries + "
+                  "quantization scales + position id).").set(
+                      self.kv_bytes_per_token, model=self.name)
+        # Info-style gauge (constant 1, the mode rides the labels): the
+        # port serves unquantized weights and KV only.
+        reg.gauge("kfx_lm_quant_mode",
+                  "Quantization mode info gauge (value is constant 1; "
+                  "weights/kv labels carry the mode).").set(
+                      1, model=self.name, weights="f32", kv="f32")
+        reg.counter("kfx_lm_prefix_cache_hits_total",
+                    "Admissions that reused cached prefix pages.").inc(
+                        0, model=self.name)
+        st = self.prefix_stats()
+        reg.gauge("kfx_lm_prefix_tokens_reused",
+                  "Prompt tokens served from cached prefix pages "
+                  "(cumulative).").set(st["tokens_reused"], model=self.name)
+        reg.gauge("kfx_lm_prompt_tokens_admitted",
+                  "Prompt tokens admitted (cumulative; denominator of "
+                  "the prefill-skipped fraction).").set(
+                      st["prompt_tokens"], model=self.name)
+        reg.counter("kfx_lm_prefill_chunks_total",
+                    "Prompt-chunk prefill dispatches (chunked "
+                    "admission).").inc(0, model=self.name)
+        reg.counter("kfx_lm_kv_preemptions_total",
+                    "Slots preempted (recompute-requeued) on pool "
+                    "exhaustion.").inc(0, model=self.name)
+        reg.histogram("kfx_lm_decode_stall_seconds",
+                      "Seconds active decode slots waited on a prefill "
+                      "dispatch, per engine iteration.",
+                      buckets=QUEUE_WAIT_BUCKETS).observe(
+                          0.0, n=0, model=self.name)
+
+    def _active_count(self) -> int:
+        return sum(1 for r in self._slots if r is not None)
+
+    @property
+    def queue_depth(self) -> int:
+        with self._cond:
+            return len(self._queue)
+
+    # -- liveness / drain ----------------------------------------------------
+    def heartbeat(self) -> Dict[str, Any]:
+        """Decode-loop progress snapshot (the server's /healthz input):
+        iteration counter, seconds since the loop last completed an
+        iteration, whether there is work it SHOULD be advancing, and the
+        derived ``wedged`` verdict — stale progress while busy. An idle
+        engine is never wedged: ``_enqueue`` re-stamps progress when it
+        wakes a parked loop."""
+        now = time.monotonic()
+        with self._cond:
+            busy = (self._active_count() > 0 or len(self._queue) > 0
+                    or self._admitting is not None)
+        stalled_s = now - self._last_progress
+        return {
+            "iterations": self._iterations,
+            "stalled_s": round(stalled_s, 3),
+            "busy": busy,
+            "draining": self._draining,
+            "wedged": busy and stalled_s > self.stall_threshold_s,
+        }
+
+    def drain(self, wait_s: float = 0.0) -> bool:
+        """Enter drain mode: stop admitting (submit raises EngineDraining
+        -> 503 + Retry-After), resolve every QUEUED request with the same
+        retriable error, and let in-flight slots run to completion.
+        Blocks up to ``wait_s`` for them; returns True when the engine is
+        empty. One-way."""
+        with self._cond:
+            self._draining = True
+            queued = self._queue.drain_all()
+            self._cond.notify_all()
+        err = EngineDraining(
+            f"engine {self.name} is draining; retry another replica")
+        for req in queued:
+            req._finish(err)
+        self._touch_gauges()
+        deadline = time.monotonic() + max(wait_s, 0.0)
+        while True:
+            with self._cond:
+                # A preempt re-queued mid-drain and a request mid-admission
+                # are in-flight work, not new admissions.
+                empty = (self._active_count() == 0 and not self._queue
+                         and self._admitting is None)
+            if empty or time.monotonic() >= deadline:
+                return empty
+            time.sleep(0.02)
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    # -- device operations (loop thread, except warm) -----------------------
+    def _prefill(self, tokens: Sequence[int], start: int,
+                 table: np.ndarray) -> torch.Tensor:
+        """Run the prompt tail ``tokens`` (absolute positions from
+        ``start``; earlier positions are read from the pages ``table``
+        maps) right-padded to its power-of-two bucket, writing its K/V
+        straight into the pool through ``table`` [L/P]. Pads carry
+        position -1: their writes go to the sink and they are masked out
+        of every attention. Returns the last real token's logits [V]."""
+        n = len(tokens)
+        P = pow2_bucket(n, self.cfg.max_seq_len)
+        tok = np.zeros((1, P), np.int64)
+        tok[0, :n] = tokens
+        ar = np.arange(P)
+        pos = np.where(ar < n, start + ar, -1).astype(np.int32)[None]
+        dev = self.device
+        logits = self.model(torch.from_numpy(tok).to(dev),
+                            torch.from_numpy(pos).to(dev), self._cache,
+                            torch.from_numpy(table[None]).to(dev))
+        return logits[0, n - 1]
+
+    def warm(self, buckets: Optional[Sequence[int]] = None) -> None:
+        """Run one decode step and the prefill at each prompt bucket in
+        ``buckets`` (default: every configured bucket), all against an
+        empty block table: every write lands in the sink page and every
+        read is masked, so no slot's state changes (safe from a background
+        thread). Eager PyTorch compiles nothing; this takes each shape's
+        first-call cost (allocator growth, library heuristics) off the
+        first request."""
+        empty = np.full((self.n_blocks,), -1, np.int32)
+        B, dev = self.n_slots, self.device
+        with torch.inference_mode():
+            self.model(torch.zeros(B, 1, dtype=torch.int64, device=dev),
+                       torch.zeros(B, 1, dtype=torch.int32, device=dev),
+                       self._cache,
+                       torch.from_numpy(np.tile(empty, (B, 1))).to(dev))
+            for b in buckets if buckets is not None else self.prompt_buckets:
+                self._prefill([0] * int(b), 0, empty)
+
+    def _invalidate_dirty(self) -> None:
+        """Stamp position -1 over every recycled page (all layers, one
+        scatter) before it is handed out: a new tenant can never attend a
+        previous request's KV."""
+        if self._mgr.dirty:
+            idx = torch.tensor(sorted(self._mgr.dirty), dtype=torch.int64,
+                               device=self.device)
+            self._cache.pos[:, idx] = -1
+            self._mgr.dirty.clear()
+
+    def _copy_page(self, dst: int, src: int, keep: int) -> None:
+        """Copy-on-write: clone page ``src`` into ``dst`` in every layer,
+        keeping only the first ``keep`` token slots valid (positions past
+        the matched prefix are stamped -1, so the source's later tokens
+        can never leak into the borrowing request)."""
+        c = self._cache
+        c.key[:, dst] = c.key[:, src]
+        c.value[:, dst] = c.value[:, src]
+        valid = torch.arange(self.page_size, device=self.device) < keep
+        c.pos[:, dst] = torch.where(valid, c.pos[:, src], -1)
+
+    def _decode_chunk(self) -> Tuple[np.ndarray, np.ndarray]:
+        """One decode chunk: ``_chunk_launch`` then ``_chunk_collect``.
+        Returns (toks, emits), each [k, n_slots]."""
+        return self._chunk_collect(self._chunk_launch())
+
+    def _chunk_launch(self) -> torch.Tensor:
+        """Enqueue ``chunk_tokens`` decode steps over every slot at fixed
+        shapes. Each step: sample -> stop/emit/active gating -> one token
+        for every slot, inactive slots as a masked dummy (position -1,
+        location -1, so their writes go to the sink) -> the logits carry
+        gated per ACTIVE row (an inactive row's dummy logits must never
+        replace its pending next-token logits) -> writes at the
+        dense-equivalent location. The state is uploaded once and nothing
+        here waits for the device. Returns the packed device result
+        ([k] tokens, [k] emits, position, location, active, produced)."""
+        dev, k = self.device, self.chunk_tokens
+        live = self._active
+        sampled = bool((self._temp[live] > 0).any())
+        with_topk = sampled and bool((self._topk[live] > 0).any())
+        state = torch.from_numpy(np.stack([
+            self._pos, self._loc, self._active.astype(np.int64),
+            self._produced, self._topk, self._stop, self._max_new,
+            self._seeds])).to(dev)
+        pos, loc, active, produced, topk, stop, max_new, seeds = state
+        active = active.bool()
+        temp = torch.from_numpy(self._temp).to(dev)
+        tables = torch.from_numpy(self._tables).to(dev)
+        logits = self._logbuf
+        toks, emits = [], []
+        for _ in range(k):
+            tok = sample_slots(logits, temp, topk, seeds, produced,
+                               sampled, with_topk)
+            is_stop = (stop >= 0) & (tok == stop)
+            # The stop token itself is never emitted: the slot retires and
+            # the request returns the tokens before it.
+            emit = active & ~is_stop
+            produced = produced + emit.long()
+            feed = torch.where(active, tok, 0)
+            eff_pos = torch.where(active, pos, -1).int()
+            eff_loc = torch.where(active, loc, -1).int()
+            out = self.model(feed[:, None], eff_pos[:, None], self._cache,
+                             tables, eff_loc[:, None])[:, 0]
+            logits = torch.where(active[:, None], out, logits)
+            pos = torch.where(active, pos + 1, pos)
+            loc = torch.where(active, loc + 1, loc)
+            active = emit & (produced < max_new)
+            toks.append(tok)
+            emits.append(emit)
+        self._logbuf = logits
+        return torch.cat([torch.stack(toks), torch.stack(emits).long(),
+                          torch.stack([pos, loc, active.long(), produced])])
+
+    def _chunk_collect(self, packed: torch.Tensor
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+        """The chunk's one read-back: copy the packed result to the host
+        (waiting for the device) and adopt the advanced slot state."""
+        k = self.chunk_tokens
+        host = packed.cpu().numpy()
+        self._pos, self._loc = host[2 * k].copy(), host[2 * k + 1].copy()
+        self._active = host[2 * k + 2].astype(np.bool_)
+        self._produced = host[2 * k + 3].copy()
+        return host[:k], host[k:2 * k].astype(np.bool_)
+
+    # -- submission ----------------------------------------------------------
+    def _make_request(self, prompt: Sequence[int], max_new_tokens: int,
+                      temperature: float, top_k: int, seed: int,
+                      stop_token: Optional[int]) -> Request:
+        prompt = [int(t) for t in prompt]
+        if not prompt:
+            raise ValueError("prompt must be non-empty")
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if min(prompt) < 0 or max(prompt) >= self.cfg.vocab_size:
+            # An out-of-range id would fault the embedding gather on the
+            # card (the reference's gather clamps instead).
+            raise ValueError(
+                f"prompt token ids must be in [0, {self.cfg.vocab_size})")
+        L = self.cfg.max_seq_len
+        if len(prompt) + max_new_tokens > L:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + max_new_tokens "
+                f"({max_new_tokens}) exceeds the cache capacity {L}")
+        return Request(prompt, int(max_new_tokens), float(temperature),
+                       int(top_k), int(seed),
+                       -1 if stop_token is None else int(stop_token))
+
+    def _enqueue(self, reqs: List[Request]) -> None:
+        """All-or-nothing enqueue: a batch that does not fit the bounded
+        queue is rejected WHOLE — partial admission would orphan the
+        admitted fraction exactly when the engine is most loaded."""
+        with self._cond:
+            if self._stopped:
+                raise RuntimeError("engine is closed")
+            if self._draining:
+                raise EngineDraining(
+                    f"engine {self.name} is draining; retry another "
+                    "replica")
+            if len(self._queue) + len(reqs) > self.max_queue:
+                raise EngineOverloaded(
+                    f"admission queue full ({len(self._queue)} waiting, "
+                    f"{len(reqs)} arriving, cap {self.max_queue})")
+            if self._active_count() == 0 and not self._queue \
+                    and self._admitting is None:
+                # Waking an idle loop: the parked interval is not a stall.
+                self._last_progress = time.monotonic()
+            for r in reqs:
+                self._queue.push(r)
+            depth = len(self._queue)
+            self._cond.notify()
+        self._reg().gauge("kfx_lm_queue_depth",
+                          "Requests waiting for a decode-engine slot."
+                          ).set(depth, model=self.name)
+
+    def submit(self, prompt: Sequence[int], max_new_tokens: int = 32,
+               temperature: float = 0.0, top_k: int = 0, seed: int = 0,
+               stop_token: Optional[int] = None,
+               on_token: Optional[Callable[[Optional[int]], None]] = None
+               ) -> Request:
+        """Enqueue one prompt; returns the request handle (wait with
+        ``.result(timeout)``). ``on_token`` is the streaming sink, called
+        on the loop thread with each token id as it lands, then None at
+        retirement. Raises EngineOverloaded when the bounded admission
+        queue is full."""
+        req = self._make_request(prompt, max_new_tokens, temperature,
+                                 top_k, seed, stop_token)
+        req.on_token = on_token
+        self._enqueue([req])
+        return req
+
+    def generate(self, prompts: Sequence[Sequence[int]],
+                 max_new_tokens: int = 32, temperature: float = 0.0,
+                 top_k: int = 0, seed: int = 0,
+                 stop_token: Optional[int] = None) -> List[List[int]]:
+        """Blocking convenience mirroring LMGenerator.generate: one
+        request per prompt (seeded seed+i), results in prompt order; one
+        ``request_timeout_s`` deadline covers the whole batch."""
+        reqs = self.submit_batch(prompts, max_new_tokens, temperature,
+                                 top_k, seed, stop_token)
+        deadline = time.monotonic() + self.request_timeout_s
+        return [r.result(max(0.001, deadline - time.monotonic()))
+                for r in reqs]
+
+    def submit_batch(self, prompts: Sequence[Sequence[int]],
+                     max_new_tokens: int = 32, temperature: float = 0.0,
+                     top_k: int = 0, seed: int = 0,
+                     stop_token: Optional[int] = None) -> List[Request]:
+        """``generate`` minus the blocking wait: one request per prompt
+        (seeded seed+i), enqueued atomically, handles returned."""
+        reqs = [self._make_request(p, max_new_tokens, temperature, top_k,
+                                   seed + i, stop_token)
+                for i, p in enumerate(prompts)]
+        self._enqueue(reqs)
+        return reqs
+
+    # -- page allocation -----------------------------------------------------
+    def _alloc_pages(self, n: int) -> List[int]:
+        """Take ``n`` pages, reclaiming LRU prefix-cache pages when the
+        free list is short, and invalidating recycled pages' position ids
+        before handing them out."""
+        while self._mgr.n_free < n:
+            if self._prefix is None or not self._prefix.evict_one():
+                break  # alloc() raises with the honest numbers
+        pages = self._mgr.alloc(n)
+        self._invalidate_dirty()
+        return pages
+
+    def _release_slot(self, slot: int) -> None:
+        """Return a slot's page references to the pool (pages still pinned
+        by the prefix cache or other slots survive; the rest go back to
+        the free list, invalidated before reuse)."""
+        self._mgr.decref(self._slot_pages[slot])
+        self._slot_pages[slot] = []
+        self._tables[slot, :] = -1
+        self._active[slot] = False
+
+    # -- the loop -------------------------------------------------------------
+    def _loop(self) -> None:
+        # Both are thread-local: the loop thread selects the device and
+        # enters inference mode itself.
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        with torch.inference_mode():
+            self._run_loop()
+
+    def _run_loop(self) -> None:
+        while True:
+            with self._cond:
+                while (not self._stopped and not self._queue
+                       and self._active_count() == 0):
+                    self._cond.wait()
+                if self._stopped:
+                    return
+            try:
+                # Prefill dispatch time (a monolithic admission's, or this
+                # iteration's one prompt chunk) is decode stall only when
+                # active decode slots existed to be stalled by it.
+                self._iter_stall = 0.0
+                had_active = bool(self._active.any())
+                self._admit_ready()
+                if self._active_count():
+                    # At most ONE prompt-chunk dispatch per iteration.
+                    self._advance_prefill()
+                    if had_active and self._iter_stall > 0:
+                        self._reg().histogram(
+                            "kfx_lm_decode_stall_seconds",
+                            "Seconds active decode slots waited on a "
+                            "prefill dispatch, per engine iteration.",
+                            buckets=QUEUE_WAIT_BUCKETS).observe(
+                                self._iter_stall, model=self.name)
+                    if bool(self._active.any()):
+                        self._decode_once()
+                # The progress heartbeat: one completed iteration.
+                self._iterations += 1
+                self._last_progress = time.monotonic()
+            except Exception as e:     # a broken dispatch fails the
+                self._fail_inflight(e)  # requests, never the engine;
+                time.sleep(0.01)        # KeyboardInterrupt/SystemExit
+                #                         propagate (shutdown)
+
+    def _admit_ready(self) -> None:
+        """Admit queued requests into free slots (between chunks, never
+        mid-dispatch). Admission is gated on free PAGES: a request the
+        pool cannot hold right now stays queued while in-flight work
+        retires; if nothing is in flight to free pages, it fails."""
+        while True:
+            with self._cond:
+                free = [i for i, r in enumerate(self._slots) if r is None]
+                if not free or not self._queue:
+                    break
+                req = self._queue.pop()
+                self._admitting = req
+            requeued = False
+            try:
+                self._admit(req, free[0])
+            except PageAllocError as e:
+                if self._active_count() == 0:
+                    req._finish(e)
+                else:
+                    with self._cond:
+                        self._queue.push_front(req)
+                    requeued = True
+            except Exception as e:
+                # A failed prefill fails THIS request alone; the loop keeps
+                # serving everyone else.
+                req._finish(e)
+            finally:
+                self._admitting = None
+            if requeued:
+                break
+        self._touch_gauges()
+
+    def _admit(self, req: Request, slot: int) -> None:
+        L, ps = self.cfg.max_seq_len, self.page_size
+        # Recompute continuation: a preempted request re-prefills prompt +
+        # already-generated (the same values incremental decode wrote) and
+        # keeps appending to the same token list.
+        full = req.prompt + req.tokens
+        n = len(full)
+        remaining = req.max_new - len(req.tokens)
+        bucket = pow2_bucket(n, L - remaining)
+        # Shared-prefix reuse, capped at n-1: the last prompt token must
+        # run through the model for the next-token logits.
+        shared: List[int] = []
+        cow = None
+        matched = 0
+        key = b""
+        if self._prefix is not None:
+            shared, cow, matched, key = self._prefix.match(full, n - 1)
+        tail = full[matched:]
+        if self.prefill_chunk_tokens and \
+                len(tail) > self.prefill_chunk_tokens:
+            return self._admit_chunked(req, slot, full, n, remaining,
+                                       bucket, shared, cow, matched, key)
+        first_own = len(shared)  # COW lands in the first owned block
+        # The matched pages (and the COW source) are pinned FIRST:
+        # _alloc_pages reclaims LRU cache pages, and an unpinned
+        # just-matched page could be handed back as a tail page.
+        pinned = shared + ([cow[0]] if cow is not None else [])
+        for pg in pinned:
+            self._mgr.incref(pg)
+        want_blocks = list(range(first_own, (n - 1) // ps + 1))
+        if bucket // ps > (n - 1) // ps:
+            # Reserve the first decode block too when the pad gap puts it
+            # past the prompt blocks, or the admission would be preempted
+            # at the very next chunk boundary under pool pressure.
+            want_blocks.append(bucket // ps)
+        try:
+            pages = self._alloc_pages(len(want_blocks))
+        except PageAllocError:
+            self._mgr.decref(pinned)
+            raise
+        row = np.full((self.n_blocks,), -1, np.int32)
+        for j, pg in enumerate(shared):
+            row[j] = pg
+        for b, pg in zip(want_blocks, pages):
+            row[b] = pg
+        self._count_admission(req, matched, n)
+        t_dispatch = time.monotonic()
+        with obs_trace.span("engine.admit", trace_id=req.trace_id,
+                            parent_id=req.span_id, model=self.name,
+                            slot=str(slot), bucket=str(bucket),
+                            prefix_tokens=str(matched)):
+            try:
+                if cow is not None:
+                    self._copy_page(int(row[first_own]), cow[0], cow[1])
+                self._logbuf[slot] = self._prefill(tail, matched, row)
+            except Exception:
+                self._mgr.decref(pinned + pages)
+                raise
+        # A monolithic prefill is decode stall for every active slot.
+        self._iter_stall += time.monotonic() - t_dispatch
+        if cow is not None:
+            # The COW source's pin was only for the copy window; the slot
+            # keeps the private clone.
+            self._mgr.decref([cow[0]])
+        self._tables[slot] = row
+        self._slot_pages[slot] = shared + pages
+        # Register this prompt's pages for future admissions: every full
+        # prompt page not already cached, chained after the matched
+        # prefix, plus the partially-filled boundary page.
+        if self._prefix is not None:
+            h = key
+            for b in range(len(shared), n // ps):
+                h = self._prefix.insert_full(
+                    h, full[b * ps:(b + 1) * ps], int(row[b]))
+            if n % ps and row[n // ps] >= 0:
+                self._prefix.insert_partial(
+                    h, full[(n // ps) * ps:n], int(row[n // ps]))
+        self._slots[slot] = req
+        self._activate(slot, req, n, bucket, remaining)
+
+    def _activate(self, slot: int, req: Request, n: int, bucket: int,
+                  remaining: int) -> None:
+        """The slot's decode state once its whole prompt is in the pool:
+        decode writes start at the bucket (the dense-equivalent location)
+        and the sampling stream continues at ``len(req.tokens)``."""
+        self._pos[slot] = n
+        self._loc[slot] = bucket
+        self._max_loc[slot] = bucket + remaining - 1
+        self._active[slot] = True
+        self._produced[slot] = len(req.tokens)
+        self._seeds[slot] = seed32(req.seed)
+        self._temp[slot] = req.temperature
+        self._topk[slot] = req.top_k
+        self._stop[slot] = req.stop
+        self._max_new[slot] = req.max_new
+
+    def _count_admission(self, req: Request, matched: int, n: int) -> bool:
+        """First-admission stats, counted once per CLIENT request: the
+        queue-wait histogram, the prefix-hit counters and the
+        admitted-prompt-token total. Returns whether it counted."""
+        if req.counted:
+            return False
+        req.counted = True
+        req.t_admitted = time.monotonic()
+        self._reg().histogram(
+            "kfx_lm_queue_wait_seconds",
+            "Decode-engine admission wait (enqueue to slot prefill).",
+            buckets=QUEUE_WAIT_BUCKETS).observe(
+                req.t_admitted - req.t_enqueue, model=self.name)
+        if self._prefix is not None:
+            if matched:
+                self._count_prefix_hit(matched)
+            self._prompt_tokens += n
+        return True
+
+    def _count_prefix_hit(self, matched: int) -> None:
+        self._prefix.hits += 1
+        self._prefix.tokens_reused += matched
+        self._reg().counter(
+            "kfx_lm_prefix_cache_hits_total",
+            "Admissions that reused cached prefix pages.").inc(
+                1, model=self.name)
+
+    def _clone_cow_page(self, pinned: List[int], cow) -> int:
+        """One COW boundary-page clone for the chunked paths: allocate a
+        private page, copy ``cow`` into it (the source is already pinned
+        via ``pinned``), release the source's pin. On failure every pin
+        in ``pinned`` (and the clone) is released before re-raising."""
+        try:
+            page = self._alloc_pages(1)[0]
+        except PageAllocError:
+            self._mgr.decref(pinned)
+            raise
+        try:
+            self._copy_page(page, cow[0], cow[1])
+        except Exception:
+            self._mgr.decref(pinned + [page])
+            raise
+        self._mgr.decref([cow[0]])
+        return page
+
+    def _admit_chunked(self, req: Request, slot: int, full: List[int],
+                       n: int, remaining: int, bucket: int,
+                       shared: List[int], cow, matched: int,
+                       key: bytes) -> None:
+        """Chunked admission: place the request in the slot WITHOUT a
+        prompt dispatch — pin the matched prefix pages (and clone the COW
+        boundary page), count the admission as the monolithic path does,
+        and leave a prefill cursor for the loop to advance one chunk per
+        iteration. The slot is not active until the cursor completes."""
+        first_own = len(shared)
+        pinned = shared + ([cow[0]] if cow is not None else [])
+        for pg in pinned:
+            self._mgr.incref(pg)
+        with obs_trace.span("engine.admit", trace_id=req.trace_id,
+                            parent_id=req.span_id, model=self.name,
+                            slot=str(slot), bucket=str(bucket),
+                            prefix_tokens=str(matched), chunked="1"):
+            cow_page = None
+            if cow is not None:
+                cow_page = self._clone_cow_page(pinned, cow)
+        row = np.full((self.n_blocks,), -1, np.int32)
+        for j, pg in enumerate(shared):
+            row[j] = pg
+        own: List[int] = []
+        if cow_page is not None:
+            row[first_own] = cow_page
+            own.append(cow_page)
+        fresh = self._count_admission(req, matched, n)
+        self._tables[slot] = row
+        self._slot_pages[slot] = shared + own
+        self._active[slot] = False
+        self._slots[slot] = req
+        self._prefilling[slot] = {
+            "req": req, "full": full, "n": n, "next": matched,
+            "key": key, "reg_block": len(shared),
+            "bucket": bucket, "remaining": remaining,
+            # Whether THIS admission counted as a client admission: the
+            # late re-match's hit accounting follows the same verdict.
+            "fresh": fresh}
+
+    def _advance_prefill(self) -> None:
+        """Advance chunked prefill by at most ONE chunk dispatch per
+        iteration (oldest cursor first). Pages allocate at the chunk
+        boundary; pool exhaustion preempts the youngest in-flight slot,
+        which may be this cursor itself (re-queued whole)."""
+        if not self._prefilling:
+            return
+        slot = min(self._prefilling,
+                   key=lambda s: self._prefilling[s]["req"].t_enqueue)
+        cur = self._prefilling[slot]
+        req = cur["req"]
+        if self._prefix is not None and cur["next"] == 0 \
+                and not self._slot_pages[slot]:
+            # Late prefix match, once per cursor before its first chunk:
+            # the page owner may have been mid-prefill in the SAME wave,
+            # and its completed chunks have registered by now.
+            self._late_prefix_match(slot, cur)
+        ps = self.page_size
+        start, n = cur["next"], cur["n"]
+        length = min(self.prefill_chunk_tokens, n - start)
+        last = start + length >= n
+        # Page budget: this chunk's blocks, plus (on the final chunk) the
+        # first decode block when the pad gap puts it past the prompt.
+        blocks = list(range(start // ps, (start + length - 1) // ps + 1))
+        if last and cur["bucket"] // ps > (n - 1) // ps:
+            blocks.append(cur["bucket"] // ps)
+        while True:
+            try:
+                for b in blocks:
+                    if self._tables[slot, b] < 0:
+                        pg = self._alloc_pages(1)[0]
+                        self._tables[slot, b] = pg
+                        self._slot_pages[slot].append(pg)
+                break
+            except PageAllocError as e:
+                victims = [s for s, r in enumerate(self._slots)
+                           if r is not None]
+                if len(victims) <= 1:
+                    # Nothing in flight can free pages: fail honestly.
+                    self._abort_prefill(slot, e)
+                    return
+                victim = self._preempt_victim(victims)
+                self._preempt(victim)
+                if victim == slot:
+                    return  # this cursor was the victim: re-queued
+        t_dispatch = time.monotonic()
+        with obs_trace.span("engine.prefill_chunk",
+                            trace_id=req.trace_id,
+                            parent_id=req.span_id, model=self.name,
+                            slot=str(slot), start=str(start),
+                            tokens=str(length)):
+            try:
+                self._logbuf[slot] = self._prefill(
+                    cur["full"][start:start + length], start,
+                    self._tables[slot])
+            except Exception as e:
+                self._abort_prefill(slot, e)
+                return
+        self._iter_stall += time.monotonic() - t_dispatch
+        self._reg().counter(
+            "kfx_lm_prefill_chunks_total",
+            "Prompt-chunk prefill dispatches (chunked admission).").inc(
+                1, model=self.name)
+        cur["next"] = start + length
+        self._register_prefix_pages(slot, cur, final=last)
+        if last:
+            self._prefilling.pop(slot)
+            self._activate(slot, req, n, cur["bucket"], cur["remaining"])
+
+    def _late_prefix_match(self, slot: int, cur: Dict[str, Any]) -> None:
+        """Adopt a prefix-cache match for a cursor that admitted against
+        an empty match: pin the matched full pages, clone the COW boundary
+        page, and fast-forward the cursor. A failed COW allocation
+        abandons the match; plain chunked prefill continues."""
+        shared, cow, matched, key = self._prefix.match(cur["full"],
+                                                       cur["n"] - 1)
+        if not matched:
+            return
+        pinned = shared + ([cow[0]] if cow is not None else [])
+        for pg in pinned:
+            self._mgr.incref(pg)
+        cow_page = None
+        if cow is not None:
+            try:
+                cow_page = self._clone_cow_page(pinned, cow)
+            except PageAllocError:
+                return   # match abandoned; plain prefill continues
+        own = list(shared)
+        for j, pg in enumerate(shared):
+            self._tables[slot, j] = pg
+        if cow_page is not None:
+            self._tables[slot, len(shared)] = cow_page
+            own.append(cow_page)
+        self._slot_pages[slot] = own
+        cur["next"] = matched
+        cur["key"] = key
+        cur["reg_block"] = len(shared)
+        if cur["fresh"]:
+            self._count_prefix_hit(matched)
+
+    def _register_prefix_pages(self, slot: int, cur: Dict[str, Any],
+                               final: bool) -> None:
+        """Incremental prefix-cache registration: every full prompt page
+        the cursor has covered chains after the matched prefix, and the
+        partially-filled boundary page registers once at completion."""
+        if self._prefix is None:
+            return
+        ps = self.page_size
+        n, full = cur["n"], cur["full"]
+        h = cur["key"]
+        covered = min(cur["next"], n) // ps
+        b = cur["reg_block"]
+        while b < covered:
+            h = self._prefix.insert_full(
+                h, full[b * ps:(b + 1) * ps], int(self._tables[slot, b]))
+            b += 1
+        cur["key"], cur["reg_block"] = h, b
+        if final and n % ps and self._tables[slot, n // ps] >= 0:
+            self._prefix.insert_partial(
+                h, full[(n // ps) * ps:n], int(self._tables[slot, n // ps]))
+
+    def _abort_prefill(self, slot: int, error: BaseException) -> None:
+        """Tear a prefill cursor down, releasing the slot's pages whole,
+        and fail its request ALONE with ``error``."""
+        cur = self._prefilling.pop(slot)
+        self._slots[slot] = None
+        self._release_slot(slot)
+        cur["req"]._finish(error)
+
+    def _ensure_chunk_pages(self) -> None:
+        """Allocate, at the chunk boundary, every page the next chunk may
+        write (decode locations loc..loc+k-1, capped at the slot's
+        budget). On pool exhaustion the YOUNGEST slot is preempted, so the
+        oldest requests always make progress; a lone slot that still
+        cannot be placed fails with PageAllocError."""
+        while True:
+            try:
+                for slot, req in enumerate(self._slots):
+                    if req is None or not self._active[slot]:
+                        continue
+                    lo = int(self._loc[slot])
+                    hi = min(lo + self.chunk_tokens - 1,
+                             int(self._max_loc[slot]))
+                    for b in range(lo // self.page_size,
+                                   hi // self.page_size + 1):
+                        if self._tables[slot, b] < 0:
+                            pg = self._alloc_pages(1)[0]
+                            self._tables[slot, b] = pg
+                            self._slot_pages[slot].append(pg)
+                return
+            except PageAllocError:
+                # Mid-prefill slots are victims too: their pages are as
+                # reclaimable as a decoder's.
+                victims = [s for s, r in enumerate(self._slots)
+                           if r is not None]
+                if len(victims) <= 1:
+                    raise
+                self._preempt(self._preempt_victim(victims))
+
+    def _preempt_victim(self, victims: List[int]) -> int:
+        """The YOUNGEST in-flight slot: the oldest requests always make
+        progress."""
+        return max(victims, key=lambda s: self._slots[s].t_enqueue)
+
+    def _preempt(self, slot: int) -> None:
+        req = self._slots[slot]
+        self._prefilling.pop(slot, None)
+        self._slots[slot] = None
+        self._release_slot(slot)
+        self._reg().counter(
+            "kfx_lm_kv_preemptions_total",
+            "Slots preempted (recompute-requeued) on pool exhaustion."
+            ).inc(1, model=self.name)
+        self._preempts += 1
+        req.preempts += 1
+        with self._cond:
+            self._queue.push_front(req)
+
+    def _decode_once(self) -> None:
+        self._ensure_chunk_pages()
+        if not self._active.any():
+            return  # every decoding slot preempted away
+        oldest = min((r for r in self._slots if r is not None),
+                     key=lambda r: r.t_enqueue)
+        with obs_trace.span("engine.chunk", trace_id=oldest.trace_id,
+                            parent_id=oldest.span_id, model=self.name,
+                            slots=str(int(self._active.sum())),
+                            k=str(self.chunk_tokens)):
+            toks, emits = self._decode_chunk()
+        reg = self._reg()
+        reg.counter("kfx_lm_engine_chunks_total",
+                    "Decode-chunk dispatches.").inc(1, model=self.name)
+        emitted = 0
+        now = time.monotonic()
+        for slot, req in enumerate(self._slots):
+            if req is None or slot in self._prefilling:
+                # A mid-prefill slot rides the dispatch fully masked:
+                # inactive by design, not retired.
+                continue
+            hits = np.flatnonzero(emits[:, slot])
+            fresh = [int(t) for t in toks[hits, slot]]
+            req.tokens.extend(fresh)
+            if req.on_token is not None:
+                for t in fresh:
+                    req._notify(t)
+            emitted += len(hits)
+            if len(hits) and req.t_first == 0.0:
+                req.t_first = now
+            if not self._active[slot]:
+                self._slots[slot] = None
+                self._release_slot(slot)
+                req._finish()
+        if emitted:
+            reg.counter("kfx_lm_generated_tokens_total",
+                        "Tokens generated since startup.").inc(
+                            emitted, model=self.name)
+        self._touch_gauges()
+
+    def _fail_inflight(self, e: BaseException) -> None:
+        """Fail every in-flight request and reset the pool: a dispatch that
+        died midway may have written part of a step, so every page's
+        position ids are invalidated and the bookkeeping starts afresh."""
+        for slot, req in enumerate(self._slots):
+            if req is not None:
+                self._slots[slot] = None
+                req._finish(e)
+        self._prefilling.clear()
+        self._active[:] = False
+        self._tables[:, :] = -1
+        self._slot_pages = [[] for _ in range(self.n_slots)]
+        self._mgr = BlockManager(self.n_pages, self.page_size)
+        if self._prefix is not None:
+            self._prefix = PrefixCache(self._mgr)
+        if not self._stopped:
+            self._cache.pos.fill_(-1)
+            self._logbuf.zero_()
+        self._touch_gauges()
+
+    # -- lifecycle -----------------------------------------------------------
+    def close(self) -> None:
+        """Stop the loop and fail every in-flight/queued request (a racing
+        submit gets an immediate error, never a timeout)."""
+        with self._cond:
+            if self._stopped:
+                return
+            self._stopped = True
+            queued = self._queue.drain_all()
+            self._cond.notify_all()
+        self._thread.join(timeout=10.0)
+        err = RuntimeError("engine closed")
+        for req in queued:
+            req._finish(err)
+        self._fail_inflight(err)

@@ -11,18 +11,31 @@ predictor serves a ``:generate`` verb:
      "temperature": 0.7, "top_k": 40, "seed": 1}
     -> {"generated_tokens": [[...], ...], "tokens_per_second": ...}
 
-The port serves the reference's ONE-SHOT path: the LMGenerator
-(models/generate.py), run to completion per request — what the
-reference runs with ``KFX_LM_ENGINE=0`` and the greedy-parity oracle its
-engine is held to. The reference's default is the continuous-batching
-DecodeEngine; the port does not have it yet (ROADMAP.md Queue A 5), so
-with ``KFX_LM_ENGINE`` unset it serves one-shot, and every engine-only
-knob that is set explicitly (``KFX_LM_ENGINE`` other than 0,
-``KFX_LM_ADAPTERS``, ``KFX_LM_MODELS``, ``KFX_LM_QUANT`` / ``_KV_QUANT``
-other than 0, ``KFX_LM_ROLE`` other than mixed, ``KFX_LM_KV_PEERS``)
-raises ``NotImplementedError`` rather than being ignored. So does an
-int8 export, and the body fields ``stop_token``, ``adapter`` and
-``model`` are a 400, as on the reference's one-shot path.
+``KFX_LM_ENGINE`` (default "1", as in the reference) serves through the
+continuous-batching DecodeEngine (serving/engine.py: paged KV pool,
+prefix cache, chunked prefill, preemption), configured by
+``KFX_LM_ENGINE_CHUNK`` (decode steps a chunk, 8), ``KFX_LM_KV_PAGE_SIZE``
+(32), ``KFX_LM_KV_PAGES`` (0 = the dense layout's memory),
+``KFX_LM_PREFIX_CACHE`` (1), ``KFX_LM_PREFILL_CHUNK`` (256; 0 =
+monolithic) and ``KFX_LM_STALL_S`` (10, the /healthz wedge threshold);
+``max_batch_size`` is its slot count and the body field ``stop_token``
+is legal. ``KFX_LM_ENGINE=0`` serves the ONE-SHOT path instead — the
+LMGenerator (models/generate.py), run to completion per request, the
+greedy-parity oracle the engine is held to — where ``stop_token`` is a
+400, as in the reference.
+
+One default differs from the reference: the reference turns speculative
+decoding on by default for LMs of 2 or more layers; the port's engine
+runs without a draft (greedy output is the same either way).
+``KFX_LM_SPEC`` unset or "0" is that; any other value, and any
+``KFX_LM_SPEC_*`` knob, raises ``NotImplementedError``. So does every
+other engine extension knob that is set (``KFX_LM_ADAPTERS``,
+``KFX_LM_MODELS``, ``KFX_LM_QUANT`` / ``_KV_QUANT`` other than 0, a
+``KFX_LM_ROLE`` other than mixed, ``KFX_LM_KV_PEERS``,
+``KFX_LM_KV_OFFLOAD_PAGES``, ``KFX_LM_QOS_DEFAULT`` other than
+interactive, ``KFX_LM_DEADLINE_MS``, ``KFX_LM_RATE_LIMITS``: ROADMAP.md
+Queue A 5b), rather than being ignored, and so does an int8 export. The
+body fields ``adapter`` and ``model`` are a 400.
 
 Tokenization is caller-side.
 """
@@ -32,10 +45,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import queue as _queue
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, Iterator, List, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,13 +57,14 @@ import torch
 from ..models.transformer import TransformerConfig
 from ..obs.metrics import default_registry
 from . import _msgpack
+from .engine import DecodeEngine, EngineOverloaded
 from .export import FORMAT_VERSION
 from .server import Predictor
 
 CONFIG_FILE = "lm_config.json"
 PARAMS_FILE = "params.msgpack"
 
-_ENGINE = "ROADMAP.md Queue A 5, the engine"
+_ENGINE = "ROADMAP.md Queue A 5b, the engine's extensions"
 _DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 
 
@@ -109,24 +124,45 @@ def is_lm_export(model_dir: str) -> bool:
 
 
 def _refuse_engine_knobs() -> None:
-    """Raise on an explicitly set knob that only the engine reads."""
+    """Raise on an explicitly set knob of an engine extension the port
+    does not have yet (ROADMAP.md Queue A 5b), naming it."""
     env = os.environ.get
-    knobs = (
-        ("KFX_LM_ENGINE", env("KFX_LM_ENGINE", "0") != "0"),
-        ("KFX_LM_ADAPTERS", bool(env("KFX_LM_ADAPTERS", ""))),
-        ("KFX_LM_MODELS", bool(env("KFX_LM_MODELS", ""))),
-        ("KFX_LM_QUANT", env("KFX_LM_QUANT", "0") not in ("", "0")),
-        ("KFX_LM_KV_QUANT", env("KFX_LM_KV_QUANT", "0") not in ("", "0")),
-        ("KFX_LM_ROLE", env("KFX_LM_ROLE", "mixed") != "mixed"),
-        ("KFX_LM_KV_PEERS", bool(env("KFX_LM_KV_PEERS", ""))),
-    )
-    for name, set_ in knobs:
+    off = ("", "0")
+    knobs = [
+        ("KFX_LM_SPEC", env("KFX_LM_SPEC", "") not in off,
+         "speculative decoding")]
+    knobs += [(k, bool(env(k, "")), "speculative decoding")
+              for k in sorted(os.environ) if k.startswith("KFX_LM_SPEC_")]
+    knobs += [
+        ("KFX_LM_ADAPTERS", env("KFX_LM_ADAPTERS", "") not in ("", "{}"),
+         "LoRA adapters"),
+        ("KFX_LM_MODELS", env("KFX_LM_MODELS", "") not in ("", "{}"),
+         "the weight pool"),
+        ("KFX_LM_QUANT", env("KFX_LM_QUANT", "") not in off,
+         "int8 weights/KV"),
+        ("KFX_LM_KV_QUANT", env("KFX_LM_KV_QUANT", "") not in off,
+         "int8 weights/KV"),
+        ("KFX_LM_ROLE", env("KFX_LM_ROLE", "mixed") != "mixed",
+         "KV transfer, offload and roles"),
+        ("KFX_LM_KV_PEERS", env("KFX_LM_KV_PEERS", "") not in ("", "[]"),
+         "KV transfer, offload and roles"),
+        ("KFX_LM_KV_OFFLOAD_PAGES",
+         env("KFX_LM_KV_OFFLOAD_PAGES", "") not in off,
+         "KV transfer, offload and roles"),
+        ("KFX_LM_QOS_DEFAULT",
+         env("KFX_LM_QOS_DEFAULT", "") not in ("", "interactive"),
+         "QoS, deadlines and rate limits"),
+        ("KFX_LM_DEADLINE_MS", env("KFX_LM_DEADLINE_MS", "") not in off,
+         "QoS, deadlines and rate limits"),
+        ("KFX_LM_RATE_LIMITS",
+         env("KFX_LM_RATE_LIMITS", "") not in ("", "{}"),
+         "QoS, deadlines and rate limits"),
+    ]
+    for name, set_, what in knobs:
         if set_:
             raise NotImplementedError(
-                f"{name}={env(name)!r} needs the continuous-batching "
-                f"decode engine, which is not ported yet ({_ENGINE}); "
-                "the port serves the one-shot path (unset it, or "
-                "KFX_LM_ENGINE=0)")
+                f"{name}={env(name)!r}: {what} is not ported yet "
+                "(ROADMAP.md Queue A 5b); unset it")
 
 
 class _RateWindow:
@@ -160,16 +196,41 @@ class _RateWindow:
 class LMPredictor(Predictor):
     """Generate-only predictor on one device (``:predict`` does not
     apply; the server routes ``:generate`` here). ``device`` is "cuda"
-    by default ("auto" and "default" mean "cuda") or "cpu"."""
+    by default ("auto" and "default" mean "cuda") or "cpu".
+
+    ``KFX_LM_ENGINE`` (default on) selects the continuous-batching
+    DecodeEngine with ``n_slots = max_batch_size``; with the engine the
+    one-shot path's hard batch rejection becomes bounded queueing
+    (``engine.max_queue``). ``=0`` serves the one-shot LMGenerator
+    oracle."""
 
     def __init__(self, model_dir: str, name: str = "",
-                 max_batch_size: int = 8, device: str = "cuda"):
+                 max_batch_size: int = 8, device: str = "cuda",
+                 warm_buckets: Optional[Sequence[int]] = None):
         _refuse_engine_knobs()
+        env = os.environ.get
         self.model_dir = model_dir
         self.name = name or "model"
         self.max_batch_size = max_batch_size
         self.device = "cuda" if device in ("auto", "default") else device
+        self.use_engine = env("KFX_LM_ENGINE", "1") != "0"
+        self.chunk_tokens = int(env("KFX_LM_ENGINE_CHUNK", "8"))
+        # Paged-KV knobs: page size in tokens; pool size in pages (0 = the
+        # dense layout's memory, n_slots x max_seq_len tokens — shrink to
+        # cap KV memory and let admission gate on pages); prefix cache.
+        self.kv_page_size = int(env("KFX_LM_KV_PAGE_SIZE", "32"))
+        self.kv_pages = int(env("KFX_LM_KV_PAGES", "0"))
+        self.prefix_cache = env("KFX_LM_PREFIX_CACHE", "1") != "0"
+        # Chunked prefill: prompt tails longer than this admit in
+        # page-multiple chunks, one per engine iteration (0 disables).
+        self.prefill_chunk = int(env("KFX_LM_PREFILL_CHUNK", "256"))
+        # Seconds of decode-loop stall (while busy) before the heartbeat
+        # reads wedged and /healthz fails the probe.
+        self.stall_threshold_s = float(env("KFX_LM_STALL_S", "10.0"))
+        self.warm_buckets = list(warm_buckets) if warm_buckets else None
         self._gen = None
+        self._engine = None
+        self._warm_thread: Optional[threading.Thread] = None
         self._rate = _RateWindow()
         self._warm_count = 0
         self.vocab_size = 0
@@ -177,11 +238,42 @@ class LMPredictor(Predictor):
         # time so decode throughput shows up on that server's /metrics.
         self.metrics = default_registry()
 
-    def load(self) -> None:
-        from ..models.generate import LMGenerator
+    @property
+    def engine(self):
+        """The DecodeEngine (None on the one-shot path)."""
+        return self._engine
 
+    def load(self) -> None:
         cfg, params = load_lm(self.model_dir)
         self.vocab_size = cfg.vocab_size
+        if self.use_engine:
+            # registry as a thunk: register() swaps self.metrics for the
+            # hosting server's registry AFTER load; the engine follows it.
+            self._engine = DecodeEngine(
+                cfg, params, n_slots=self.max_batch_size,
+                chunk_tokens=self.chunk_tokens, name=self.name,
+                registry=lambda: self.metrics,
+                kv_page_size=self.kv_page_size,
+                kv_pages=self.kv_pages or None,
+                prefix_cache=self.prefix_cache,
+                stall_threshold_s=self.stall_threshold_s,
+                prefill_chunk_tokens=max(0, self.prefill_chunk),
+                device=self.device)
+            buckets = self.warm_buckets or self._engine.prompt_buckets
+            # The first bucket and a decode step warm synchronously
+            # (ready = one request served without a first-call stall);
+            # the rest warm on a background thread, observable through
+            # the kfx_lm_warm_buckets gauge.
+            self._engine.warm(buckets[:1])
+            self._set_warm(1)
+            self.ready = True
+            self._warm_thread = threading.Thread(
+                target=self._warm_rest, args=(buckets[1:],), daemon=True,
+                name=f"kfx-lm-warm-{self.name}")
+            self._warm_thread.start()
+            return
+        from ..models.generate import LMGenerator
+
         self._gen = LMGenerator(cfg, params, device=self.device)
         L = self._gen.cfg.max_seq_len
         buckets = [b for b in (8, 16, 32, 64, 128, 256, 512, 1024, 2048)
@@ -194,6 +286,16 @@ class LMPredictor(Predictor):
         self._set_warm(len(buckets))
         self.ready = True
 
+    def _warm_rest(self, buckets) -> None:
+        done = 1
+        for b in buckets:
+            try:
+                self._engine.warm([b])
+            except Exception:
+                continue  # a failed warm costs the first request, only
+            done += 1
+            self._set_warm(done)
+
     def _set_warm(self, n: int) -> None:
         self._warm_count = n
         self.metrics.gauge(
@@ -203,10 +305,33 @@ class LMPredictor(Predictor):
 
     def on_metrics_attached(self) -> None:
         """ModelServer.register swapped ``self.metrics``: re-seed the
-        load-time gauge onto the new registry so a scrape before the
-        first request sees it."""
+        load-time gauges (warm buckets, the engine's slots and pool) onto
+        the new registry so a scrape before the first request sees
+        them."""
         if self._warm_count:
             self._set_warm(self._warm_count)
+        if self._engine is not None:
+            self._engine._touch_gauges()
+
+    def engine_heartbeat(self) -> Optional[Dict[str, Any]]:
+        """Decode-loop liveness snapshot (None on the one-shot path, which
+        has no persistent loop to wedge) — what turns the hosting
+        server's /healthz into a real liveness probe."""
+        if self._engine is None:
+            return None
+        return self._engine.heartbeat()
+
+    def drain(self, wait_s: float = 0.0) -> bool:
+        """Stop admitting and wait up to ``wait_s`` for in-flight
+        generations to finish. Trivially drained on the one-shot path
+        (its calls are synchronous)."""
+        if self._engine is None:
+            return True
+        return self._engine.drain(wait_s)
+
+    def close(self) -> None:
+        if self._engine is not None:
+            self._engine.close()
 
     def predict(self, instances, probabilities: bool = False
                 ) -> Dict[str, Any]:
@@ -222,7 +347,11 @@ class LMPredictor(Predictor):
                              "is required")
         if isinstance(prompts[0], int):  # single prompt convenience
             prompts = [prompts]
-        if len(prompts) > self.max_batch_size:
+        if self._engine is not None:
+            if len(prompts) > self._engine.max_queue:
+                raise ValueError(f"batch {len(prompts)} exceeds queue "
+                                 f"capacity {self._engine.max_queue}")
+        elif len(prompts) > self.max_batch_size:
             raise ValueError(f"batch {len(prompts)} exceeds max_batch_size "
                              f"{self.max_batch_size}")
         for p in prompts:
@@ -231,19 +360,25 @@ class LMPredictor(Predictor):
                     arr.max() >= self.vocab_size:
                 raise ValueError(
                     f"prompt token ids must be in [0, {self.vocab_size})")
-        # Engine-only fields: the reference's one-shot path answers 400.
-        if body.get("stop_token") is not None:
-            int(body["stop_token"])
-            raise ValueError("stop_token requires the engine path "
-                             "(KFX_LM_ENGINE=1)")
-        for field, what in (("adapter", "adapter name"),
-                            ("model", "model name")):
+        stop = body.get("stop_token")
+        if stop is not None:
+            stop = int(stop)
+            if self._engine is None:
+                # The reference's one-shot path answers 400.
+                raise ValueError("stop_token requires the engine path "
+                                 "(KFX_LM_ENGINE=1)")
+        for field, what, item in (
+                ("adapter", "adapter name", "LoRA adapters"),
+                ("model", "model name", "the weight pool")):
             v = body.get(field)
             if v is not None and not isinstance(v, str):
                 raise ValueError(f"{field} must be a string {what}")
-            if v is not None:
+            if v is not None and self._engine is None:
                 raise ValueError(f"{field} selection requires the engine "
                                  "path (KFX_LM_ENGINE=1)")
+            if v is not None:
+                raise ValueError(f"{field} selection needs {item}, not "
+                                 f"ported yet ({_ENGINE})")
         qos = body.get("qos")
         if qos is not None and not isinstance(qos, str):
             raise ValueError("qos must be a string class name")
@@ -259,6 +394,7 @@ class LMPredictor(Predictor):
                 raise ValueError("deadline_ms must be > 0")
         return {
             "prompts": [list(map(int, p)) for p in prompts],
+            "stop": stop,
             "kw": dict(
                 max_new_tokens=int(body.get("max_new_tokens", 32)),
                 temperature=float(body.get("temperature", 0.0)),
@@ -268,10 +404,12 @@ class LMPredictor(Predictor):
 
     def _record_generate(self, n_tokens: int, elapsed: float) -> None:
         self._rate.record(n_tokens)
-        self.metrics.counter(
-            "kfx_lm_generated_tokens_total",
-            "Tokens generated since startup.").inc(n_tokens,
-                                                   model=self.name)
+        if self._engine is None:
+            # The engine counts emitted tokens itself, per chunk.
+            self.metrics.counter(
+                "kfx_lm_generated_tokens_total",
+                "Tokens generated since startup.").inc(n_tokens,
+                                                       model=self.name)
         self.metrics.gauge(
             "kfx_lm_tokens_per_second",
             "Decode throughput over the trailing 30s window.").set(
@@ -283,7 +421,14 @@ class LMPredictor(Predictor):
 
     def _run(self, p: Dict[str, Any]) -> Tuple[List[List[int]], float]:
         t0 = time.perf_counter()
-        out = self._gen.generate(p["prompts"], **p["kw"])
+        if self._engine is not None:
+            reqs = self._engine.submit_batch(p["prompts"],
+                                             stop_token=p["stop"], **p["kw"])
+            deadline = time.monotonic() + self._engine.request_timeout_s
+            out = [r.result(max(0.001, deadline - time.monotonic()))
+                   for r in reqs]
+        else:
+            out = self._gen.generate(p["prompts"], **p["kw"])
         elapsed = time.perf_counter() - t0
         self._record_generate(sum(len(ids) for ids in out), elapsed)
         return out, elapsed
@@ -296,15 +441,20 @@ class LMPredictor(Predictor):
                 "tokens_per_second": round(tps, 2)}
 
     def generate_stream(self, body: Dict[str, Any]) -> Iterator[bytes]:
-        """SSE token streaming, the reference's one-shot form: validate,
-        generate fully, then replay the tokens as events (same wire
-        contract as the engine's stream, no incremental delivery):
+        """SSE token streaming. Validates and SUBMITS synchronously —
+        ValueError / EngineOverloaded raise here, before any bytes stream,
+        so the server still answers a clean 400/503 — then returns an
+        iterator of events:
 
             data: {"index": i, "token": t}\\n\\n      per token
             data: {"done": true, "n_tokens": N, ...}\\n\\n
 
-        ``stream_skip`` suppresses the first N tokens (the router's
-        mid-stream recovery knob); indices keep counting from 0."""
+        On the engine each token is sent as the loop emits it; the
+        one-shot path generates fully, then replays the tokens (same wire
+        contract). ``stream_skip`` suppresses the first N tokens (the
+        router's mid-stream recovery knob); indices keep counting from
+        0. A mid-stream engine failure sends an ``event: error`` frame
+        and ends the stream."""
         p = self._parse_generate(body)
         if len(p["prompts"]) != 1:
             raise ValueError("streaming serves exactly one prompt "
@@ -313,8 +463,14 @@ class LMPredictor(Predictor):
         if isinstance(skip, bool) or not isinstance(skip, int) \
                 or skip < 0:
             raise ValueError("stream_skip must be an int >= 0")
-        out, elapsed = self._run(p)
-        return iter(self._replay_events(out[0], skip, elapsed))
+        if self._engine is None:
+            out, elapsed = self._run(p)
+            return iter(self._replay_events(out[0], skip, elapsed))
+        q: "_queue.Queue[Optional[int]]" = _queue.Queue()
+        req = self._engine.submit(p["prompts"][0], stop_token=p["stop"],
+                                  on_token=q.put, **p["kw"])
+        return self._stream_events(req, q, skip,
+                                   self._engine.request_timeout_s)
 
     @staticmethod
     def _sse(obj: Dict[str, Any], event: str = "") -> bytes:
@@ -328,4 +484,43 @@ class LMPredictor(Predictor):
                 yield self._sse({"index": i, "token": int(t)})
         tps = len(tokens) / elapsed if elapsed > 0 else 0.0
         yield self._sse({"done": True, "n_tokens": len(tokens),
+                         "tokens_per_second": round(tps, 2)})
+
+    def _stream_events(self, req, q, skip: int,
+                       budget_s: float) -> Iterator[bytes]:
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + budget_s
+        seen = 0
+        while True:
+            try:
+                tok = q.get(timeout=min(
+                    0.25, max(0.001, deadline - time.monotonic())))
+            except _queue.Empty:
+                if time.monotonic() >= deadline:
+                    yield self._sse(
+                        {"error": "engine did not complete the "
+                                  f"request within {budget_s}s",
+                         "code": 503}, event="error")
+                    return
+                continue
+            if tok is None:
+                break
+            if seen >= skip:
+                yield self._sse({"index": seen, "token": tok})
+            seen += 1
+        if req.error is not None:
+            code = 503 if isinstance(req.error, EngineOverloaded) else 500
+            yield self._sse({"error": str(req.error), "code": code},
+                            event="error")
+            return
+        # Tokens notified between the last get and the sentinel are in
+        # req.tokens already: emit any not streamed yet (exactly once).
+        for i in range(seen, len(req.tokens)):
+            if i >= skip:
+                yield self._sse({"index": i, "token": req.tokens[i]})
+        elapsed = time.perf_counter() - t0
+        n = len(req.tokens)
+        self._record_generate(n, elapsed)
+        tps = n / elapsed if elapsed > 0 else 0.0
+        yield self._sse({"done": True, "n_tokens": n,
                          "tokens_per_second": round(tps, 2)})

@@ -1,8 +1,12 @@
 """Model server: the V1 data plane — port of
-``kubeflow_tpu/serving/server.py`` for the LM one-shot path.
+``kubeflow_tpu/serving/server.py`` for LM serving.
 
     GET  /healthz | /                   -> {"status": "alive"|"draining"}
-    GET  /metrics[?format=json]         -> Prometheus text (or JSON)
+                                           503 {"status": "wedged"} while
+                                           a decode loop is stalled with
+                                           work in flight
+    GET  /metrics[?format=json]         -> Prometheus text (or JSON, with
+                                           the decode engines' load block)
     GET  /v1/models                     -> {"models": [...]}
     GET  /v1/models/{m}                 -> {"name": m, "ready": true}
     POST /v1/models/{m}:generate        -> {"generated_tokens": [...], ...}
@@ -10,12 +14,15 @@
     POST /v1/models/{m}:predict         -> 400/500 for an LM, 404 unknown
     POST /drain[?wait_s=S]              -> {"draining": true, "drained": b}
 
-/drain is the operator's pre-kill hook: readiness flips false and new
-requests shed with 503 + Retry-After. The reference's engine, weight
-pool, KV-transfer and flight-recorder routes (``:kvimport``,
+/drain is the operator's pre-kill hook: readiness flips false, new
+requests shed with 503 + Retry-After, and each predictor's engine stops
+admitting and finishes its in-flight requests (``drained`` says whether
+they finished within ``wait_s``). An engine's bounded-queue overflow
+(``EngineOverloaded``) is a 503 + Retry-After too. The reference's
+weight-pool, KV-transfer and flight-recorder routes (``:kvimport``,
 ``:migrate``, ``:kvpeers``, ``:evict``, ``/debug/*``), its chaos points
 and the classifier predictors and micro-batcher are not ported yet
-(ROADMAP.md Queue A 5, 7 and 8).
+(ROADMAP.md Queue A 5b, 7 and 8).
 
     python -m kubeflow_tpu_torch.serving.server --model-dir EXPORT \\
         [--device cpu]
@@ -38,6 +45,7 @@ from ..obs import trace as obs_trace
 from ..obs.metrics import MetricsRegistry
 from ..obs.trace import SPAN_HEADER, TRACE_HEADER
 from ..utils.prom import PROM_CTYPE
+from .engine import EngineOverloaded
 
 request_log = logging.getLogger("kfx.serving")
 
@@ -166,6 +174,30 @@ class ModelServer:
             }
         return out
 
+    def _engine_summary(self) -> Dict[str, Dict[str, Any]]:
+        """Per-model decode-engine load from this registry's gauges — what
+        an autoscaler polls as its queue-depth signal. Empty when no
+        predictor runs an engine (the one-shot path)."""
+        out: Dict[str, Dict[str, Any]] = {}
+        for family, field in (("kfx_lm_queue_depth", "queue_depth"),
+                              ("kfx_lm_slot_occupancy", "slot_occupancy"),
+                              ("kfx_lm_slots", "slots"),
+                              ("kfx_lm_kv_pages", "kv_pages"),
+                              ("kfx_lm_kv_pages_free", "kv_pages_free"),
+                              ("kfx_lm_kv_bytes_per_token",
+                               "kv_bytes_per_token"),
+                              ("kfx_lm_prefix_tokens_reused",
+                               "prefix_tokens_reused"),
+                              ("kfx_lm_prompt_tokens_admitted",
+                               "prompt_tokens_admitted")):
+            for labels, value in self.metrics.gauge(family).samples():
+                out.setdefault(labels.get("model", ""), {})[field] = value
+        # The reference's `kfx top` Q-column string; the port serves
+        # unquantized weights and KV only.
+        for labels, _ in self.metrics.gauge("kfx_lm_quant_mode").samples():
+            out.setdefault(labels.get("model", ""), {})["quant"] = "f32"
+        return out
+
     def _finish_request(self, h, name: str, verb: str, t0: float) -> None:
         """Record latency/outcome for one routed request and emit the
         request log line (trace ID echoed from the caller)."""
@@ -199,31 +231,55 @@ class ModelServer:
             hook()
 
     # -- request handling ---------------------------------------------------
+    def _liveness(self) -> Dict[str, Any]:
+        """Aggregate the decode-loop heartbeats across predictors: the
+        /healthz verdict. ``wedged`` when any engine reports stale
+        progress while busy — the server keeps answering HTTP with a stuck
+        loop, which is why readiness alone cannot catch it."""
+        wedged: Dict[str, Any] = {}
+        for name, p in self.predictors.items():
+            hb_fn = getattr(p, "engine_heartbeat", None)
+            hb = hb_fn() if hb_fn is not None else None
+            if hb and hb.get("wedged"):
+                wedged[name] = {"iterations": hb["iterations"],
+                                "stalled_s": hb["stalled_s"]}
+        if wedged:
+            return {"status": "wedged", "models": wedged}
+        return {"status": "draining" if self.draining else "alive"}
+
     def drain(self, wait_s: float = 0.0) -> Dict[str, Any]:
-        """Enter drain mode: readiness false, new requests shed (503 +
-        Retry-After). The one-shot predictor holds no in-flight state
-        beyond the HTTP handler threads, which finish on their own, so
-        ``wait_s`` bounds nothing here and the verdict is drained."""
+        """Enter drain mode and wait up to ``wait_s`` for in-flight work to
+        finish: readiness false, new requests shed (503 + Retry-After),
+        then every predictor that holds in-flight state drains (the decode
+        engine fails its queue with a retriable error and finishes its
+        slots). Returns the verdict /drain reports."""
         self.draining = True
-        return {"draining": True, "drained": True}
+        deadline = time.monotonic() + max(float(wait_s), 0.0)
+        drained = True
+        for p in self.predictors.values():
+            fn = getattr(p, "drain", None)
+            if fn is None:
+                continue  # no in-flight state beyond the HTTP handler
+            drained = fn(max(deadline - time.monotonic(), 0.0)) and drained
+        return {"draining": True, "drained": drained}
 
     def _handle_get(self, h) -> None:
         path = h.path
         if path == "/healthz" or path == "/":
-            h._send(200, {"status": "draining" if self.draining
-                          else "alive"})
+            live = self._liveness()
+            h._send(503 if live["status"] == "wedged" else 200, live)
         elif path == "/metrics" or path.startswith("/metrics?"):
             # Prometheus exposition by default; JSON via ?format=json.
             # Both render the same registry state.
             q = parse_qs(urlsplit(path).query)
             if (q.get("format") or [""])[0] == "json":
-                # "engine" is the decode engine's load block; the one-shot
-                # path has no engine, so it is empty (as the reference's
-                # is with KFX_LM_ENGINE=0).
+                # "engine" is the decode engines' load block (empty on the
+                # one-shot path, as the reference's is with
+                # KFX_LM_ENGINE=0).
                 h._send(200, {"request_count": self.request_count,
                               "models": sorted(self.predictors),
                               "latency_ms": self._latency_summary(),
-                              "engine": {}})
+                              "engine": self._engine_summary()})
             else:
                 h._send_text(200, self.metrics.render(), PROM_CTYPE)
         elif path == "/v1/models":
@@ -354,6 +410,12 @@ class ModelServer:
         except ValueError as e:
             h._send(400, {"error": str(e)})
             return
+        except EngineOverloaded as e:
+            # Bounded-queueing overflow and drain are load shedding, not a
+            # client mistake and not a server fault: 503 + Retry-After.
+            h._send(503, {"error": str(e)},
+                    extra_headers={"Retry-After": "1"})
+            return
         except Exception as e:
             h._send(500, {"error": str(e)})
             return
@@ -361,9 +423,11 @@ class ModelServer:
 
     def _send_sse(self, h, events) -> None:
         """Stream SSE events over a chunked HTTP/1.1 response. The
-        predictor validated and generated before handing over the
-        iterator, so failures reach the client as a 400/500 above. A
-        client hangup just ends the relay."""
+        predictor validated and submitted before handing over the
+        iterator, so admission failures reach the client as a 400/503
+        above; once headers are out, failures ride the in-band ``event:
+        error`` frame. A client hangup just ends the relay (the engine
+        request completes on its own)."""
         h.send_response(200)
         h.send_header("Content-Type", "text/event-stream")
         h.send_header("Cache-Control", "no-store")
@@ -436,12 +500,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     print(f"server_ready name={args.name} port={server.port} "
           f"framework={framework} "
           f"load_seconds={time.time() - t0:.1f} "
-          f"device={predictor.device}", flush=True)
+          f"device={predictor.device} "
+          f"engine={'on' if predictor.engine is not None else 'off'} "
+          f"spec=off", flush=True)
     try:
         while True:
             time.sleep(3600)
     except KeyboardInterrupt:
         server.stop()
+        predictor.close()
     return 0
 
 

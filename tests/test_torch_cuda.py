@@ -309,3 +309,53 @@ def test_model_server_generates_on_cuda(cuda_serving, tmp_path):
     want = LMGenerator(cfg, model.state_dict(), device=cuda_serving).generate(
         [[5, 9, 11], [7]], max_new_tokens=6)
     assert body["generated_tokens"] == want
+
+
+def _engine_on_card(cfg, model, device, **kw):
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+
+    return DecodeEngine(cfg, model.state_dict(), device=device,
+                        n_slots=4, chunk_tokens=4, kv_page_size=16, **kw)
+
+
+def test_engine_greedy_equals_generator_on_cuda(cuda_serving):
+    """The decode engine on the card (paged pool, chunked prefill at one
+    page) gives the one-shot LMGenerator's greedy tokens on wide-gap
+    weights, with concurrent requests and a prefix hit, and launches no
+    flash kernel."""
+    from kubeflow_tpu_torch.models.generate import LMGenerator
+
+    cfg, model = _tiny_gapped_lm(cuda_serving)
+    gen = LMGenerator(cfg, model.state_dict(), device=cuda_serving)
+    system = [(7 * i + 3) % 60 for i in range(36)]
+    prompts = [[5, 9, 11, 3, 7], [2], system + [60], system + [61],
+               [(3 * i + 1) % 60 for i in range(33)]]
+    fa.reset_launches()
+    eng = _engine_on_card(cfg, model, cuda_serving, prefill_chunk_tokens=16)
+    try:
+        got = eng.generate(prompts, max_new_tokens=12)
+        assert eng.prefix_stats()["hits"] >= 1
+    finally:
+        eng.close()
+    assert got == [gen.generate([p], max_new_tokens=12)[0] for p in prompts]
+    assert fa.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+
+
+def test_engine_pages_come_back_after_preemption_on_cuda(cuda_serving):
+    """A pool too small for the wave preempts (recompute) on the card;
+    the tokens stay the oracle's and every page returns: free pages plus
+    the prefix cache's equal the pool."""
+    from kubeflow_tpu_torch.models.generate import LMGenerator
+
+    cfg, model = _tiny_gapped_lm(cuda_serving)
+    gen = LMGenerator(cfg, model.state_dict(), device=cuda_serving)
+    prompts = [[i + 1, i + 2, i + 3] for i in range(4)]
+    eng = _engine_on_card(cfg, model, cuda_serving, kv_pages=6)
+    try:
+        got = eng.generate(prompts, max_new_tokens=40)
+        st = eng.page_stats()
+    finally:
+        eng.close()
+    assert got == [gen.generate([p], max_new_tokens=40)[0] for p in prompts]
+    assert st["preemptions"] >= 1
+    assert st["free"] + st["cached"] == st["pages"]

@@ -34,9 +34,11 @@ from kubeflow_tpu_torch.serving import server as port_server  # noqa: E402
 
 from test_torch_generate import MIN_GAP, TINY, recompute, wide_gap  # noqa: E402,E501
 
-ENGINE_KNOBS = ("KFX_LM_ENGINE", "KFX_LM_ADAPTERS", "KFX_LM_MODELS",
+ENGINE_KNOBS = ("KFX_LM_SPEC", "KFX_LM_ADAPTERS", "KFX_LM_MODELS",
                 "KFX_LM_QUANT", "KFX_LM_KV_QUANT", "KFX_LM_ROLE",
-                "KFX_LM_KV_PEERS")
+                "KFX_LM_KV_PEERS", "KFX_LM_KV_OFFLOAD_PAGES",
+                "KFX_LM_QOS_DEFAULT", "KFX_LM_DEADLINE_MS",
+                "KFX_LM_RATE_LIMITS")
 
 
 def _leaves(tree):
@@ -311,15 +313,24 @@ def test_generate_and_error_contract(server):
     code, _, _ = _code(f"{url}/v1/models/lm:predict", {"instances": [[0]]})
     assert code in (400, 500)
     gen = f"{url}/v1/models/lm:generate"
+    # The default server runs the engine: stop_token is legal there, and
+    # the batch limit is the engine's bounded queue (4 x 8 slots).
+    one = {"prompt_tokens": [[5, 9, 11, 3, 7]], "max_new_tokens": 12}
+    want = _post(gen, one)[0]["generated_tokens"][0]
+    # A stop token whose first occurrence is past index 1: the engine
+    # stops at the first hit and never emits the stop token itself.
+    cut = next(j for j in range(2, len(want)) if want[j] not in want[:j])
+    got = _post(gen, dict(one, stop_token=want[cut]))[0]
+    assert got["generated_tokens"][0] == want[:cut]
     for payload, msg in (
             ({"prompt_tokens": [[999]]}, "token ids"),
             ({"prompt_tokens": []}, "prompt_tokens"),
-            ({"prompt_tokens": [[1]], "stop_token": 2}, "stop_token"),
+            ({"prompt_tokens": [[1]], "stop_token": "x"}, "invalid literal"),
             ({"prompt_tokens": [[1]], "adapter": "a"}, "adapter"),
             ({"prompt_tokens": [[1]], "adapter": 3}, "adapter"),
             ({"prompt_tokens": [[1]], "model": "m"}, "model"),
             ({"prompt_tokens": [[1]], "max_new_tokens": 0}, "max_new"),
-            ({"prompt_tokens": [[1]] * 9}, "max_batch_size"),
+            ({"prompt_tokens": [[1]] * 33}, "queue capacity"),
             ({"prompt_tokens": [[1] * 60], "max_new_tokens": 32},
              "cache capacity"),
             ({"prompt_tokens": [[1]], "deadline_ms": -1}, "deadline_ms")):
@@ -331,6 +342,34 @@ def test_generate_and_error_contract(server):
         assert code == 404
     code, _, _ = _code(f"{url}/v1/models/lm:evict", {})
     assert code == 404
+
+
+def test_oneshot_error_contract(tiny_export, monkeypatch):
+    """KFX_LM_ENGINE=0 keeps the one-shot path's contract: stop_token is
+    a 400 (as on the reference's one-shot path), the batch limit is
+    max_batch_size, and the JSON metrics carry no engine block."""
+    monkeypatch.setenv("KFX_LM_ENGINE", "0")
+    p = lm_server.LMPredictor(tiny_export[0], name="lm", device="cpu")
+    p.load()
+    assert p.engine is None
+    srv = port_server.ModelServer(port=0)
+    srv.register(p)
+    srv.start()
+    url = f"http://127.0.0.1:{srv.port}"
+    try:
+        gen = f"{url}/v1/models/lm:generate"
+        for payload, msg in (
+                ({"prompt_tokens": [[1]], "stop_token": 2}, "stop_token"),
+                ({"prompt_tokens": [[1]], "adapter": "a"}, "adapter"),
+                ({"prompt_tokens": [[1]], "model": "m"}, "model"),
+                ({"prompt_tokens": [[1]] * 9}, "max_batch_size")):
+            code, err, _ = _code(gen, payload)
+            assert code == 400 and msg in err["error"], (payload, err)
+        _post(gen, {"prompt_tokens": [[1, 2]], "max_new_tokens": 3})
+        assert _get(f"{url}/metrics?format=json")["engine"] == {}
+        assert _get(f"{url}/healthz") == {"status": "alive"}
+    finally:
+        srv.stop()
 
 
 def test_probes_and_metrics(server):
@@ -347,7 +386,12 @@ def test_probes_and_metrics(server):
         assert fam in text, fam
     js = _get(f"{url}/metrics?format=json")
     assert js["models"] == ["lm"] and js["request_count"] >= 1
-    assert js["latency_ms"]["lm"]["p50"] > 0 and js["engine"] == {}
+    assert js["latency_ms"]["lm"]["p50"] > 0
+    blk = js["engine"]["lm"]
+    assert blk["slots"] == 8 and blk["queue_depth"] == 0
+    assert blk["kv_pages"] == blk["kv_pages_free"] + blk.get("cached", 0) \
+        or blk["kv_pages_free"] <= blk["kv_pages"]
+    assert blk["quant"] == "f32"
 
 
 def test_trace_headers_are_echoed(server):
@@ -445,24 +489,48 @@ def test_http_greedy_equals_reference_oneshot_server(tiny_export,
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("KFX_LM_ENGINE", "1"), ("KFX_LM_ADAPTERS", '{"a": "file:///x"}'),
+    ("KFX_LM_SPEC", "1"), ("KFX_LM_ADAPTERS", '{"a": "file:///x"}'),
     ("KFX_LM_MODELS", '{"m": "/x"}'), ("KFX_LM_QUANT", "int8"),
     ("KFX_LM_KV_QUANT", "int8"), ("KFX_LM_ROLE", "prefill"),
-    ("KFX_LM_KV_PEERS", '["http://127.0.0.1:1"]')])
+    ("KFX_LM_KV_PEERS", '["http://127.0.0.1:1"]'),
+    ("KFX_LM_SPEC_LAYERS", "1"), ("KFX_LM_KV_OFFLOAD_PAGES", "4"),
+    ("KFX_LM_QOS_DEFAULT", "batch"), ("KFX_LM_DEADLINE_MS", "500"),
+    ("KFX_LM_RATE_LIMITS", '{"": 10}')])
 def test_engine_knobs_are_refused(tiny_export, monkeypatch, knob, value):
-    assert knob in ENGINE_KNOBS
+    """Every knob of an unported engine extension raises, naming its
+    ROADMAP item (Queue A 5b), with the engine on (the default) and
+    off."""
+    assert knob in ENGINE_KNOBS or knob.startswith("KFX_LM_SPEC_")
     monkeypatch.setenv(knob, value)
-    with pytest.raises(NotImplementedError, match="Queue A 5"):
-        lm_server.LMPredictor(tiny_export[0], device="cpu")
+    for engine in ("1", "0"):
+        monkeypatch.setenv("KFX_LM_ENGINE", engine)
+        with pytest.raises(NotImplementedError, match="Queue A 5b"):
+            lm_server.LMPredictor(tiny_export[0], device="cpu")
 
 
 def test_oneshot_knob_values_are_accepted(tiny_export, monkeypatch):
-    for knob, value in (("KFX_LM_ENGINE", "0"), ("KFX_LM_QUANT", "0"),
-                        ("KFX_LM_ROLE", "mixed")):
+    """Knob values that select what the port runs load: the engine (the
+    default, KFX_LM_ENGINE unset or 1) with KFX_LM_SPEC=0 and the
+    extension knobs at their off values, and the one-shot oracle with
+    KFX_LM_ENGINE=0."""
+    for knob, value in (("KFX_LM_QUANT", "0"), ("KFX_LM_ROLE", "mixed"),
+                        ("KFX_LM_SPEC", "0"), ("KFX_LM_KV_QUANT", "0"),
+                        ("KFX_LM_QOS_DEFAULT", "interactive"),
+                        ("KFX_LM_DEADLINE_MS", "0"),
+                        ("KFX_LM_ADAPTERS", "{}")):
         monkeypatch.setenv(knob, value)
-    p = lm_server.LMPredictor(tiny_export[0], device="cpu")
-    p.load()
-    assert p.ready and p.device == "cpu"
+    for engine, on in ((None, True), ("1", True), ("0", False)):
+        if engine is None:
+            monkeypatch.delenv("KFX_LM_ENGINE", raising=False)
+        else:
+            monkeypatch.setenv("KFX_LM_ENGINE", engine)
+        p = lm_server.LMPredictor(tiny_export[0], device="cpu")
+        p.load()
+        try:
+            assert p.ready and p.device == "cpu"
+            assert (p.engine is not None) == on
+        finally:
+            p.close()
 
 
 def test_predictor_defaults_to_cuda(tiny_export):

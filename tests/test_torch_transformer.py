@@ -136,11 +136,14 @@ def test_config_validation_matches_reference(kw):
 
 UNPORTED = [
     dict(n_experts=2), dict(cp=2), dict(sp=True), dict(quant="int8"),
-    dict(kv_page_size=16, kv_pages=4), dict(lora_rank=4),
-    # Dense decode is ported; the paged cache is the engine's.
+    dict(lora_rank=4), dict(remat=True), dict(loss_chunk=128),
+]
+# The paged cache is ported (the engine's pool): these construct, with
+# the reference's field values.
+PAGED = [
+    dict(kv_page_size=16, kv_pages=4),
     pytest.param(dict(decode=True, kv_page_size=16, kv_pages=4),
                  id="decode"),
-    dict(remat=True), dict(loss_chunk=128),
 ]
 # Training-only fields: every export loads and serves with them (decode
 # uses neither); training with them raises.
@@ -159,6 +162,14 @@ def test_unported_fields_raise_not_implemented(kw):
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.TransformerConfig(**kw)
+
+
+@pytest.mark.parametrize("kw", PAGED, ids=lambda kw: ",".join(kw))
+def test_paged_fields_are_ported(kw):
+    want = ref.TransformerConfig(**kw)
+    got = port.TransformerConfig(**kw)
+    for f in kw:
+        assert getattr(got, f) == getattr(want, f), f
 
 
 def test_config_defaults_match_reference():
