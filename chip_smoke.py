@@ -36,7 +36,8 @@ Phases, in order; any failure raises and the process exits non-zero:
    seeded sampling determinism and top_k=1 == greedy; (e) load seconds,
    prefill and decode-step times against the decode step's bound, decode
    tokens/s, the device's busy share in a decode step, peak memory;
-   (f) the continuous-batching DecodeEngine (the default serving path),
+   (f) the continuous-batching DecodeEngine without a draft
+   (KFX_LM_SPEC=0 pinned, so its numbers stay comparable across PRs),
    counters set to 0 just before and read just after: on (b)'s wide-gap
    f32 base weights the engine's greedy tokens for (a)'s 8 prompts x 64
    equal LMGenerator's (smallest top-1/top-2 gap asserted first), the
@@ -50,9 +51,24 @@ Phases, in order; any failure raises and the process exits non-zero:
    another by the one-shot path, time to first token, and the decode
    chunk at 8 active slots against its bound, with its host enqueue
    time, kernels and busy share;
+   (g) speculative decoding, the reference's default (a draft of
+   n_layers // 4 = 6 layers, 4 proposals a verify window), counters set
+   to 0 just before and read just after: (g1) on (b)'s wide-gap f32 base
+   weights, the speculating engine's greedy tokens for (a)'s 8 prompts x
+   64 equal LMGenerator's (the smallest gap held to 10x the measured
+   disagreement of the verify window's logits), with the accept rate; a
+   draft pool of 8 pages degrades slots, fails none, and neither pool
+   leaks; (g2) the bf16 export behind an engine-backed ModelServer with
+   the default environment (speculation on): 8 concurrent SSE requests,
+   aggregate tokens/s, TTFT, the accept rate from /metrics?format=json,
+   and the kfx_tenant_* totals equal to the tokens served; agreement with
+   (f2)'s tokens counted, not held (bf16); a probe of bf16 rounding with
+   and without the prefix cache (ROADMAP Queue C 1); (g3) one speculative
+   iteration at 8 active slots by hand: ms, host enqueue, kernels, busy
+   share, tokens an iteration and the iteration's bound;
 7. one JSON line per kernel set, the serving line, the engine line, the
-   card's name and power limit, and the last line {"ok": true, "device":
-   {...}}.
+   spec line, the card's name and power limit, and the last line {"ok":
+   true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or without the port's package beside it, it exits non-zero
@@ -110,6 +126,12 @@ ENGINE_PREFILL_CHUNK = 256
 ENGINE_SMALL_POOL = 64
 ENGINE_PROBE_STEP = 2   # the token whose logits the two paths compare
 GAP_MARGIN = 10         # smallest argmax gap / measured logit disagreement
+
+# Speculative phase (g): the reference's defaults (a draft of n_layers // 4
+# layers, 4 proposals a window), and a draft pool too small for the
+# prompts (8 pages of 32 tokens), so slots must degrade.
+SPEC_TOKENS = 4
+SPEC_SMALL_DRAFT_POOL = 8
 
 
 def log(msg: str) -> None:
@@ -854,9 +876,14 @@ def engine_phase(torch, fa, export_dir, gap_cfg, prompts, dev):
     # (f2) the base export behind an engine-backed server, 8 concurrent
     # single-prompt requests; then the one-shot path one after another.
     n_tok = len(prompts) * SERVE_NEW
-    pred = LMPredictor(export_dir, name="lm", device=dev.type)
+    os.environ["KFX_LM_SPEC"] = "0"   # this phase's engine has no draft
+    try:
+        pred = LMPredictor(export_dir, name="lm", device=dev.type)
+    finally:
+        del os.environ["KFX_LM_SPEC"]
     check(pred.engine is None and pred.use_engine, "engine not the default")
     pred.load()
+    check(not pred.engine.spec, "phase (f) engine speculates")
     pred._warm_thread.join(600)
     server = ModelServer(port=0)
     server.register(pred)
@@ -1005,6 +1032,9 @@ def engine_phase(torch, fa, export_dir, gap_cfg, prompts, dev):
     check(all(v == 0 for v in launches.values()),
           f"flash kernels launched by the engine: {launches}")
     rec["flash_launches"] = launches
+    rec["_f1"] = {"want": want, "gap": gap, "diff": diff,
+                  "ref_logits": ref_logits}
+    rec["_f2_tokens"] = first
     log(f"engine (f3) decode chunk at {ENGINE_SLOTS} slots: {chunk_ms:.2f} "
         f"ms for {ENGINE_CHUNK} steps ({step_ms:.3f} ms a step, bound "
         f"{bound:.3f} ms ({by}), "
@@ -1013,6 +1043,336 @@ def engine_phase(torch, fa, export_dir, gap_cfg, prompts, dev):
         f"{rec['chunk']['host_enqueue_ms']:.2f} ms; profile "
         f"{json.dumps(prof)}; pool {eng.pool_bytes / 1e9:.3f} GB; peak "
         f"{rec['peak_memory_gb']:.2f} GB; flash launches {launches}")
+    return rec
+
+def window_logits(torch, eng, prompts, toks, index):
+    """On the stopped engine ``eng``: each prompt prefilled through pages
+    of its own, then ONE verify window per row, ``toks[i][:k+1]`` at the
+    dense-equivalent locations, through the target; the logits at window
+    ``index`` ([B, V]), i.e. those that decide token ``index + 1``."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.models.generate import pow2_bucket
+
+    k, ps, L = eng.propose_tokens, eng.page_size, eng.cfg.max_seq_len
+    tables = np.full((len(prompts), eng.n_blocks), -1, np.int32)
+    buckets, page = [], 0
+    eng._cache.pos.fill_(-1)
+    for i, p in enumerate(prompts):
+        bucket = pow2_bucket(len(p), L - SERVE_NEW)
+        blocks = set(range((len(p) - 1) // ps + 1)) | set(
+            range(bucket // ps, (bucket + k) // ps + 1))
+        for b in sorted(blocks):
+            tables[i, b], page = page, page + 1
+        eng._prefill(p, 0, tables[i])
+        buckets.append(bucket)
+    dev = eng.device
+    steps = torch.arange(k + 1, device=dev)
+    pos = torch.tensor([len(p) for p in prompts], device=dev)[:, None]
+    loc = torch.tensor(buckets, device=dev)[:, None]
+    out = eng.model(torch.tensor([t[:k + 1] for t in toks], device=dev),
+                    (pos + steps).int(), eng._cache,
+                    torch.from_numpy(tables).to(dev), (loc + steps).int())
+    return out[:, index]
+
+
+def bf16_prefix_probe(torch, eng, prompt):
+    """Queue C 1 on the card, on the stopped bf16 engine ``eng``: the
+    last-token logits of ``prompt`` prefilled whole (a cold cache) against
+    a prefill of its tail over the whole prompt's first full pages (what a
+    prefix-cache hit runs), the top-1/top-2 gap there, and, for each
+    product of a layer (the projections, the two attention products over
+    the 2048-slot view) and the head, the tail's rows computed among the
+    whole prompt's rows against computed alone, on random bf16 inputs."""
+    import numpy as np
+
+    ps, n = eng.page_size, len(prompt)
+    own = (n - 1) // ps + 1
+    cold_t = np.full((eng.n_blocks,), -1, np.int32)
+    cold_t[:own] = np.arange(own)
+    eng._cache.pos.fill_(-1)
+    cold = eng._prefill(prompt, 0, cold_t)
+    j = (n - 1) // ps                      # full pages a hit reuses
+    warm_t = cold_t.copy()
+    warm_t[j:own] = np.arange(own, own + own - j)
+    warm = eng._prefill(prompt[j * ps:], j * ps, warm_t)
+    top2 = cold.topk(2).values
+    cfg, dev, bf = eng.cfg, eng.device, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(3)
+    t = n - j * ps
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=g, dtype=bf)
+
+    rows = {}
+    layer = eng.model.layers[0]
+    for name, dense in (("query", layer.attn.query),
+                        ("out", layer.attn.out), ("wi", layer.mlp.wi),
+                        ("wo", layer.mlp.wo),
+                        ("lm_head", eng.model.lm_head)):
+        x = rnd(1, n, *dense.in_shape)
+        rows[name] = max_abs(dense(x)[:, -t:], dense(x[:, -t:]))
+    L, H, D = cfg.max_seq_len, cfg.n_heads, cfg.head_dim
+    q, kv = rnd(1, n, H, D), rnd(1, L, H, D)
+    rows["scores"] = max_abs(
+        torch.einsum("bqhd,bkhd->bhqk", q, kv)[:, :, -t:],
+        torch.einsum("bqhd,bkhd->bhqk", q[:, -t:], kv))
+    p = torch.softmax(rnd(1, H, n, L).float(), -1).to(bf)
+    rows["pv"] = max_abs(torch.einsum("bhqk,bkhd->bqhd", p, kv)[:, -t:],
+                         torch.einsum("bhqk,bkhd->bqhd", p[:, :, -t:], kv))
+    return {"prompt": n, "reused_tokens": j * ps,
+            "logits_max_abs_diff": max_abs(cold, warm),
+            "argmax_equal": int(cold.argmax()) == int(warm.argmax()),
+            "top2_gap": float(top2[0] - top2[1]),
+            "tail_rows_max_abs_diff": rows}
+
+
+def spec_bound(eng, B):
+    """Least time (ms) of one speculative iteration at B active slots: the
+    verify reads the target's bf16 weights (all but the embedding table)
+    and its dense K/V (max_seq_len slots a row) once; each of the k+1
+    draft steps (k proposals, the catch-up) reads the draft's weights and
+    K/V once; or the operations (k+1 tokens a row through each) over the
+    bf16 peak if that is longer. With what bounds it and the bytes."""
+    cfg, k = eng.cfg, eng.propose_tokens
+    L, H, D = cfg.max_seq_len, cfg.n_heads, cfg.head_dim
+
+    def weights(model):
+        return sum(p.numel() for n, p in model.named_parameters()
+                   if n != "embed.embedding")
+
+    kv = B * L * H * D * 2 * 2                  # K and V a layer, bf16
+    nt, nd = weights(eng.model), weights(eng.draft_model)
+    nbytes = (2 * nt + kv * cfg.n_layers
+              + (k + 1) * (2 * nd + kv * eng.draft_layers))
+    attn = 4 * B * H * D * L
+    flops = (2 * nt * B + attn * cfg.n_layers) * (k + 1) \
+        + (2 * nd * B + attn * eng.draft_layers) * (k + 1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / PEAK_BF16 * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+
+def tenant_totals(text):
+    """{(kind or "requests"): total} over the kfx_tenant_* samples of a
+    /metrics text."""
+    out = {}
+    for line in text.splitlines():
+        m = re.match(r'(kfx_tenant_(?:tokens|requests)_total)\{([^}]*)\} '
+                     r'(\S+)$', line)
+        if m:
+            kind = re.search(r'kind="(\w+)"', m.group(2))
+            key = kind.group(1) if kind else "requests"
+            out[key] = out.get(key, 0) + float(m.group(3))
+    return out
+
+
+def spec_phase(torch, fa, export_dir, gap_cfg, prompts, f1, f2_tokens, dev):
+    """Speculative decoding, the reference's default; see the module
+    docstring (6g). ``f1`` holds phase (f1)'s LMGenerator tokens, smallest
+    gap and logits; ``f2_tokens`` (f2)'s first-wave tokens. Returns the
+    {"spec": ...} record."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.models.transformer import (
+        TransformerLM, truncate_layers)
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+    from kubeflow_tpu_torch.serving.lm_server import LMPredictor
+    from kubeflow_tpu_torch.serving.server import ModelServer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    draft = max(1, gap_cfg.n_layers // 4)
+    rec = {"draft_layers": draft, "propose_tokens": SPEC_TOKENS,
+           "slots": ENGINE_SLOTS}
+    kw = dict(n_slots=ENGINE_SLOTS, chunk_tokens=ENGINE_CHUNK,
+              kv_page_size=ENGINE_PAGE,
+              prefill_chunk_tokens=ENGINE_PREFILL_CHUNK, draft_layers=draft,
+              propose_tokens=SPEC_TOKENS, device=dev)
+
+    # (g1) greedy equality and the accept rate on wide-gap f32 weights
+    g = torch.Generator(device=dev).manual_seed(0)
+    model = TransformerLM(gap_cfg, device=dev, generator=g)
+    wide_gap_(torch, model)
+    sd = model.state_dict()
+    # What bounds the accept rate: how often the draft's argmax is the
+    # target's along the greedy chains (full no-cache forwards).
+    agree = total = 0
+    with torch.inference_mode():
+        head = truncate_layers(model, draft)
+        for p, w in zip(prompts, f1["want"]):
+            seq = torch.tensor([p + w[:-1]], device=dev)
+            want_t = model(seq)[0, len(p) - 1:].argmax(-1)
+            agree += int((head(seq)[0, len(p) - 1:].argmax(-1)
+                          == want_t).sum())
+            total += want_t.numel()
+    rec["f32_draft_top1_agreement"] = agree / total
+    eng = DecodeEngine(gap_cfg, sd, name="f32-spec", **kw)
+    try:
+        t0 = time.perf_counter()
+        got = eng.generate(prompts, SERVE_NEW)
+        rec["f32_wave_seconds"] = time.perf_counter() - t0
+        st = eng.spec_stats()
+        pages = eng.page_stats()
+        check(pages["free"] + pages["cached"] == pages["pages"]
+              and eng._draft_mgr.n_free == eng.draft_n_pages,
+              f"page leak: {pages}, draft free {eng._draft_mgr.n_free}")
+    finally:
+        eng.close()
+    with torch.inference_mode():
+        wl = window_logits(torch, eng, prompts, f1["want"],
+                           ENGINE_PROBE_STEP - 1)
+    diff = max_abs(wl, f1["ref_logits"])
+    del eng, wl
+    rec["f32_min_gap"], rec["f32_window_logits_max_abs_diff"] = \
+        f1["gap"], diff
+    check(f1["gap"] > GAP_MARGIN * diff,
+          f"argmax gap {f1['gap']:.3g} too small against the verify "
+          f"window's logit disagreement {diff:.3g}")
+    bad = [i for i, (a, b) in enumerate(zip(got, f1["want"])) if a != b]
+    check(not bad, f"speculating engine's greedy tokens differ from "
+                   f"LMGenerator in rows {bad}")
+    check(st["proposed"] > 0 and st["degraded"] == 0, f"spec stats {st}")
+    rec["f32_spec_stats"] = st
+    rec["f32_accept_rate"] = st["accepted"] / st["proposed"]
+    small = DecodeEngine(gap_cfg, sd, name="f32-spec-small",
+                         draft_kv_pages=SPEC_SMALL_DRAFT_POOL, **kw)
+    try:
+        got = small.generate(prompts, SERVE_NEW)   # raises on a failure
+        st_small = small.spec_stats()
+        pages = small.page_stats()
+        check(got == f1["want"], "tokens changed with a small draft pool")
+        check(st_small["degraded"] >= 1, f"no slot degraded: {st_small}")
+        check(pages["free"] + pages["cached"] == pages["pages"]
+              and small._draft_mgr.n_free == small.draft_n_pages,
+              f"page leak with a small draft pool: {pages}")
+        rec["f32_small_draft_pool"] = dict(st_small,
+                                           pages=SPEC_SMALL_DRAFT_POOL)
+    finally:
+        small.close()
+    log(f"spec (g1) f32 d={gap_cfg.d_model} L={gap_cfg.n_layers} draft "
+        f"{draft} layers, k={SPEC_TOKENS}: greedy == LMGenerator for "
+        f"{len(prompts)} x {SERVE_NEW} in {rec['f32_wave_seconds']:.3f} s "
+        f"(gap {f1['gap']:.4g}, verify-window logits within {diff:.3g}); "
+        f"accept rate {rec['f32_accept_rate']:.4f} {st} (draft top-1 "
+        f"agreement {rec['f32_draft_top1_agreement']:.4f}); draft pool of "
+        f"{SPEC_SMALL_DRAFT_POOL} pages: {st_small}, tokens unchanged, no "
+        f"leak")
+    del model, sd, small, head
+    torch.cuda.empty_cache()
+
+    # (g2) the bf16 export behind an engine-backed server, default env
+    check(not any(k.startswith("KFX_LM_SPEC") for k in os.environ),
+          "KFX_LM_SPEC* set in the environment")
+    pred = LMPredictor(export_dir, name="lm", device=dev.type)
+    pred.load()
+    eng = pred.engine
+    check(eng is not None and eng.spec and eng.draft_layers == draft,
+          "speculation is not the served default")
+    pred._warm_thread.join(600)
+    server = ModelServer(port=0)
+    server.register(pred)
+    server.start()
+    try:
+        url = f"http://127.0.0.1:{server.port}"
+        gen_url = f"{url}/v1/models/lm:generate"
+        pre = tenant_totals(urllib.request.urlopen(
+            f"{url}/metrics", timeout=60).read().decode())
+        check(pre == {"requests": 0, "prompt": 0, "generated": 0},
+              f"tenant families before traffic: {pre}")
+        one = lambda p: {"prompt_tokens": [p], "max_new_tokens": SERVE_NEW}
+        t0 = time.perf_counter()
+        streams = run_threads(lambda p: sse_first(gen_url, one(p), t0),
+                              prompts)
+        wall = time.perf_counter() - t0
+        toks = [s[0] for s in streams]
+        ttft = [s[1] for s in streams]
+        check(all(len(t) == SERVE_NEW for t in toks),
+              f"answers {[len(t) for t in toks]}")
+        blk = http_json(f"{url}/metrics?format=json")["engine"]["lm"]
+        ledger = tenant_totals(urllib.request.urlopen(
+            f"{url}/metrics", timeout=60).read().decode())
+    finally:
+        server.stop()
+    served = {"requests": len(prompts),
+              "prompt": sum(len(p) for p in prompts),
+              "generated": sum(len(t) for t in toks)}
+    check(ledger == served, f"tenant ledger {ledger} != served {served}")
+    check(0.0 < blk.get("spec_accept_rate", 0.0) <= 1.0,
+          f"engine block {blk}")
+    st = eng.spec_stats()
+    eng.close()
+    rec["bf16_wave_seconds"] = wall
+    rec["bf16_tokens_per_second"] = served["generated"] / wall
+    rec["bf16_ttft_s"] = {"p50": percentile(ttft, 0.5),
+                          "p99": percentile(ttft, 0.99), "all": ttft}
+    rec["bf16_spec_accept_rate_gauge"] = blk["spec_accept_rate"]
+    rec["bf16_spec_stats"] = st
+    rec["bf16_accept_rate"] = st["accepted"] / max(1, st["proposed"])
+    rec["tenant_ledger"] = ledger
+    rec["rows_equal_f2_bf16"] = sum(a == b for a, b in zip(toks, f2_tokens))
+    with torch.inference_mode():
+        rec["bf16_prefix_probe"] = bf16_prefix_probe(
+            torch, eng, max(prompts, key=len))
+    log(f"spec (g2) bf16 export, {len(prompts)} concurrent SSE x "
+        f"{SERVE_NEW}: {wall:.3f} s, {rec['bf16_tokens_per_second']:.1f} "
+        f"tokens/s; TTFT p50 {rec['bf16_ttft_s']['p50']:.3f} s p99 "
+        f"{rec['bf16_ttft_s']['p99']:.3f} s; accept rate "
+        f"{rec['bf16_accept_rate']:.4f} (gauge {blk['spec_accept_rate']}); "
+        f"ledger {ledger} == served; rows equal to (f2) "
+        f"{rec['rows_equal_f2_bf16']}/{len(prompts)}; prefix probe "
+        f"{json.dumps(rec['bf16_prefix_probe'])}")
+
+    # (g3) one speculative iteration at 8 active slots, by hand on the
+    # stopped engine: each of 8 prompts admitted whole with a budget of a
+    # quarter of the cache (512 tokens) so no slot retires.
+    with torch.inference_mode():
+        eng._cache.pos.fill_(-1)
+        eng._draft_cache.pos.fill_(-1)
+        eng.prefill_chunk_tokens = 0
+        budget = eng.cfg.max_seq_len // 4
+        for slot, p in enumerate(prompts[:ENGINE_SLOTS]):
+            eng._admit(eng._make_request(p, budget, 0.0, 0, 0, None), slot)
+        eng._spec_once()
+        eng._spec_once()
+        check(int((eng._active & eng._spec_ok).sum()) == ENGINE_SLOTS,
+              "slots not speculating")
+        acc0, n_it = eng.spec_stats()["accepted"], 5
+        iter_ms = event_ms(torch, eng._spec_once, n_it)
+        per_it = ENGINE_SLOTS + (eng.spec_stats()["accepted"] - acc0) / n_it
+        enq = []
+        for _ in range(3):
+            on = eng._active.copy()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            packed = eng._spec_launch(np.zeros_like(on), on)
+            enq.append((time.perf_counter() - t0) * 1e3)
+            packed.cpu()
+        prof = step_profile(torch, eng._spec_once, 3)
+    bound, by, nbytes = spec_bound(eng, ENGINE_SLOTS)
+    busy = prof.get("kernel_ms")
+    rec["iteration"] = {
+        "iteration_ms": iter_ms, "tokens_per_iteration": per_it,
+        "ms_per_token": iter_ms / per_it,
+        "tokens_per_s": per_it * 1e3 / iter_ms,
+        "bound_ms": bound, "bound_by": by, "bound_bytes": nbytes,
+        "share_of_bound": bound / iter_ms,
+        "host_enqueue_ms": sorted(enq)[1],
+        "busy_share": busy / iter_ms if busy else None, **prof}
+    rec["draft_pool_bytes"] = eng.draft_pool_bytes
+    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    launches = dict(fa.LAUNCHES)
+    check(all(v == 0 for v in launches.values()),
+          f"flash kernels launched by the speculating engine: {launches}")
+    rec["flash_launches"] = launches
+    log(f"spec (g3) one iteration at {ENGINE_SLOTS} slots: {iter_ms:.2f} ms "
+        f"for {per_it:.2f} tokens ({iter_ms / per_it:.3f} ms a token); bound "
+        f"{bound:.3f} ms ({by}); host enqueue "
+        f"{rec['iteration']['host_enqueue_ms']:.2f} ms; profile "
+        f"{json.dumps(prof)}; draft pool {eng.draft_pool_bytes / 1e9:.3f} "
+        f"GB; peak {rec['peak_memory_gb']:.2f} GB; flash launches "
+        f"{launches}")
     return rec
 
 
@@ -1079,6 +1439,10 @@ def main() -> int:
     serving, prompts = serving_phase(torch, fa, export_dir, gap_cfg, dev)
     torch.cuda.empty_cache()
     engine = engine_phase(torch, fa, export_dir, gap_cfg, prompts, dev)
+    f1, f2_tokens = engine.pop("_f1"), engine.pop("_f2_tokens")
+    torch.cuda.empty_cache()
+    spec = spec_phase(torch, fa, export_dir, gap_cfg, prompts, f1, f2_tokens,
+                      dev)
 
     # 7. report
     csrc = "kubeflow_tpu_torch/ops/csrc/"
@@ -1110,6 +1474,7 @@ def main() -> int:
     log(json.dumps({"kernels": entries(main_recs, True)}))
     log(json.dumps({"serving": serving}))
     log(json.dumps({"engine": engine}))
+    log(json.dumps({"spec": spec}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """Decoder-only transformer LM — PyTorch port of
 ``kubeflow_tpu/models/transformer.py`` (dense training path, dense
-KV-cache decode and the engine's paged KV-cache decode).
+KV-cache decode, the engine's paged KV-cache decode and the
+layer-truncated speculative draft).
 
 Same math and the same precision rules as the flax reference:
 
@@ -415,7 +416,9 @@ class Attention(nn.Module):
         -1, so the same ``0 <= kp <= qp`` rule masks them."""
         cfg = self.cfg
         B, S, H, D = q.shape
-        P, N, L = cfg.kv_page_size, cfg.kv_pages, cfg.max_seq_len
+        # The pool's own geometry: a speculative draft shares this module
+        # with the target but owns a pool of another page count.
+        N, P, L = kv.key.shape[0] - 1, kv.key.shape[1], cfg.max_seq_len
         loc = positions if write_locations is None else write_locations
         ok = (positions >= 0) & (loc >= 0) & (loc < L)
         blk = torch.where(ok, loc // P, 0).long()
@@ -570,6 +573,30 @@ class TransformerLM(nn.Module):
             cache.cursor += S
             cache.length += S
         return self.lm_head(self.ln_f(x)).to(torch.float32)
+
+
+def truncate_layers(model: TransformerLM, n_layers: int,
+                    **overrides) -> TransformerLM:
+    """The first ``n_layers`` layers of ``model`` as a model of their own,
+    sharing ``embed``, ``ln_f`` and ``lm_head``: port of the reference's
+    ``truncate_layers``, the serving engine's speculative DRAFT (a
+    same-tokenizer prefix of the target whose early-exit logits propose
+    tokens the full model verifies). The draft's modules ARE the
+    target's (shared Parameters, no copies); its config is the target's
+    with ``n_layers`` and ``overrides`` (e.g. the draft pool's
+    ``kv_pages``) replaced."""
+    depth = len(model.layers)
+    if not 1 <= n_layers <= depth:
+        raise ValueError(f"draft n_layers {n_layers} not in [1, {depth}]")
+    cfg = dataclasses.replace(model.cfg, n_layers=n_layers, **overrides)
+    draft = TransformerLM.__new__(TransformerLM)
+    nn.Module.__init__(draft)
+    draft.cfg = cfg
+    draft.embed = model.embed
+    draft.layers = nn.ModuleList(model.layers[:n_layers])
+    draft.ln_f = model.ln_f
+    draft.lm_head = model.lm_head
+    return draft.train(model.training)
 
 
 def n_params(model: nn.Module) -> int:

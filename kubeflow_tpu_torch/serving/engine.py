@@ -32,23 +32,57 @@ Exactness: attention masks by cached position id, and decode writes land
 at the dense-equivalent location (prompt bucket + step), so greedy tokens
 equal the one-shot oracle's (``KFX_LM_ENGINE=0``).
 
+Speculative decoding (``draft_layers > 0``, Leviathan et al. ICML'23): a
+layer-truncated DRAFT (``models/transformer.truncate_layers``: the
+target's first ``draft_layers`` layers, sharing embed, ln_f and lm_head)
+proposes ``propose_tokens`` tokens a slot from its OWN page pool (a
+second BlockManager with the target's block geometry), and the target
+scores the pending token and the k proposals as ONE [n_slots, k+1]
+verify window. One iteration (``_spec_launch``): the pending token
+(sampled from the prefill logits for a fresh slot), k masked draft
+steps, the verify, the vectorised accept (accept d_i with probability
+min(1, p_i(d_i)/q_i(d_i)); the first rejection samples the normalised
+residual max(p - q, 0), and the bonus after k accepts samples p, the
+q == 0 case of the same rule), the rollback of the rejected window
+entries in both pools (position -1 stamped with the writes' location
+math) and a masked draft catch-up step. Greedy acceptance is the
+temperature-0 limit (one-hot p and q: an exact argmax match), so greedy
+output stays the oracle's. Draft-pool exhaustion degrades THAT SLOT to
+one token an iteration through the same window; target-pool exhaustion
+preempts the youngest slot, freeing both pools. The reference also
+degrades a slot whose draft prefill DISPATCH fails; here only a
+``PageAllocError`` degrades, and a failed draft dispatch fails the
+in-flight requests as every other failed dispatch does, so a device
+fault is never hidden behind a lower accept rate.
+
 What PyTorch changes: the reference compiles a prefill per prompt-tail
 bucket and one ``lax.scan`` decode chunk; here the same work runs eagerly
 on the loop thread. A decode chunk is ``chunk_tokens`` steps over every
 slot at fixed shapes ([n_slots, 1] feed, [n_slots, L/P] tables), with the
 per-slot state (position, location, active, produced count) kept on the
 device for the whole chunk: the host uploads the state once and reads
-the tokens and the state back once per chunk, never inside it. Sampling
-is counter-based (``sample_slots``): each slot's uniforms are a hash of
-(request seed, token index, vocab id), so a request's stream depends on
-neither its slot nor its batch mates and survives preemption, at one set
-of launches per step whatever ``n_slots`` is. The streams cannot match
-the reference's threefry ones; they are deterministic per seed and follow
-the same distribution (greedy at T <= 0; ties at the k-th value kept).
+the tokens and the state back once per chunk, never inside it; a
+speculative iteration likewise (fixed shapes per sampling mode, one
+upload, one packed read-back). Sampling is counter-based
+(``sample_slots``): each slot's uniforms are a hash of (request seed,
+token index, vocab id, stream), so a request's stream depends on neither
+its slot nor its batch mates and survives preemption, at one set of
+launches per step whatever ``n_slots`` is. Speculation draws its
+proposals, accept uniforms and residual/bonus tokens from three more
+streams, each indexed by the token it decides; a preempted speculating
+request re-enters with its last token as the pending token (the
+reference re-samples it), so its windows realign and its sampled output
+is the uninterrupted run's. The streams cannot match the reference's
+threefry ones; they are deterministic per seed and follow the same
+distribution (greedy at T <= 0; ties at the k-th value kept).
 
-Not in this slice (ROADMAP.md Queue A 5b): speculative decoding, int8
-weights/KV, LoRA adapters, QoS/deadlines/rate limits, the flight
-recorder, KV transfer/offload/roles, the weight pool, chaos points.
+Usage metering: every engine keeps a ``TenantLedger``
+(``serving/metering.py``) billed once at first admission (prompt tokens)
+and once at retirement (generated tokens less ``meter_skip``).
+
+Not in this slice (ROADMAP.md Queue A 5b): int8 weights/KV (the draft's
+too), LoRA adapters, QoS/deadlines/rate limits, the flight recorder, KV
+transfer/offload/roles, the weight pool, chaos points.
 """
 
 from __future__ import annotations
@@ -65,9 +99,10 @@ import torch
 
 from ..device import resolve_device
 from ..models.generate import decode_config, load_decode_model, pow2_bucket
-from ..models.transformer import PagedKVCache
+from ..models.transformer import PagedKVCache, truncate_layers
 from ..obs import trace as obs_trace
 from ..obs.metrics import MetricsRegistry, default_registry
+from .metering import TenantLedger
 from .prefix import chain_hash as _chain_hash
 
 # Admission wait buckets (seconds): a healthy engine admits within one
@@ -75,6 +110,12 @@ from .prefix import chain_hash as _chain_hash
 QUEUE_WAIT_BUCKETS = (
     0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
     1.0, 2.5, 5.0, 10.0, 30.0)
+
+
+# The ledger's qos and adapter labels: the port serves one QoS class and
+# the base model only (ROADMAP.md Queue A 5b.6, 5b.7).
+METER_QOS = "interactive"
+METER_ADAPTER = "base"
 
 
 class EngineOverloaded(RuntimeError):
@@ -104,7 +145,8 @@ class Request:
     __slots__ = ("prompt", "max_new", "temperature", "top_k", "seed",
                  "stop", "tokens", "error", "t_enqueue", "t_admitted",
                  "t_first", "t_done", "counted", "trace_id", "span_id",
-                 "rid", "preempts", "on_token", "_event")
+                 "rid", "preempts", "on_token", "tenant", "meter_skip",
+                 "_usage", "_event")
 
     _rid_counter = itertools.count(1)
 
@@ -135,6 +177,14 @@ class Request:
         self.span_id = obs_trace.current_span_id()
         self.rid = next(Request._rid_counter)
         self.preempts = 0
+        # Usage metering (serving/metering.py): the billable tenant (the
+        # base tenant unless the client named one), the ledger to bill
+        # (None = metering off), and how many leading generated tokens a
+        # recovery re-dispatch regenerated (``stream_skip``): billed once
+        # fleet-wide, by the replica that streamed them.
+        self.tenant = "base"
+        self.meter_skip = 0
+        self._usage: Optional[TenantLedger] = None
         self._event = threading.Event()
 
     def done(self) -> bool:
@@ -155,6 +205,12 @@ class Request:
     def _finish(self, error: Optional[BaseException] = None) -> None:
         self.error = error
         self.t_done = time.monotonic()
+        # Retirement billing: every outcome passes here once, ``tokens``
+        # only grows, and only an ADMITTED request billed its prompt (a
+        # request shed before admission leaves no ledger row).
+        if self._usage is not None and self.counted:
+            self._usage.retire(self.tenant, METER_QOS, METER_ADAPTER,
+                               len(self.tokens) - self.meter_skip)
         # End-of-stream marker BEFORE the event: a streamer that woke on
         # the sentinel can rely on result() returning immediately.
         self._notify(None)
@@ -505,14 +561,22 @@ def seed32(seed: int) -> int:
     return (s ^ (s >> 32)) & _M32
 
 
+# Sampling streams: the plain next-token draw (0), and speculation's
+# draft proposals, accept uniforms and residual/bonus draws. Each stream
+# is indexed by the token index its draw decides.
+STREAM_TOKEN, STREAM_DRAFT, STREAM_ACCEPT, STREAM_BONUS = 0, 1, 2, 3
+
+
 def slot_uniforms(seeds: torch.Tensor, counters: torch.Tensor,
-                  vocab: int) -> torch.Tensor:
+                  vocab: int, stream: int = STREAM_TOKEN) -> torch.Tensor:
     """[B, vocab] float32 uniforms in (0, 1), a pure function of each
-    row's (32-bit seed, token index) and the vocab id: the same request
-    draws the same numbers whatever slot it sits in and whoever shares
-    the batch."""
+    row's (32-bit seed, token index), the vocab id and ``stream``: the
+    same request draws the same numbers whatever slot it sits in and
+    whoever shares the batch, and the streams are independent."""
     row = _fmix32(_fmix32(seeds & _M32)
                   ^ _mul32((counters + 1) & _M32, 0x9E3779B9))
+    if stream:
+        row = _fmix32(row ^ _mul32(torch.full_like(row, stream), 0x85157AF5))
     col = _mul32(torch.arange(1, vocab + 1, device=seeds.device),
                  0x27D4EB2F)
     h = _fmix32(_fmix32(row[:, None] ^ col[None, :]) ^ row[:, None])
@@ -524,7 +588,8 @@ def slot_uniforms(seeds: torch.Tensor, counters: torch.Tensor,
 def sample_slots(logits: torch.Tensor, temp: torch.Tensor,
                  topk: torch.Tensor, seeds: torch.Tensor,
                  counters: torch.Tensor, sampled: bool = True,
-                 with_topk: bool = True) -> torch.Tensor:
+                 with_topk: bool = True,
+                 stream: int = STREAM_TOKEN) -> torch.Tensor:
     """logits [B, V] f32 -> token ids [B] int64, each row with its own
     knobs: ``temp <= 0`` is greedy (the first argmax); otherwise
     Gumbel-max over ``logits / max(T, 1e-6)`` with every logit below the
@@ -543,9 +608,29 @@ def sample_slots(logits: torch.Tensor, temp: torch.Tensor,
         kth = srt.gather(1, (V - topk).clamp(0, V - 1)[:, None].long())
         scaled = scaled.masked_fill((topk[:, None] > 0) & (scaled < kth),
                                     float("-inf"))
-    u = slot_uniforms(seeds, counters, V)
+    u = slot_uniforms(seeds, counters, V, stream)
     drawn = torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1)
     return torch.where(temp > 0, drawn, greedy)
+
+
+def warp_probs(logits: torch.Tensor, temp: torch.Tensor,
+               topk: torch.Tensor, with_topk: bool = True) -> torch.Tensor:
+    """logits [B, S, V] f32 -> the distributions ``sample_slots`` draws
+    from, [B, S, V]: softmax of ``logits / max(T, 1e-6)`` under the
+    row's top-k mask, and one-hot on the first argmax where ``T <= 0``
+    (the greedy limit, which makes greedy acceptance an exact match)."""
+    V = logits.shape[-1]
+    greedy = (torch.arange(V, device=logits.device)
+              == torch.argmax(logits, -1, keepdim=True)).float()
+    scaled = logits / temp.clamp_min(1e-6)[:, None, None]
+    if with_topk:
+        srt = torch.sort(scaled, dim=-1).values
+        idx = (V - topk).clamp(0, V - 1).long()[:, None, None]
+        kth = srt.gather(-1, idx.expand(*scaled.shape[:-1], 1))
+        scaled = scaled.masked_fill(
+            (topk[:, None, None] > 0) & (scaled < kth), float("-inf"))
+    probs = torch.softmax(scaled, -1)
+    return torch.where((temp <= 0)[:, None, None], greedy, probs)
 
 
 # -- the engine ---------------------------------------------------------------
@@ -567,11 +652,19 @@ class DecodeEngine:
                  prefix_cache: bool = True,
                  stall_threshold_s: float = 10.0,
                  prefill_chunk_tokens: int = 0,
+                 draft_layers: int = 0,
+                 propose_tokens: int = 4,
+                 draft_kv_pages: Optional[int] = None,
                  device: Union[str, torch.device] = "cuda"):
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
         if chunk_tokens < 1:
             raise ValueError("chunk_tokens must be >= 1")
+        if draft_layers < 0:
+            raise ValueError("draft_layers must be >= 0 (0 = no "
+                             "speculative decoding)")
+        if draft_layers > 0 and propose_tokens < 1:
+            raise ValueError("propose_tokens must be >= 1")
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # The loop thread selects the device itself; pin the index of
@@ -610,6 +703,14 @@ class DecodeEngine:
         if prefill_chunk_tokens:
             prefill_chunk_tokens = -(-int(prefill_chunk_tokens) // ps) * ps
         self.prefill_chunk_tokens = prefill_chunk_tokens
+        if draft_layers >= base.n_layers:
+            raise ValueError(
+                f"draft_layers {draft_layers} must be < the target's "
+                f"n_layers {base.n_layers} (a draft as deep as the "
+                "target proposes at the target's cost)")
+        self.spec = draft_layers > 0
+        self.draft_layers = draft_layers
+        self.propose_tokens = propose_tokens
         self.max_queue = max_queue if max_queue is not None else 4 * n_slots
         self.request_timeout_s = request_timeout_s
         self._registry = registry
@@ -631,6 +732,33 @@ class DecodeEngine:
         self._cache = PagedKVCache.allocate(self.cfg, self.device)
         self._logbuf = torch.zeros(n_slots, self.cfg.vocab_size,
                                    dtype=torch.float32, device=self.device)
+        # -- speculative decoding: the draft shares the target's modules
+        # and block geometry but proposes from its OWN pool, so draft KV
+        # never competes with target KV for a page (a draft shortfall
+        # degrades the slot, never the admission).
+        self.draft_model = self._draft_cache = self._draft_mgr = None
+        self.draft_n_pages = 0
+        if self.spec:
+            self.draft_n_pages = int(draft_kv_pages) if draft_kv_pages \
+                else self.n_pages
+            if self.draft_n_pages < 1:
+                raise ValueError("draft_kv_pages must be >= 1")
+            self.draft_model = truncate_layers(
+                self.model, draft_layers, kv_pages=self.draft_n_pages)
+            self._draft_cache = PagedKVCache.allocate(self.draft_model.cfg,
+                                                      self.device)
+            self._draft_mgr = BlockManager(self.draft_n_pages, ps)
+        # Cumulative spec counters (host truth; the registry counters
+        # mirror them) and the trailing accept-rate window (read from
+        # server threads, appended by the loop: locked).
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._spec_degraded = 0
+        self._spec_lock = threading.Lock()
+        self._spec_window: "deque[Tuple[float, int, int]]" = deque()
+        # Per-tenant usage ledger, billed on the admission and
+        # retirement funnel (None would turn every hook off).
+        self.usage: Optional[TenantLedger] = TenantLedger()
         # -- host slot state (uploaded and read back once per chunk)
         B = n_slots
         self._tables = np.full((B, self.n_blocks), -1, np.int32)
@@ -646,6 +774,15 @@ class DecodeEngine:
         self._stop = np.full((B,), -1, np.int64)
         self._max_new = np.zeros((B,), np.int64)
         self._slots: List[Optional[Request]] = [None] * B
+        # Per-slot speculative state: the draft block-table row and pages,
+        # whether the slot speculates (a draft-pool shortfall turns it off
+        # for the slot's life), and the PENDING token: emitted to the
+        # client, in neither pool yet; the next verify window writes it
+        # first. -1 = none yet (the iteration samples it from _logbuf).
+        self._draft_tables = np.full((B, self.n_blocks), -1, np.int32)
+        self._draft_slot_pages: List[List[int]] = [[] for _ in range(B)]
+        self._spec_ok = np.zeros((B,), np.bool_)
+        self._pending = np.full((B,), -1, np.int64)
         # Chunked-prefill cursors: slot -> {"req", "full", "n", "next"
         # (absolute index of the next chunk's first token), "key"/
         # "reg_block" (incremental prefix registration), "bucket",
@@ -698,6 +835,31 @@ class DecodeEngine:
     def pool_bytes(self) -> int:
         """Device bytes of the KV pool (sink page included)."""
         return self._cache.nbytes
+
+    @property
+    def draft_pool_bytes(self) -> int:
+        """Device bytes of the draft's KV pool (0 without a draft)."""
+        return self._draft_cache.nbytes if self.spec else 0
+
+    def spec_stats(self) -> Dict[str, int]:
+        """Cumulative speculative-decode counters (zeros with the draft
+        off): draft tokens proposed, proposals the target accepted, and
+        slots degraded to non-speculative on draft-pool exhaustion."""
+        return {"proposed": self._spec_proposed,
+                "accepted": self._spec_accepted,
+                "degraded": self._spec_degraded}
+
+    def _spec_accept_rate(self, window_s: float = 30.0) -> float:
+        """Accepted over proposed in the trailing window (0 when idle or
+        without a draft): a gauge, so a stale burst decays."""
+        now = time.monotonic()
+        with self._spec_lock:
+            while self._spec_window and \
+                    self._spec_window[0][0] < now - window_s:
+                self._spec_window.popleft()
+            prop = sum(p for _, p, _ in self._spec_window)
+            acc = sum(a for _, _, a in self._spec_window)
+        return acc / prop if prop else 0.0
 
     def prefix_stats(self) -> Dict[str, int]:
         """Cumulative prefix-cache counters (zeros while the cache is
@@ -777,6 +939,22 @@ class DecodeEngine:
                       "dispatch, per engine iteration.",
                       buckets=QUEUE_WAIT_BUCKETS).observe(
                           0.0, n=0, model=self.name)
+        # Speculative families are seeded iff the engine HAS a draft:
+        # their absence is the signal (the server's JSON engine block then
+        # omits spec_accept_rate rather than show a 0 indistinguishable
+        # from a draft accepting nothing).
+        if self.spec:
+            reg.counter("kfx_lm_spec_proposed_total",
+                        "Draft tokens proposed to the verify dispatch."
+                        ).inc(0, model=self.name)
+            reg.counter("kfx_lm_spec_accepted_total",
+                        "Draft proposals the target model accepted."
+                        ).inc(0, model=self.name)
+            reg.gauge("kfx_lm_spec_accept_rate",
+                      "Draft acceptance rate over the trailing 30s "
+                      "window (0 when idle).").set(
+                          round(self._spec_accept_rate(), 4),
+                          model=self.name)
 
     def _active_count(self) -> int:
         return sum(1 for r in self._slots if r is not None)
@@ -839,13 +1017,14 @@ class DecodeEngine:
 
     # -- device operations (loop thread, except warm) -----------------------
     def _prefill(self, tokens: Sequence[int], start: int,
-                 table: np.ndarray) -> torch.Tensor:
+                 table: np.ndarray, draft: bool = False) -> torch.Tensor:
         """Run the prompt tail ``tokens`` (absolute positions from
         ``start``; earlier positions are read from the pages ``table``
         maps) right-padded to its power-of-two bucket, writing its K/V
-        straight into the pool through ``table`` [L/P]. Pads carry
-        position -1: their writes go to the sink and they are masked out
-        of every attention. Returns the last real token's logits [V]."""
+        straight into the pool through ``table`` [L/P] (the draft's pool
+        with ``draft``). Pads carry position -1: their writes go to the
+        sink and they are masked out of every attention. Returns the last
+        real token's logits [V]."""
         n = len(tokens)
         P = pow2_bucket(n, self.cfg.max_seq_len)
         tok = np.zeros((1, P), np.int64)
@@ -853,9 +1032,11 @@ class DecodeEngine:
         ar = np.arange(P)
         pos = np.where(ar < n, start + ar, -1).astype(np.int32)[None]
         dev = self.device
-        logits = self.model(torch.from_numpy(tok).to(dev),
-                            torch.from_numpy(pos).to(dev), self._cache,
-                            torch.from_numpy(table[None]).to(dev))
+        model, cache = (self.draft_model, self._draft_cache) if draft \
+            else (self.model, self._cache)
+        logits = model(torch.from_numpy(tok).to(dev),
+                       torch.from_numpy(pos).to(dev), cache,
+                       torch.from_numpy(table[None]).to(dev))
         return logits[0, n - 1]
 
     def warm(self, buckets: Optional[Sequence[int]] = None) -> None:
@@ -868,23 +1049,34 @@ class DecodeEngine:
         first request."""
         empty = np.full((self.n_blocks,), -1, np.int32)
         B, dev = self.n_slots, self.device
+        tables = torch.from_numpy(np.tile(empty, (B, 1))).to(dev)
+        # A speculative engine's hot shapes: the verify window through the
+        # target and one-token steps through the draft.
+        S = self.propose_tokens + 1 if self.spec else 1
         with torch.inference_mode():
-            self.model(torch.zeros(B, 1, dtype=torch.int64, device=dev),
-                       torch.zeros(B, 1, dtype=torch.int32, device=dev),
-                       self._cache,
-                       torch.from_numpy(np.tile(empty, (B, 1))).to(dev))
+            self.model(torch.zeros(B, S, dtype=torch.int64, device=dev),
+                       torch.zeros(B, S, dtype=torch.int32, device=dev),
+                       self._cache, tables)
+            if self.spec:
+                self.draft_model(
+                    torch.zeros(B, 1, dtype=torch.int64, device=dev),
+                    torch.zeros(B, 1, dtype=torch.int32, device=dev),
+                    self._draft_cache, tables)
             for b in buckets if buckets is not None else self.prompt_buckets:
                 self._prefill([0] * int(b), 0, empty)
+                if self.spec:
+                    self._prefill([0] * int(b), 0, empty, draft=True)
 
-    def _invalidate_dirty(self) -> None:
-        """Stamp position -1 over every recycled page (all layers, one
-        scatter) before it is handed out: a new tenant can never attend a
-        previous request's KV."""
-        if self._mgr.dirty:
-            idx = torch.tensor(sorted(self._mgr.dirty), dtype=torch.int64,
+    def _invalidate_dirty(self, mgr: BlockManager,
+                          cache: PagedKVCache) -> None:
+        """Stamp position -1 over every page of ``mgr`` recycled in
+        ``cache`` (all layers, one scatter) before it is handed out: a new
+        tenant can never attend a previous request's KV."""
+        if mgr.dirty:
+            idx = torch.tensor(sorted(mgr.dirty), dtype=torch.int64,
                                device=self.device)
-            self._cache.pos[:, idx] = -1
-            self._mgr.dirty.clear()
+            cache.pos[:, idx] = -1
+            mgr.dirty.clear()
 
     def _copy_page(self, dst: int, src: int, keep: int) -> None:
         """Copy-on-write: clone page ``src`` into ``dst`` in every layer,
@@ -963,7 +1155,8 @@ class DecodeEngine:
     # -- submission ----------------------------------------------------------
     def _make_request(self, prompt: Sequence[int], max_new_tokens: int,
                       temperature: float, top_k: int, seed: int,
-                      stop_token: Optional[int]) -> Request:
+                      stop_token: Optional[int],
+                      tenant: Optional[str] = None) -> Request:
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("prompt must be non-empty")
@@ -979,9 +1172,15 @@ class DecodeEngine:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new_tokens "
                 f"({max_new_tokens}) exceeds the cache capacity {L}")
-        return Request(prompt, int(max_new_tokens), float(temperature),
-                       int(top_k), int(seed),
-                       -1 if stop_token is None else int(stop_token))
+        req = Request(prompt, int(max_new_tokens), float(temperature),
+                      int(top_k), int(seed),
+                      -1 if stop_token is None else int(stop_token))
+        # Billable tenant: the client's explicit key, else the base
+        # tenant ("" counts as absent).
+        if tenant:
+            req.tenant = str(tenant)
+        req._usage = self.usage
+        return req
 
     def _enqueue(self, reqs: List[Request]) -> None:
         """All-or-nothing enqueue: a batch that does not fit the bounded
@@ -1013,15 +1212,20 @@ class DecodeEngine:
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 32,
                temperature: float = 0.0, top_k: int = 0, seed: int = 0,
                stop_token: Optional[int] = None,
-               on_token: Optional[Callable[[Optional[int]], None]] = None
+               on_token: Optional[Callable[[Optional[int]], None]] = None,
+               tenant: Optional[str] = None, meter_skip: int = 0
                ) -> Request:
         """Enqueue one prompt; returns the request handle (wait with
         ``.result(timeout)``). ``on_token`` is the streaming sink, called
         on the loop thread with each token id as it lands, then None at
-        retirement. Raises EngineOverloaded when the bounded admission
-        queue is full."""
+        retirement; ``tenant`` is the billable tenant (None = base) and
+        ``meter_skip`` the leading tokens a recovery re-dispatch
+        regenerates, billed by the replica that streamed them. Raises
+        EngineOverloaded when the bounded admission queue is full."""
         req = self._make_request(prompt, max_new_tokens, temperature,
-                                 top_k, seed, stop_token)
+                                 top_k, seed, stop_token, tenant)
+        # Set before enqueue: even an instant retirement bills it right.
+        req.meter_skip = max(int(meter_skip), 0)
         req.on_token = on_token
         self._enqueue([req])
         return req
@@ -1029,12 +1233,13 @@ class DecodeEngine:
     def generate(self, prompts: Sequence[Sequence[int]],
                  max_new_tokens: int = 32, temperature: float = 0.0,
                  top_k: int = 0, seed: int = 0,
-                 stop_token: Optional[int] = None) -> List[List[int]]:
+                 stop_token: Optional[int] = None,
+                 tenant: Optional[str] = None) -> List[List[int]]:
         """Blocking convenience mirroring LMGenerator.generate: one
         request per prompt (seeded seed+i), results in prompt order; one
         ``request_timeout_s`` deadline covers the whole batch."""
         reqs = self.submit_batch(prompts, max_new_tokens, temperature,
-                                 top_k, seed, stop_token)
+                                 top_k, seed, stop_token, tenant)
         deadline = time.monotonic() + self.request_timeout_s
         return [r.result(max(0.001, deadline - time.monotonic()))
                 for r in reqs]
@@ -1042,11 +1247,12 @@ class DecodeEngine:
     def submit_batch(self, prompts: Sequence[Sequence[int]],
                      max_new_tokens: int = 32, temperature: float = 0.0,
                      top_k: int = 0, seed: int = 0,
-                     stop_token: Optional[int] = None) -> List[Request]:
+                     stop_token: Optional[int] = None,
+                     tenant: Optional[str] = None) -> List[Request]:
         """``generate`` minus the blocking wait: one request per prompt
         (seeded seed+i), enqueued atomically, handles returned."""
         reqs = [self._make_request(p, max_new_tokens, temperature, top_k,
-                                   seed + i, stop_token)
+                                   seed + i, stop_token, tenant)
                 for i, p in enumerate(prompts)]
         self._enqueue(reqs)
         return reqs
@@ -1060,7 +1266,15 @@ class DecodeEngine:
             if self._prefix is None or not self._prefix.evict_one():
                 break  # alloc() raises with the honest numbers
         pages = self._mgr.alloc(n)
-        self._invalidate_dirty()
+        self._invalidate_dirty(self._mgr, self._cache)
+        return pages
+
+    def _alloc_draft_pages(self, n: int) -> List[int]:
+        """Take ``n`` pages from the DRAFT pool (no prefix cache to
+        reclaim from). A shortfall raises PageAllocError, which the
+        caller turns into a degraded slot, never a failure."""
+        pages = self._draft_mgr.alloc(n)
+        self._invalidate_dirty(self._draft_mgr, self._draft_cache)
         return pages
 
     def _release_slot(self, slot: int) -> None:
@@ -1071,6 +1285,17 @@ class DecodeEngine:
         self._slot_pages[slot] = []
         self._tables[slot, :] = -1
         self._active[slot] = False
+        self._release_draft(slot)
+        self._pending[slot] = -1
+
+    def _release_draft(self, slot: int) -> None:
+        """Return a slot's draft pages (slot-private: they free whole)
+        and stop it speculating."""
+        if self._draft_slot_pages[slot]:
+            self._draft_mgr.decref(self._draft_slot_pages[slot])
+        self._draft_slot_pages[slot] = []
+        self._draft_tables[slot, :] = -1
+        self._spec_ok[slot] = False
 
     # -- the loop -------------------------------------------------------------
     def _loop(self) -> None:
@@ -1139,6 +1364,10 @@ class DecodeEngine:
                         self._queue.push_front(req)
                     requeued = True
             except Exception as e:
+                if self._slots[free[0]] is req:
+                    # Placed, then the draft's prefill dispatch failed:
+                    # fail every in-flight request (the loop's handler).
+                    raise
                 # A failed prefill fails THIS request alone; the loop keeps
                 # serving everyone else.
                 req._finish(e)
@@ -1152,10 +1381,15 @@ class DecodeEngine:
         L, ps = self.cfg.max_seq_len, self.page_size
         # Recompute continuation: a preempted request re-prefills prompt +
         # already-generated (the same values incremental decode wrote) and
-        # keeps appending to the same token list.
+        # keeps appending to the same token list. A speculating request's
+        # last token is its pending token (emitted, never in a pool): it
+        # stays out of the prefill and opens the next verify window, so
+        # the windows realign as if the request had never left.
         full = req.prompt + req.tokens
-        n = len(full)
         remaining = req.max_new - len(req.tokens)
+        if self.spec and req.tokens:
+            full, remaining = full[:-1], remaining + 1
+        n = len(full)
         bucket = pow2_bucket(n, L - remaining)
         # Shared-prefix reuse, capped at n-1: the last prompt token must
         # run through the model for the next-token logits.
@@ -1226,13 +1460,17 @@ class DecodeEngine:
                 self._prefix.insert_partial(
                     h, full[(n // ps) * ps:n], int(row[n // ps]))
         self._slots[slot] = req
-        self._activate(slot, req, n, bucket, remaining)
+        self._activate(slot, req, full, bucket, remaining)
 
-    def _activate(self, slot: int, req: Request, n: int, bucket: int,
-                  remaining: int) -> None:
-        """The slot's decode state once its whole prompt is in the pool:
-        decode writes start at the bucket (the dense-equivalent location)
-        and the sampling stream continues at ``len(req.tokens)``."""
+    def _activate(self, slot: int, req: Request, full: List[int],
+                  bucket: int, remaining: int) -> None:
+        """The slot's decode state once its whole prompt ``full`` is in the
+        pool: decode writes start at the bucket (the dense-equivalent
+        location) and the sampling stream continues at
+        ``len(req.tokens)``. With a draft, the pending token is the
+        request's last (a requeue) or none yet (-1), and the draft
+        prefills ``full`` into its own pool."""
+        n = len(full)
         self._pos[slot] = n
         self._loc[slot] = bucket
         self._max_loc[slot] = bucket + remaining - 1
@@ -1243,6 +1481,27 @@ class DecodeEngine:
         self._topk[slot] = req.top_k
         self._stop[slot] = req.stop
         self._max_new[slot] = req.max_new
+        if self.spec:
+            self._pending[slot] = req.tokens[-1] if req.tokens else -1
+            self._admit_draft(slot, full)
+
+    def _admit_draft(self, slot: int, full: List[int]) -> None:
+        """Prefill the WHOLE prompt into the slot's draft pages (the draft
+        has no prefix cache; at draft depth the full prompt is cheap and
+        keeps both pools' logical layouts identical). A draft-pool
+        shortfall degrades the slot to non-speculative decode; a failed
+        dispatch raises (the loop fails the in-flight requests)."""
+        n, ps = len(full), self.page_size
+        try:
+            pages = self._alloc_draft_pages((n - 1) // ps + 1)
+        except PageAllocError:
+            self._spec_degraded += 1
+            self._spec_ok[slot] = False
+            return
+        self._draft_tables[slot, :len(pages)] = pages
+        self._draft_slot_pages[slot] = pages
+        self._spec_ok[slot] = True
+        self._prefill(full, 0, self._draft_tables[slot], draft=True)
 
     def _count_admission(self, req: Request, matched: int, n: int) -> bool:
         """First-admission stats, counted once per CLIENT request: the
@@ -1257,6 +1516,11 @@ class DecodeEngine:
             "Decode-engine admission wait (enqueue to slot prefill).",
             buckets=QUEUE_WAIT_BUCKETS).observe(
                 req.t_admitted - req.t_enqueue, model=self.name)
+        if req._usage is not None:
+            # Admission billing, under the same ``counted`` latch: a
+            # preempted request's recompute never bills twice.
+            req._usage.admit(req.tenant, METER_QOS, METER_ADAPTER,
+                             len(req.prompt))
         if self._prefix is not None:
             if matched:
                 self._count_prefix_hit(matched)
@@ -1396,7 +1660,8 @@ class DecodeEngine:
         self._register_prefix_pages(slot, cur, final=last)
         if last:
             self._prefilling.pop(slot)
-            self._activate(slot, req, n, cur["bucket"], cur["remaining"])
+            self._activate(slot, req, cur["full"], cur["bucket"],
+                           cur["remaining"])
 
     def _late_prefix_match(self, slot: int, cur: Dict[str, Any]) -> None:
         """Adopt a prefix-cache match for a cursor that admitted against
@@ -1508,6 +1773,8 @@ class DecodeEngine:
             self._queue.push_front(req)
 
     def _decode_once(self) -> None:
+        if self.spec:
+            return self._spec_once()
         self._ensure_chunk_pages()
         if not self._active.any():
             return  # every decoding slot preempted away
@@ -1547,6 +1814,283 @@ class DecodeEngine:
                             emitted, model=self.name)
         self._touch_gauges()
 
+    # -- speculative decoding --------------------------------------------------
+    def _ensure_spec_pages(self) -> None:
+        """The next verify window's page budget, at the iteration boundary:
+        a speculating slot writes target locations loc..loc+k (pending and
+        k proposals) and the same span of the draft pool (k proposals and
+        the catch-up token); a degraded slot writes only the pending token
+        at loc. Target-pool exhaustion preempts the youngest slot (both
+        pools freed); draft-pool exhaustion degrades the slot."""
+        k, ps = self.propose_tokens, self.page_size
+
+        def span_of(slot):
+            lo = int(self._loc[slot])
+            hi = min(lo + k, int(self._max_loc[slot])) \
+                if self._spec_ok[slot] else lo
+            return range(lo // ps, hi // ps + 1)
+
+        while True:
+            try:
+                for slot, req in enumerate(self._slots):
+                    if req is None or not self._active[slot]:
+                        continue
+                    for b in span_of(slot):
+                        if self._tables[slot, b] < 0:
+                            pg = self._alloc_pages(1)[0]
+                            self._tables[slot, b] = pg
+                            self._slot_pages[slot].append(pg)
+                break
+            except PageAllocError:
+                victims = [s for s, r in enumerate(self._slots)
+                           if r is not None]
+                if len(victims) <= 1:
+                    raise
+                self._preempt(self._preempt_victim(victims))
+        for slot in np.flatnonzero(self._active & self._spec_ok):
+            try:
+                for b in span_of(slot):
+                    if self._draft_tables[slot, b] < 0:
+                        pg = self._alloc_draft_pages(1)[0]
+                        self._draft_tables[slot, b] = pg
+                        self._draft_slot_pages[slot].append(pg)
+            except PageAllocError:
+                self._release_draft(slot)
+                self._spec_degraded += 1
+
+    def _invalidate_window(self, cache: PagedKVCache, tables: torch.Tensor,
+                           locs: torch.Tensor) -> None:
+        """Stamp position -1 at per-slot locations ``locs`` [B, S] (-1 =
+        skip) with the writes' location math (same table lookup, skips to
+        the sink), so exactly the entries a window wrote are killed."""
+        P, N = self.page_size, cache.pos.shape[1] - 1
+        ok = locs >= 0
+        blk = torch.where(ok, locs // P, 0).long()
+        page = torch.gather(tables, 1, blk)
+        page = torch.where(ok & (page >= 0), page, N).long()
+        slot = torch.where(ok, locs % P, 0).long()
+        cache.pos[:, page.reshape(-1), slot.reshape(-1)] = -1
+
+    def _spec_launch(self, fresh: np.ndarray, spec_on: np.ndarray
+                     ) -> torch.Tensor:
+        """Enqueue one speculative iteration over every slot at fixed
+        shapes (nothing here waits for the device):
+
+          1. the pending token: ``fresh`` slots sample it from their
+             prefill logits at token index ``produced`` (the token the
+             plain decode step would draw);
+          2. k draft steps [n_slots, 1] from the pending token, masked for
+             slots not in ``spec_on``, writes capped at ``max_loc``, each
+             slot sampling with its own knobs (stream DRAFT);
+          3. the verify: [pending, d_1..d_k] through the target as one
+             window, writing at loc..loc+k under the same cap;
+          4. the accept: d_i while U_i < min(1, p_i(d_i) / q_i(d_i)) (U
+             from stream ACCEPT); then a residual max(p - q, 0), or p
+             where q is 0 (the bonus after k accepts, non-speculating
+             slots, capacity-forced boundaries), drawn from stream BONUS;
+             greedy slots reduce to an exact argmax match;
+          5. the rollback: window entries past the accepted count get
+             position -1 in both pools;
+          6. the draft catch-up: one masked draft step writes window
+             index a where the proposal steps did not (a == k).
+
+        Returns the packed device result [n_slots, k+3]: pending, the k
+        proposals, the accepted count a and the bonus token."""
+        dev, k, B = self.device, self.propose_tokens, self.n_slots
+        live = self._active
+        any_fresh = bool(fresh.any())
+        sampled = bool((self._temp[live] > 0).any())
+        with_topk = sampled and bool((self._topk[live] > 0).any())
+        state = torch.from_numpy(np.stack([
+            self._pending, self._pos, self._loc, self._max_loc,
+            spec_on.astype(np.int64), self._active.astype(np.int64),
+            fresh.astype(np.int64), self._produced, self._topk,
+            self._seeds])).to(dev)
+        (pending, pos, loc, max_loc, spec_on, active, fresh, produced,
+         topk, seeds) = state
+        spec_on, active, fresh = spec_on.bool(), active.bool(), fresh.bool()
+        temp = torch.from_numpy(self._temp).to(dev)
+        both = torch.from_numpy(np.concatenate(
+            [self._tables, self._draft_tables])).to(dev)
+        tables, dtables = both[:B], both[B:]
+        draw = dict(sampled=sampled, with_topk=with_topk)
+
+        # 1. the pending token of fresh slots
+        if any_fresh:
+            first = sample_slots(self._logbuf, temp, topk, seeds, produced,
+                                 **draw)
+            pending = torch.where(fresh, first, pending)
+        t0 = produced + fresh.long()   # token index the window's d_1 takes
+
+        # 2. draft propose
+        tok, props, qlog = pending, [], []
+        for i in range(k):
+            on = active & spec_on & (loc + i <= max_loc)
+            lg = self.draft_model(
+                torch.where(active, tok, 0)[:, None],
+                torch.where(on, pos + i, -1).int()[:, None],
+                self._draft_cache, dtables,
+                torch.where(on, loc + i, -1).int()[:, None])[:, 0]
+            tok = sample_slots(lg, temp, topk, seeds, t0 + i,
+                               stream=STREAM_DRAFT, **draw)
+            props.append(tok)
+            if sampled:   # q enters only the sampled accept rule
+                qlog.append(lg)
+        D = torch.stack(props, 1)                          # [B, k]
+
+        # 3. verify
+        steps = torch.arange(k + 1, device=dev)
+        win = torch.cat([pending[:, None], D], 1)          # [B, k+1]
+        wloc = loc[:, None] + steps
+        writable = active[:, None] & (wloc <= max_loc[:, None])
+        logits = self.model(
+            torch.where(active[:, None], win, 0),
+            torch.where(writable, pos[:, None] + steps, -1).int(),
+            self._cache, tables,
+            torch.where(writable, wloc, -1).int())         # [B, k+1, V]
+
+        # 4. accept
+        within = wloc[:, 1:] <= max_loc[:, None]
+        gate = spec_on[:, None] & within & active[:, None]
+        if sampled:
+            Pw = warp_probs(logits, temp, topk, with_topk)
+            Qw = warp_probs(torch.stack(qlog, 1), temp, topk, with_topk)
+            # q is zero wherever the test below is not a real draw, so a
+            # forced rejection samples the plain target (q == 0).
+            Qpad = torch.cat([Qw * (spec_on[:, None] & within)[..., None],
+                              torch.zeros_like(Qw[:, :1])], 1)
+            pd = Pw[:, :k].gather(-1, D[..., None])[..., 0]
+            qd = Qpad[:, :k].gather(-1, D[..., None])[..., 0]
+            U = slot_uniforms(seeds[:, None].expand(B, k).reshape(-1),
+                              (t0[:, None] + steps[:k]).reshape(-1), 1,
+                              STREAM_ACCEPT).view(B, k)
+            acc = (U < (pd / qd.clamp_min(1e-30)).clamp(max=1.0)) & gate
+        else:
+            acc = (D == torch.argmax(logits[:, :k], -1)) & gate
+        a = torch.cumprod(acc.long(), 1).sum(1)            # [B]
+        if sampled:
+            at = a[:, None, None].expand(B, 1, Pw.shape[-1])
+            p_sel = Pw.gather(1, at)[:, 0]
+            resid = (p_sel - Qpad.gather(1, at)[:, 0]).clamp_min(0.0)
+            rsum = resid.sum(-1, keepdim=True)
+            resid = torch.where(rsum > 0, resid / rsum.clamp_min(1e-30),
+                                p_sel)
+            u = slot_uniforms(seeds, t0 + a, resid.shape[-1], STREAM_BONUS)
+            bonus = torch.argmax(torch.log(resid) - torch.log(-torch.log(u)),
+                                 -1)
+        else:
+            bonus = torch.argmax(
+                logits.gather(1, a[:, None, None].expand(
+                    B, 1, logits.shape[-1]))[:, 0], -1)
+
+        # 5. rollback: both pools, past the accept point (the draft wrote
+        # window indices 0..k-1)
+        past = writable & (steps > a[:, None])
+        self._invalidate_window(self._cache, tables,
+                                torch.where(past, wloc, -1))
+        self._invalidate_window(
+            self._draft_cache, dtables,
+            torch.where(past & (steps < k) & spec_on[:, None], wloc, -1))
+
+        # 6. draft catch-up at window index a when the proposal steps did
+        # not write it (k accepted)
+        on = active & spec_on & (a == k)
+        self.draft_model(
+            torch.where(active, win.gather(1, a[:, None])[:, 0], 0)[:, None],
+            torch.where(on, pos + a, -1).int()[:, None], self._draft_cache,
+            dtables, torch.where(on, loc + a, -1).int()[:, None])
+        return torch.cat([pending[:, None], D, a[:, None], bonus[:, None]],
+                         1)
+
+    def _emit(self, slot: int, toks: Sequence[int]) -> int:
+        """Append ``toks`` to the slot's request through the stop and
+        ``max_new`` contract of the decode chunk (the stop token is never
+        emitted; the slot retires at the first stop or when the budget
+        fills, and then releases its pages). Returns how many landed."""
+        req = self._slots[slot]
+        landed, done = 0, False
+        for t in toks:
+            if req.stop >= 0 and t == req.stop:
+                done = True
+                break
+            req.tokens.append(int(t))
+            req._notify(int(t))
+            landed += 1
+            if len(req.tokens) >= req.max_new:
+                done = True
+                break
+        if landed and req.t_first == 0.0:
+            req.t_first = time.monotonic()
+        if done:
+            self._slots[slot] = None
+            self._release_slot(slot)
+            req._finish()
+        return landed
+
+    def _spec_once(self) -> None:
+        """One speculative iteration: budget the window's pages, launch
+        ``_spec_launch``, read its packed result back once, then apply the
+        verdicts: emit [pending if fresh] + d_1..d_a + [bonus], advance the
+        cursor by a + 1, and make the bonus the pending token."""
+        self._ensure_spec_pages()
+        if not self._active.any():
+            return  # every decoding slot preempted away
+        k = self.propose_tokens
+        live = self._active.copy()
+        fresh = live & (self._pending < 0)
+        spec_on = live & self._spec_ok
+        oldest = min((r for r in self._slots if r is not None),
+                     key=lambda r: r.t_enqueue)
+        with obs_trace.span("engine.verify", trace_id=oldest.trace_id,
+                            parent_id=oldest.span_id, model=self.name,
+                            slots=str(int(live.sum())), k=str(k)) as sp:
+            out = self._spec_launch(fresh, spec_on).cpu().numpy()
+            pending, D = out[:, 0], out[:, 1:k + 1]
+            A, bonus = out[:, k + 1], out[:, k + 2]
+            sp.attrs["accepted"] = str(int(A[spec_on].sum()))
+        reg = self._reg()
+        # The verify window is spec mode's decode dispatch: one family
+        # counts the hot decode dispatches in both modes.
+        reg.counter("kfx_lm_engine_chunks_total",
+                    "Decode-chunk / verify dispatches.").inc(
+                        1, model=self.name)
+        proposed = accepted = emitted = 0
+        for slot in np.flatnonzero(live):
+            if fresh[slot]:
+                emitted += self._emit(slot, [int(pending[slot])])
+                if self._slots[slot] is None:
+                    continue  # retired on its first token
+            a = int(A[slot])
+            if spec_on[slot]:
+                proposed += k
+                accepted += a
+            emitted += self._emit(
+                slot, [int(t) for t in D[slot, :a]] + [int(bonus[slot])])
+            if self._slots[slot] is not None:
+                # The pending token and the a accepted proposals are now
+                # in both pools; the bonus is the next pending token.
+                self._pos[slot] += a + 1
+                self._loc[slot] += a + 1
+                self._pending[slot] = int(bonus[slot])
+                self._produced[slot] = len(self._slots[slot].tokens)
+        if proposed:
+            self._spec_proposed += proposed
+            self._spec_accepted += accepted
+            with self._spec_lock:
+                self._spec_window.append(
+                    (time.monotonic(), proposed, accepted))
+            reg.counter("kfx_lm_spec_proposed_total",
+                        "Draft tokens proposed to the verify dispatch."
+                        ).inc(proposed, model=self.name)
+            reg.counter("kfx_lm_spec_accepted_total",
+                        "Draft proposals the target model accepted."
+                        ).inc(accepted, model=self.name)
+        if emitted:
+            reg.counter("kfx_lm_generated_tokens_total",
+                        "Tokens generated since startup.").inc(
+                            emitted, model=self.name)
+        self._touch_gauges()
+
     def _fail_inflight(self, e: BaseException) -> None:
         """Fail every in-flight request and reset the pool: a dispatch that
         died midway may have written part of a step, so every page's
@@ -1562,9 +2106,18 @@ class DecodeEngine:
         self._mgr = BlockManager(self.n_pages, self.page_size)
         if self._prefix is not None:
             self._prefix = PrefixCache(self._mgr)
+        self._pending[:] = -1
+        if self.spec:
+            self._draft_tables[:, :] = -1
+            self._draft_slot_pages = [[] for _ in range(self.n_slots)]
+            self._spec_ok[:] = False
+            self._draft_mgr = BlockManager(self.draft_n_pages,
+                                           self.page_size)
         if not self._stopped:
             self._cache.pos.fill_(-1)
             self._logbuf.zero_()
+            if self.spec:
+                self._draft_cache.pos.fill_(-1)
         self._touch_gauges()
 
     # -- lifecycle -----------------------------------------------------------

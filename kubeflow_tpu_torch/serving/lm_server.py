@@ -13,7 +13,8 @@ predictor serves a ``:generate`` verb:
 
 ``KFX_LM_ENGINE`` (default "1", as in the reference) serves through the
 continuous-batching DecodeEngine (serving/engine.py: paged KV pool,
-prefix cache, chunked prefill, preemption), configured by
+prefix cache, chunked prefill, preemption, speculative decoding, usage
+metering), configured by
 ``KFX_LM_ENGINE_CHUNK`` (decode steps a chunk, 8), ``KFX_LM_KV_PAGE_SIZE``
 (32), ``KFX_LM_KV_PAGES`` (0 = the dense layout's memory),
 ``KFX_LM_PREFIX_CACHE`` (1), ``KFX_LM_PREFILL_CHUNK`` (256; 0 =
@@ -24,18 +25,28 @@ LMGenerator (models/generate.py), run to completion per request, the
 greedy-parity oracle the engine is held to — where ``stop_token`` is a
 400, as in the reference.
 
-One default differs from the reference: the reference turns speculative
-decoding on by default for LMs of 2 or more layers; the port's engine
-runs without a draft (greedy output is the same either way).
-``KFX_LM_SPEC`` unset or "0" is that; any other value, and any
-``KFX_LM_SPEC_*`` knob, raises ``NotImplementedError``. So does every
-other engine extension knob that is set (``KFX_LM_ADAPTERS``,
-``KFX_LM_MODELS``, ``KFX_LM_QUANT`` / ``_KV_QUANT`` other than 0, a
+Speculative decoding is on by default, as in the reference, for LMs of 2
+or more layers: ``KFX_LM_SPEC`` (default "1"; "0" turns it off), a draft
+of ``KFX_LM_SPEC_LAYERS`` layers (0 = ``max(1, n_layers // 4)``, capped
+at ``n_layers - 1``) proposing ``KFX_LM_SPEC_TOKENS`` tokens (4) from a
+pool of ``KFX_LM_SPEC_PAGES`` pages (0 = the target's page count); greedy
+output is the same either way. Every engine keeps the per-tenant usage
+ledger, and the predictor seeds the default tenant's row, so
+``kfx_tenant_requests_total`` and ``kfx_tenant_tokens_total`` show before
+any traffic; the body field ``tenant`` names the billable tenant and
+``stream_skip`` is not billed again.
+
+One default still differs from the reference: the flight recorder
+(``KFX_FLIGHT``, ROADMAP.md Queue A 5b.3) is not ported, and the port
+has no ``/debug/flight``. Every knob of an engine extension that is not
+ported raises ``NotImplementedError`` naming its Queue A 5b item rather
+than being ignored: ``KFX_CHAOS`` set (5b.4), ``KFX_LM_QUANT`` /
+``_KV_QUANT`` / ``_QUANT_DRAFT`` other than 0 (5b.5),
+``KFX_LM_ADAPTERS`` (5b.6), ``KFX_LM_QOS_DEFAULT`` other than
+interactive, ``KFX_LM_DEADLINE_MS``, ``KFX_LM_RATE_LIMITS`` (5b.7), a
 ``KFX_LM_ROLE`` other than mixed, ``KFX_LM_KV_PEERS``,
-``KFX_LM_KV_OFFLOAD_PAGES``, ``KFX_LM_QOS_DEFAULT`` other than
-interactive, ``KFX_LM_DEADLINE_MS``, ``KFX_LM_RATE_LIMITS``: ROADMAP.md
-Queue A 5b), rather than being ignored, and so does an int8 export. The
-body fields ``adapter`` and ``model`` are a 400.
+``KFX_LM_KV_OFFLOAD_PAGES`` and ``KFX_LM_MODELS`` (5b.8); so does an int8
+export. The body fields ``adapter`` and ``model`` are a 400.
 
 Tokenization is caller-side.
 """
@@ -57,7 +68,7 @@ import torch
 from ..models.transformer import TransformerConfig
 from ..obs.metrics import default_registry
 from . import _msgpack
-from .engine import DecodeEngine, EngineOverloaded
+from .engine import METER_ADAPTER, METER_QOS, DecodeEngine, EngineOverloaded
 from .export import FORMAT_VERSION
 from .server import Predictor
 
@@ -125,44 +136,42 @@ def is_lm_export(model_dir: str) -> bool:
 
 def _refuse_engine_knobs() -> None:
     """Raise on an explicitly set knob of an engine extension the port
-    does not have yet (ROADMAP.md Queue A 5b), naming it."""
+    does not have yet (ROADMAP.md Queue A 5b), naming its item."""
     env = os.environ.get
     off = ("", "0")
     knobs = [
-        ("KFX_LM_SPEC", env("KFX_LM_SPEC", "") not in off,
-         "speculative decoding")]
-    knobs += [(k, bool(env(k, "")), "speculative decoding")
-              for k in sorted(os.environ) if k.startswith("KFX_LM_SPEC_")]
-    knobs += [
-        ("KFX_LM_ADAPTERS", env("KFX_LM_ADAPTERS", "") not in ("", "{}"),
-         "LoRA adapters"),
-        ("KFX_LM_MODELS", env("KFX_LM_MODELS", "") not in ("", "{}"),
-         "the weight pool"),
+        ("KFX_CHAOS", bool(env("KFX_CHAOS", "")), "chaos points", "5b.4"),
         ("KFX_LM_QUANT", env("KFX_LM_QUANT", "") not in off,
-         "int8 weights/KV"),
+         "int8 weights/KV", "5b.5"),
         ("KFX_LM_KV_QUANT", env("KFX_LM_KV_QUANT", "") not in off,
-         "int8 weights/KV"),
-        ("KFX_LM_ROLE", env("KFX_LM_ROLE", "mixed") != "mixed",
-         "KV transfer, offload and roles"),
-        ("KFX_LM_KV_PEERS", env("KFX_LM_KV_PEERS", "") not in ("", "[]"),
-         "KV transfer, offload and roles"),
-        ("KFX_LM_KV_OFFLOAD_PAGES",
-         env("KFX_LM_KV_OFFLOAD_PAGES", "") not in off,
-         "KV transfer, offload and roles"),
+         "int8 weights/KV", "5b.5"),
+        ("KFX_LM_QUANT_DRAFT", env("KFX_LM_QUANT_DRAFT", "") not in off,
+         "int8 weights/KV (the draft's)", "5b.5"),
+        ("KFX_LM_ADAPTERS", env("KFX_LM_ADAPTERS", "") not in ("", "{}"),
+         "LoRA adapters", "5b.6"),
         ("KFX_LM_QOS_DEFAULT",
          env("KFX_LM_QOS_DEFAULT", "") not in ("", "interactive"),
-         "QoS, deadlines and rate limits"),
+         "QoS, deadlines and rate limits", "5b.7"),
         ("KFX_LM_DEADLINE_MS", env("KFX_LM_DEADLINE_MS", "") not in off,
-         "QoS, deadlines and rate limits"),
+         "QoS, deadlines and rate limits", "5b.7"),
         ("KFX_LM_RATE_LIMITS",
          env("KFX_LM_RATE_LIMITS", "") not in ("", "{}"),
-         "QoS, deadlines and rate limits"),
+         "QoS, deadlines and rate limits", "5b.7"),
+        ("KFX_LM_ROLE", env("KFX_LM_ROLE", "mixed") != "mixed",
+         "KV transfer, offload and roles", "5b.8"),
+        ("KFX_LM_KV_PEERS", env("KFX_LM_KV_PEERS", "") not in ("", "[]"),
+         "KV transfer, offload and roles", "5b.8"),
+        ("KFX_LM_KV_OFFLOAD_PAGES",
+         env("KFX_LM_KV_OFFLOAD_PAGES", "") not in off,
+         "KV transfer, offload and roles", "5b.8"),
+        ("KFX_LM_MODELS", env("KFX_LM_MODELS", "") not in ("", "{}"),
+         "the weight pool", "5b.8"),
     ]
-    for name, set_, what in knobs:
+    for name, set_, what, item in knobs:
         if set_:
             raise NotImplementedError(
                 f"{name}={env(name)!r}: {what} is not ported yet "
-                "(ROADMAP.md Queue A 5b); unset it")
+                f"(ROADMAP.md Queue A {item}); unset it")
 
 
 class _RateWindow:
@@ -227,6 +236,15 @@ class LMPredictor(Predictor):
         # Seconds of decode-loop stall (while busy) before the heartbeat
         # reads wedged and /healthz fails the probe.
         self.stall_threshold_s = float(env("KFX_LM_STALL_S", "10.0"))
+        # Speculative decoding, on by default as in the reference (the
+        # engine degrades a slot when its draft cannot help; greedy
+        # output is the same either way). Layers 0 = auto (n_layers // 4,
+        # at least 1); tokens = proposals a verify window; pages 0 = the
+        # target pool's count.
+        self.spec = env("KFX_LM_SPEC", "1") != "0"
+        self.spec_layers = int(env("KFX_LM_SPEC_LAYERS", "0"))
+        self.spec_tokens = int(env("KFX_LM_SPEC_TOKENS", "4"))
+        self.spec_pages = int(env("KFX_LM_SPEC_PAGES", "0"))
         self.warm_buckets = list(warm_buckets) if warm_buckets else None
         self._gen = None
         self._engine = None
@@ -247,6 +265,13 @@ class LMPredictor(Predictor):
         cfg, params = load_lm(self.model_dir)
         self.vocab_size = cfg.vocab_size
         if self.use_engine:
+            # Draft depth: KFX_LM_SPEC_LAYERS, else a quarter of the
+            # target (at least 1), always shallower than the target: a
+            # 1-layer model has nothing to truncate, so it runs without.
+            draft = 0
+            if self.spec and cfg.n_layers > 1:
+                draft = self.spec_layers or max(1, cfg.n_layers // 4)
+                draft = min(draft, cfg.n_layers - 1)
             # registry as a thunk: register() swaps self.metrics for the
             # hosting server's registry AFTER load; the engine follows it.
             self._engine = DecodeEngine(
@@ -258,7 +283,11 @@ class LMPredictor(Predictor):
                 prefix_cache=self.prefix_cache,
                 stall_threshold_s=self.stall_threshold_s,
                 prefill_chunk_tokens=max(0, self.prefill_chunk),
+                draft_layers=draft,
+                propose_tokens=max(1, self.spec_tokens),
+                draft_kv_pages=self.spec_pages or None,
                 device=self.device)
+            self._attach_usage()
             buckets = self.warm_buckets or self._engine.prompt_buckets
             # The first bucket and a decode step warm synchronously
             # (ready = one request served without a first-call stall);
@@ -312,6 +341,18 @@ class LMPredictor(Predictor):
             self._set_warm(self._warm_count)
         if self._engine is not None:
             self._engine._touch_gauges()
+        self._attach_usage()
+
+    def _attach_usage(self) -> None:
+        """Project the engine's tenant ledger into the CURRENT registry (a
+        collector: the ledger owns the truth), seeding the default
+        tenant's zero row so a scrape before any traffic already shows
+        both ``kfx_tenant_*`` families."""
+        if self._engine is None or self._engine.usage is None:
+            return
+        ledger = self._engine.usage
+        ledger.seed(METER_ADAPTER, METER_QOS, METER_ADAPTER)
+        self.metrics.add_collector(ledger.collect)
 
     def engine_heartbeat(self) -> Optional[Dict[str, Any]]:
         """Decode-loop liveness snapshot (None on the one-shot path, which
@@ -395,6 +436,7 @@ class LMPredictor(Predictor):
         return {
             "prompts": [list(map(int, p)) for p in prompts],
             "stop": stop,
+            "tenant": tenant or None,
             "kw": dict(
                 max_new_tokens=int(body.get("max_new_tokens", 32)),
                 temperature=float(body.get("temperature", 0.0)),
@@ -423,7 +465,8 @@ class LMPredictor(Predictor):
         t0 = time.perf_counter()
         if self._engine is not None:
             reqs = self._engine.submit_batch(p["prompts"],
-                                             stop_token=p["stop"], **p["kw"])
+                                             stop_token=p["stop"],
+                                             tenant=p["tenant"], **p["kw"])
             deadline = time.monotonic() + self._engine.request_timeout_s
             out = [r.result(max(0.001, deadline - time.monotonic()))
                    for r in reqs]
@@ -468,7 +511,8 @@ class LMPredictor(Predictor):
             return iter(self._replay_events(out[0], skip, elapsed))
         q: "_queue.Queue[Optional[int]]" = _queue.Queue()
         req = self._engine.submit(p["prompts"][0], stop_token=p["stop"],
-                                  on_token=q.put, **p["kw"])
+                                  on_token=q.put, tenant=p["tenant"],
+                                  meter_skip=skip, **p["kw"])
         return self._stream_events(req, q, skip,
                                    self._engine.request_timeout_s)
 

@@ -189,7 +189,9 @@ class ModelServer:
                               ("kfx_lm_prefix_tokens_reused",
                                "prefix_tokens_reused"),
                               ("kfx_lm_prompt_tokens_admitted",
-                               "prompt_tokens_admitted")):
+                               "prompt_tokens_admitted"),
+                              ("kfx_lm_spec_accept_rate",
+                               "spec_accept_rate")):
             for labels, value in self.metrics.gauge(family).samples():
                 out.setdefault(labels.get("model", ""), {})[field] = value
         # The reference's `kfx top` Q-column string; the port serves
@@ -497,12 +499,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     server = ModelServer(port=args.port)
     server.register(predictor)
     server.start()
+    engine = predictor.engine
     print(f"server_ready name={args.name} port={server.port} "
           f"framework={framework} "
           f"load_seconds={time.time() - t0:.1f} "
           f"device={predictor.device} "
-          f"engine={'on' if predictor.engine is not None else 'off'} "
-          f"spec=off", flush=True)
+          f"engine={'on' if engine is not None else 'off'} "
+          f"spec={'on' if engine is not None and engine.spec else 'off'}",
+          flush=True)
     try:
         while True:
             time.sleep(3600)

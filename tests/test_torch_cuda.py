@@ -359,3 +359,62 @@ def test_engine_pages_come_back_after_preemption_on_cuda(cuda_serving):
     assert got == [gen.generate([p], max_new_tokens=40)[0] for p in prompts]
     assert st["preemptions"] >= 1
     assert st["free"] + st["cached"] == st["pages"]
+
+
+def test_spec_engine_greedy_equals_generator_on_cuda(cuda_serving):
+    """The speculating engine on the card (a 1-layer draft, 4 proposals,
+    chunked prefill at one page, a prefix hit) gives the one-shot
+    LMGenerator's greedy tokens, accepts some proposals, leaks no page of
+    either pool, and launches no flash kernel."""
+    from kubeflow_tpu_torch.models.generate import LMGenerator
+
+    cfg, model = _tiny_gapped_lm(cuda_serving)
+    gen = LMGenerator(cfg, model.state_dict(), device=cuda_serving)
+    system = [(7 * i + 3) % 60 for i in range(36)]
+    prompts = [[5, 9, 11, 3, 7], [2], system + [60], system + [61],
+               [(3 * i + 1) % 60 for i in range(33)]]
+    fa.reset_launches()
+    eng = _engine_on_card(cfg, model, cuda_serving, prefill_chunk_tokens=16,
+                          draft_layers=1, propose_tokens=4)
+    try:
+        got = eng.generate(prompts, max_new_tokens=12)
+        st, pages = eng.spec_stats(), eng.page_stats()
+        draft_free = eng._draft_mgr.n_free
+    finally:
+        eng.close()
+    assert got == [gen.generate([p], max_new_tokens=12)[0] for p in prompts]
+    assert 0 < st["accepted"] <= st["proposed"]
+    assert pages["free"] + pages["cached"] == pages["pages"]
+    assert draft_free == eng.draft_n_pages
+    assert fa.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+
+
+def test_spec_engine_preempts_degrades_and_samples_on_cuda(cuda_serving):
+    """On the card: a target pool too small for the wave preempts, a
+    one-page draft pool degrades the long prompt, tokens stay the
+    oracle's, both pools come back whole, and a sampled request is the
+    same beside batch mates as alone."""
+    from kubeflow_tpu_torch.models.generate import LMGenerator
+
+    cfg, model = _tiny_gapped_lm(cuda_serving)
+    gen = LMGenerator(cfg, model.state_dict(), device=cuda_serving)
+    prompts = [[i + 1, i + 2, i + 3] for i in range(3)] + [
+        [(3 * i + 1) % 60 for i in range(20)]]
+    eng = _engine_on_card(cfg, model, cuda_serving, kv_pages=6,
+                          draft_layers=1, propose_tokens=4, draft_kv_pages=5)
+    try:
+        got = eng.generate(prompts, max_new_tokens=40)
+        st, pages = eng.spec_stats(), eng.page_stats()
+        draft_free = eng._draft_mgr.n_free
+        kw = dict(max_new_tokens=12, temperature=1.0, seed=3)
+        alone = eng.generate([[1, 2, 3]], **kw)[0]
+        mate = eng.submit([9, 8], max_new_tokens=20, temperature=0.7,
+                          top_k=5, seed=7)
+        assert eng.generate([[1, 2, 3]], **kw)[0] == alone
+        mate.result(120)
+    finally:
+        eng.close()
+    assert got == [gen.generate([p], max_new_tokens=40)[0] for p in prompts]
+    assert pages["preemptions"] >= 1 and st["degraded"] >= 1
+    assert pages["free"] + pages["cached"] == pages["pages"]
+    assert draft_free == eng.draft_n_pages

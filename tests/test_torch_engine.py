@@ -759,7 +759,9 @@ class TestEngineServing:
         decode loop stalls with work in flight, alive again after."""
         srv, p = lm_server
         p.engine.stall_threshold_s = 0.2
-        real = DecodeEngine._decode_chunk
+        # The decode dispatch of either mode (a chunk, or a speculative
+        # iteration: the served engine speculates by default).
+        real = DecodeEngine._decode_once
         calls = {"n": 0}
 
         def stalled(self_):
@@ -768,7 +770,7 @@ class TestEngineServing:
                 time.sleep(1.5)
             return real(self_)
 
-        monkeypatch.setattr(DecodeEngine, "_decode_chunk", stalled)
+        monkeypatch.setattr(DecodeEngine, "_decode_once", stalled)
         req = p.engine.submit([1, 2, 3], max_new_tokens=4)
         seen, deadline = None, time.monotonic() + 10
         while time.monotonic() < deadline and not req.done():

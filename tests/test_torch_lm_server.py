@@ -34,9 +34,9 @@ from kubeflow_tpu_torch.serving import server as port_server  # noqa: E402
 
 from test_torch_generate import MIN_GAP, TINY, recompute, wide_gap  # noqa: E402,E501
 
-ENGINE_KNOBS = ("KFX_LM_SPEC", "KFX_LM_ADAPTERS", "KFX_LM_MODELS",
-                "KFX_LM_QUANT", "KFX_LM_KV_QUANT", "KFX_LM_ROLE",
-                "KFX_LM_KV_PEERS", "KFX_LM_KV_OFFLOAD_PAGES",
+ENGINE_KNOBS = ("KFX_CHAOS", "KFX_LM_ADAPTERS", "KFX_LM_MODELS",
+                "KFX_LM_QUANT", "KFX_LM_KV_QUANT", "KFX_LM_QUANT_DRAFT",
+                "KFX_LM_ROLE", "KFX_LM_KV_PEERS", "KFX_LM_KV_OFFLOAD_PAGES",
                 "KFX_LM_QOS_DEFAULT", "KFX_LM_DEADLINE_MS",
                 "KFX_LM_RATE_LIMITS")
 
@@ -489,18 +489,19 @@ def test_http_greedy_equals_reference_oneshot_server(tiny_export,
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("KFX_LM_SPEC", "1"), ("KFX_LM_ADAPTERS", '{"a": "file:///x"}'),
+    ("KFX_CHAOS", "engine.admit:count=1"),
+    ("KFX_LM_ADAPTERS", '{"a": "file:///x"}'),
     ("KFX_LM_MODELS", '{"m": "/x"}'), ("KFX_LM_QUANT", "int8"),
     ("KFX_LM_KV_QUANT", "int8"), ("KFX_LM_ROLE", "prefill"),
     ("KFX_LM_KV_PEERS", '["http://127.0.0.1:1"]'),
-    ("KFX_LM_SPEC_LAYERS", "1"), ("KFX_LM_KV_OFFLOAD_PAGES", "4"),
+    ("KFX_LM_QUANT_DRAFT", "int8"), ("KFX_LM_KV_OFFLOAD_PAGES", "4"),
     ("KFX_LM_QOS_DEFAULT", "batch"), ("KFX_LM_DEADLINE_MS", "500"),
     ("KFX_LM_RATE_LIMITS", '{"": 10}')])
 def test_engine_knobs_are_refused(tiny_export, monkeypatch, knob, value):
     """Every knob of an unported engine extension raises, naming its
     ROADMAP item (Queue A 5b), with the engine on (the default) and
     off."""
-    assert knob in ENGINE_KNOBS or knob.startswith("KFX_LM_SPEC_")
+    assert knob in ENGINE_KNOBS
     monkeypatch.setenv(knob, value)
     for engine in ("1", "0"):
         monkeypatch.setenv("KFX_LM_ENGINE", engine)
@@ -515,6 +516,7 @@ def test_oneshot_knob_values_are_accepted(tiny_export, monkeypatch):
     KFX_LM_ENGINE=0."""
     for knob, value in (("KFX_LM_QUANT", "0"), ("KFX_LM_ROLE", "mixed"),
                         ("KFX_LM_SPEC", "0"), ("KFX_LM_KV_QUANT", "0"),
+                        ("KFX_LM_QUANT_DRAFT", "0"), ("KFX_CHAOS", ""),
                         ("KFX_LM_QOS_DEFAULT", "interactive"),
                         ("KFX_LM_DEADLINE_MS", "0"),
                         ("KFX_LM_ADAPTERS", "{}")):
@@ -529,6 +531,7 @@ def test_oneshot_knob_values_are_accepted(tiny_export, monkeypatch):
         try:
             assert p.ready and p.device == "cpu"
             assert (p.engine is not None) == on
+            assert p.engine is None or not p.engine.spec
         finally:
             p.close()
 
