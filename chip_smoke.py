@@ -25,6 +25,26 @@ Phases, in order; any failure raises and the process exits non-zero:
 5. main path: the LM runner (base preset, lm-small, 4 steps, batch 4,
    S = 2048, attn_impl auto, --export-dir build/serve_export) with the
    launch counters set to 0 just before and read just after;
+5b. training options, base preset at full width, S = 2048, each rung with
+   the launch counters set to 0 just before and read just after, with
+   step time, tokens/s, MFU (model FLOPs, recompute not credited) and
+   peak memory: (h0) at 4 layers, batch 2, attn flash, one backward under
+   each of nothing, save_flash, save_flash_min, save_flash_full and
+   save_dense against the no-remat grads of the same weights (f32 held
+   within 1e-5 relative to each tensor's max, bf16 printed; flash_fwd
+   launches L under save_flash*, 2L otherwise), and loss_chunk=256 against
+   whole logits (f32 loss and lm_head grad within 1e-5); (h1) the runner
+   with --remat --remat-policy nothing, b8, 3 steps: flash_fwd exactly 2L
+   a step plus L for the eval batch, flash_dq and flash_dkv L a step;
+   (h2) --remat-policy save_flash_full, b8: flash_fwd exactly L a step
+   (the reference's first long-context rung); (h2b) a b8 step without
+   remat, under full remat, under full remat through the selective
+   dispatch mode (empty save set) and under save_flash_full, in turns in
+   one process, with kernel time and busy share; (h3) LMTrainLoop with
+   save_flash_min and loss_chunk=256 at b16 (the second rung), and one
+   step's peak memory with and without loss_chunk on the same batch;
+   (h4) the runner with --experts 8 (top-2, capacity 1.25) and
+   save_flash_full, b4: finite losses, and the aux term printed;
 6. serving, with the launch counters set to 0 just before and read just
    after (the decode path reaches no flash kernel, as in the reference):
    (a) that export loaded by LMPredictor on the card behind an in-process
@@ -66,9 +86,16 @@ Phases, in order; any failure raises and the process exits non-zero:
    and without the prefix cache (ROADMAP Queue C 1); (g3) one speculative
    iteration at 8 active slots by hand: ms, host enqueue, kernels, busy
    share, tokens an iteration and the iteration's bound;
+   (h5) the flight recorder (on by default), on (f2)'s server after its
+   waves: /debug/flight holds records, /debug/requests the waves'
+   requests with admit ... first_token ... retire trails, a :generate
+   answer carries the timing block and the X-Kfx-Timing header; in (f3),
+   the iteration at 8 slots with the recorder off and on, in turns, and
+   the record run under CUDA's sync-debug mode "error" (it must not
+   synchronise);
 7. one JSON line per kernel set, the serving line, the engine line, the
-   spec line, the card's name and power limit, and the last line {"ok":
-   true, "device": {...}}.
+   spec line, the training line, the card's name and power limit, and
+   the last line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or without the port's package beside it, it exits non-zero
@@ -132,6 +159,22 @@ GAP_MARGIN = 10         # smallest argmax gap / measured logit disagreement
 # prompts (8 pages of 32 tokens), so slots must degrade.
 SPEC_TOKENS = 4
 SPEC_SMALL_DRAFT_POOL = 8
+
+# Training options (h): the base preset at full width, lm-small (S 2048).
+# (h0) grads under each policy against no remat at 4 layers, batch 2;
+# (h1)-(h4) the reference's long-context rungs (bench.py lm_long) through
+# the runner and LMTrainLoop, 3 steps each.
+TRAIN_STEPS = 3
+TRAIN_ARGV = ["--preset", "base", "--dataset", "lm-small", "--steps",
+              str(TRAIN_STEPS), "--warmup-steps", "1", "--log-every", "1"]
+GRAD_LAYERS = 4
+GRAD_BATCH = 2
+GRAD_POLICIES = ("nothing", "save_flash", "save_flash_min",
+                 "save_flash_full", "save_dense")
+KEEPS_FLASH = ("save_flash", "save_flash_min", "save_flash_full")
+TOL_REMAT_F32 = 1e-5   # remat vs no remat grads, f32, rel. to each max
+LOSS_CHUNK = 256
+MOE_EXPERTS = 8
 
 
 def log(msg: str) -> None:
@@ -418,15 +461,371 @@ def main_path_phase(torch, fa, export_dir):
     return launches
 
 
-def http_json(url, payload=None, timeout=600):
-    """GET (or POST ``payload``) and decode a JSON answer; text otherwise."""
+def _grads(torch, model, tokens):
+    """One CE forward and backward on ``tokens`` [B, S+1]: (loss, {name:
+    grad}, seconds (synchronised), peak bytes allocated during it)."""
+    import torch.nn.functional as F
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits = model(tokens[:, :-1])
+    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           tokens[:, 1:].reshape(-1))
+    loss.backward()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads, seconds, peak
+
+
+def remat_grads_phase(torch, fa, dev):
+    """(h0): at the base width, 4 layers, S 2048, attn flash, one backward
+    under each remat policy against the no-remat grads of the same
+    weights (held in f32, printed in bf16), with the flash launches, the
+    time (one synchronised forward and backward, no optimizer step),
+    tokens/s, MFU and peak memory of each; then loss_chunk against whole
+    logits (f32: the loss and the lm_head grad held)."""
+    from kubeflow_tpu_torch.models.transformer import (
+        TransformerLM, preset_config)
+    from kubeflow_tpu_torch.parallel.lm_train import (
+        LMHyperParams, LMTrainLoop)
+    from kubeflow_tpu_torch.utils.flops import (
+        peak_flops_per_card, transformer_train_flops_per_token)
+
+    L = GRAD_LAYERS
+    g = torch.Generator(device=dev).manual_seed(7)
+    tokens = torch.randint(0, 32_000, (GRAD_BATCH, 2049), device=dev,
+                           generator=g)
+    rec = {"layers": L, "batch": GRAD_BATCH, "seq_len": 2048}
+    for dtype in ("float32", "bfloat16"):
+        kw = dict(n_layers=L, max_seq_len=2048, vocab_size=32_000,
+                  attn_impl="flash", dtype=dtype)
+        cfg = preset_config("base", **kw)
+        flops = transformer_train_flops_per_token(cfg, 2048) \
+            * GRAD_BATCH * 2048
+        model = TransformerLM(cfg, device=dev, generator=g)
+        sd = model.state_dict()
+        _grads(torch, model, tokens)   # warm
+        fa.reset_launches()
+        loss0, want, sec, peak = _grads(torch, model, tokens)
+        del model
+        errs = {}
+        steps = {"none": {"ms": sec * 1e3, "peak_gb": peak / 1e9,
+                          "launches": dict(fa.LAUNCHES)}}
+        for policy in GRAD_POLICIES:
+            model = TransformerLM(preset_config(
+                "base", remat=True, remat_policy=policy, **kw), device=dev)
+            model.load_state_dict(sd)
+            fa.reset_launches()
+            loss, got, sec, peak = _grads(torch, model, tokens)
+            launches = dict(fa.LAUNCHES)
+            fwd = L if policy in KEEPS_FLASH else 2 * L
+            check(launches == {"flash_fwd": fwd, "flash_dq": L,
+                               "flash_dkv": L},
+                  f"(h0) {policy} {dtype} launches {launches}")
+            errs[policy] = max(max_rel(got[n], want[n]) for n in want)
+            if dtype == "float32":
+                check(errs[policy] <= TOL_REMAT_F32,
+                      f"(h0) {policy} f32 grads differ from no remat by "
+                      f"{errs[policy]:.3g} > {TOL_REMAT_F32}")
+            steps[policy] = {"ms": sec * 1e3, "peak_gb": peak / 1e9,
+                             "launches": launches}
+            del model, got
+        for st in steps.values():
+            st["tokens_per_s"] = GRAD_BATCH * 2048 / (st["ms"] / 1e3)
+            st["mfu"] = flops / (st["ms"] / 1e3) / peak_flops_per_card()
+        rec[dtype] = {"loss": loss0, "grad_max_rel_vs_no_remat": errs,
+                      "fwd_bwd": steps}
+        log(f"train (h0) base d=1024 L={L} S=2048 b={GRAD_BATCH} {dtype}: "
+            f"grads under remat vs none, max rel "
+            + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
+            + f" (f32 tol {TOL_REMAT_F32}; bf16 reported); one forward "
+            "and backward: " + "; ".join(
+                f"{k} {v['ms']:.1f} ms, {v['tokens_per_s']:.0f} tokens/s, "
+                f"MFU {v['mfu']:.4f}, peak {v['peak_gb']:.2f} GB, "
+                f"launches {v['launches']['flash_fwd']}/"
+                f"{v['launches']['flash_dq']}/{v['launches']['flash_dkv']}"
+                for k, v in steps.items()))
+        del want
+        torch.cuda.empty_cache()
+    # loss_chunk against whole logits, f32, on the same weights.
+    out = {}
+    sd = None
+    for chunk in (0, LOSS_CHUNK):
+        cfg = preset_config("base", n_layers=L, max_seq_len=2048,
+                            vocab_size=32_000, attn_impl="flash",
+                            dtype="float32", loss_chunk=chunk)
+        loop = LMTrainLoop(cfg, LMHyperParams(seed=7), device=dev)
+        loop.init_state(sd)
+        sd = sd or loop.model.state_dict()
+        loss, acc = loop._loss_fn(tokens)
+        loss.backward()
+        out[chunk] = (float(loss.detach()), float(acc),
+                      loop.model.lm_head.kernel.grad.detach().clone())
+        del loop
+    (l0, a0, g0), (l1, a1, g1) = out[0], out[LOSS_CHUNK]
+    e_loss, e_grad = abs(l1 - l0) / abs(l0), max_rel(g1, g0)
+    check(e_loss <= TOL_REMAT_F32 and e_grad <= TOL_REMAT_F32,
+          f"(h0) loss_chunk={LOSS_CHUNK} vs whole logits: loss rel "
+          f"{e_loss:.3g}, lm_head grad rel {e_grad:.3g}")
+    rec["loss_chunk"] = {"chunk": LOSS_CHUNK, "loss": l1, "loss_whole": l0,
+                         "loss_rel": e_loss, "accuracy": a1,
+                         "accuracy_whole": a0, "lm_head_grad_rel": e_grad}
+    log(f"train (h0) f32 loss_chunk={LOSS_CHUNK} vs whole logits: loss "
+        f"{l1:.6f} vs {l0:.6f} (rel {e_loss:.3g}), accuracy {a1} vs {a0}, "
+        f"lm_head grad rel {e_grad:.3g} (tol {TOL_REMAT_F32})")
+    del out, sd
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _train_record(torch, cfg, batch, step_times, launches, peak):
+    """Step time (median of the timed steps), tokens/s, MFU (model FLOPs,
+    recompute not credited) and peak memory of one training rung."""
+    from kubeflow_tpu_torch.utils.flops import (
+        peak_flops_per_card, transformer_train_flops_per_token)
+
+    step = sorted(step_times)[len(step_times) // 2]
+    tps = batch * 2048 / step
+    return {"batch": batch, "step_s": step, "step_times": step_times,
+            "tokens_per_s": tps,
+            "mfu": tps * transformer_train_flops_per_token(cfg, 2048)
+            / peak_flops_per_card(),
+            "peak_memory_gb": peak / 1e9, "launches": launches}
+
+
+def runner_rung(torch, fa, tag, argv, batch, fwd_per_layer):
+    """Drive lm_runner with ``argv`` (3 steps and the eval batch), launch
+    counters set to 0 just before and read just after; check the flash
+    launches (``fwd_per_layer`` forwards a layer a step, one a layer for
+    the eval, L dQ and dK/dV a step) and the losses."""
+    from kubeflow_tpu_torch.models.transformer import preset_config
+    from kubeflow_tpu_torch.runners import lm_runner
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    fa.reset_launches()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        rc = lm_runner.main(TRAIN_ARGV + ["--batch-size", str(batch)]
+                            + argv)
+    launches = dict(fa.LAUNCHES)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    out = buf.getvalue()
+    check(rc == 0, f"{tag}: lm_runner returned {rc}")
+    losses = [float(x) for x in re.findall(r"^step=\d+ loss=(\S+)", out,
+                                           re.M)]
+    final = re.search(r"^loss=(\S+)$", out, re.M)
+    check(final is not None and len(losses) == TRAIN_STEPS - 1,
+          f"{tag}: runner output lacks the step/loss lines:\n{out}")
+    check(all(math.isfinite(x) for x in losses + [float(final.group(1))]),
+          f"{tag}: non-finite loss: {losses} {final.group(1)}")
+    E = int(argv[argv.index("--experts") + 1]) if "--experts" in argv else 0
+    check((f"/ep{E} " in out) == bool(E), f"{tag}: runner_start plan")
+    cfg = preset_config("base", vocab_size=32_000, max_seq_len=2048,
+                        n_experts=E)
+    L = cfg.n_layers
+    want = {"flash_fwd": fwd_per_layer * L * TRAIN_STEPS + L,
+            "flash_dq": L * TRAIN_STEPS, "flash_dkv": L * TRAIN_STEPS}
+    check(launches == want, f"{tag}: launches {launches} != {want}")
+    times = [float(t) for t in re.findall(r"step_time=(\S+)", out)]
+    rec = _train_record(torch, cfg, batch, times, launches, peak)
+    rec["losses"] = losses
+    rec["argv"] = argv
+    rec["model_params"] = int(re.search(r"model_params=(\d+)", out)
+                              .group(1))
+    log(f"train {tag} base b={batch} {' '.join(argv)} "
+        f"params={rec['model_params']}: step "
+        f"{rec['step_s']:.4f} s, {rec['tokens_per_s']:.0f} tokens/s, MFU "
+        f"{rec['mfu']:.4f}, peak {rec['peak_memory_gb']:.2f} GB, launches "
+        f"{json.dumps(launches)}")
+    return rec
+
+
+def loss_chunk_rung(torch, fa, dev):
+    """(h3): save_flash_min with loss_chunk=256 at b16 through
+    LMTrainLoop, 3 steps; then the peak memory of one step with and
+    without loss_chunk on the same batch."""
+    from kubeflow_tpu_torch.data.lm import get_lm_dataset
+    from kubeflow_tpu_torch.models.transformer import preset_config
+    from kubeflow_tpu_torch.parallel.lm_train import (
+        LMHyperParams, LMTrainLoop)
+
+    B = 16
+    ds = get_lm_dataset("lm-small", seed=0)
+    batches = list(ds.batches(B, steps=TRAIN_STEPS))
+    peaks = {}
+    rec = None
+    for chunk in (LOSS_CHUNK, 0):
+        cfg = preset_config("base", vocab_size=ds.vocab_size,
+                            max_seq_len=ds.seq_len, remat=True,
+                            remat_policy="save_flash_min", loss_chunk=chunk)
+        torch.cuda.empty_cache()
+        loop = LMTrainLoop(cfg, LMHyperParams(warmup_steps=1,
+                                              total_steps=TRAIN_STEPS),
+                           device=dev)
+        loop.init_state()
+        L = cfg.n_layers
+        if chunk:
+            fa.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            first = loop.train_step(batches[0])
+            times, losses = [], [first[0]]
+            for b in batches[1:]:
+                t0 = time.perf_counter()
+                losses.append(loop.train_step(b)[0])
+                times.append(time.perf_counter() - t0)
+            launches = dict(fa.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            want = {"flash_fwd": L * TRAIN_STEPS,
+                    "flash_dq": L * TRAIN_STEPS,
+                    "flash_dkv": L * TRAIN_STEPS}
+            check(launches == want, f"(h3) launches {launches} != {want}")
+            check(all(math.isfinite(x) for x in losses),
+                  f"(h3) non-finite loss {losses}")
+            rec = _train_record(torch, cfg, B, times, launches, peak)
+            rec["losses"] = losses
+        # One step on the same batch, from a fresh peak.
+        loop.train_step(batches[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loop.train_step(batches[0])
+        torch.cuda.synchronize()
+        peaks[chunk] = torch.cuda.max_memory_allocated() / 1e9
+        del loop
+    logits_gb = B * 2048 * 32_000 * 4 / 1e9
+    rec["peak_gb_step"] = {"loss_chunk": peaks[LOSS_CHUNK],
+                           "whole_logits": peaks[0]}
+    rec["f32_logits_gb"] = logits_gb
+    log(f"train (h3) base b={B} save_flash_min loss_chunk={LOSS_CHUNK}: "
+        f"step {rec['step_s']:.4f} s, {rec['tokens_per_s']:.0f} tokens/s, "
+        f"MFU {rec['mfu']:.4f}, peak {rec['peak_memory_gb']:.2f} GB, "
+        f"launches {json.dumps(rec['launches'])}; one step's peak "
+        f"{peaks[LOSS_CHUNK]:.2f} GB with loss_chunk, {peaks[0]:.2f} GB "
+        f"with whole logits (f32 logits alone {logits_gb:.2f} GB)")
+    return rec
+
+
+def remat_cost_probe(torch, dev):
+    """(h2b) what a remat policy costs a b8 step through LMTrainLoop, in
+    one process on the same batches: no remat, full remat ("nothing", no
+    dispatch mode), full remat through the selective-checkpoint dispatch
+    mode with an empty save set ("save_names:", the same recompute plus
+    a Python policy call per op) and save_flash_full. The four loops are
+    built and warmed first, then stepped in turns, forward then reverse
+    order, twice (the host drifts: turns keep a drift from reading as a
+    policy's cost); each policy's median of its 4 steps, and one step
+    each under torch.profiler (kernel time, kernels, busy share)."""
+    from kubeflow_tpu_torch.data.lm import get_lm_dataset
+    from kubeflow_tpu_torch.models.transformer import preset_config
+    from kubeflow_tpu_torch.parallel.lm_train import (
+        LMHyperParams, LMTrainLoop)
+
+    ds = get_lm_dataset("lm-small", seed=0)
+    batch = next(ds.batches(8))
+    policies = (None, "nothing", "save_names:", "save_flash_full")
+    loops = {}
+    for policy in policies:
+        kw = {} if policy is None else dict(remat=True, remat_policy=policy)
+        cfg = preset_config("base", vocab_size=ds.vocab_size,
+                            max_seq_len=ds.seq_len, **kw)
+        loops[policy] = LMTrainLoop(cfg, LMHyperParams(warmup_steps=1),
+                                    device=dev)
+        loops[policy].init_state()
+        loops[policy].train_step(batch)
+    times = {p: [] for p in policies}
+    for order in (policies, policies[::-1]) * 2:
+        for policy in order:
+            t0 = time.perf_counter()
+            loops[policy].train_step(batch)
+            times[policy].append(time.perf_counter() - t0)
+    out = {}
+    for policy in policies:
+        step = sorted(times[policy])[len(times[policy]) // 2]
+        prof = step_profile(torch, lambda: loops[policy].train_step(batch),
+                            1)
+        busy = prof.get("kernel_ms")
+        out[str(policy)] = {"step_s": step, "step_times": times[policy],
+                            "busy_share": busy / (step * 1e3) if busy
+                            else None, **prof}
+    del loops
+    torch.cuda.empty_cache()
+    log("train (h2b) b8 step by remat policy, in turns in one process: "
+        + "; ".join(f"{k} {v['step_s']:.4f} s (of "
+                    f"{[round(t, 4) for t in v['step_times']]}; kernels "
+                    f"{v.get('kernel_ms', 0):.1f} ms, busy "
+                    f"{v['busy_share'] or 0:.2f})" for k, v in out.items()))
+    return out
+
+
+def moe_aux_probe(torch, dev):
+    """(h4)'s aux term: the runner's initial weights (same preset, seed
+    and batch), one forward: CE, the layers' mean aux loss and the
+    weighted term the loss adds."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.data.lm import get_lm_dataset
+    from kubeflow_tpu_torch.models.transformer import (
+        TransformerLM, preset_config)
+    from kubeflow_tpu_torch.parallel.lm_train import LMHyperParams
+
+    ds = get_lm_dataset("lm-small", seed=0)
+    cfg = preset_config("base", vocab_size=ds.vocab_size,
+                        max_seq_len=ds.seq_len, n_experts=MOE_EXPERTS)
+    hp = LMHyperParams()
+    model = TransformerLM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(hp.seed))
+    tokens = torch.from_numpy(next(ds.batches(2))).to(dev, torch.long)
+    aux = []
+    with torch.no_grad():
+        logits = model(tokens[:, :-1], aux_out=aux)
+        ce = float(F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                   tokens[:, 1:].reshape(-1)))
+    mean_aux = float(torch.stack(aux).mean())
+    check(len(aux) == cfg.n_layers and math.isfinite(mean_aux),
+          f"(h4) aux {aux}")
+    del model, logits
+    torch.cuda.empty_cache()
+    return {"ce": ce, "aux_mean": mean_aux,
+            "aux_term": hp.moe_aux_weight * mean_aux}
+
+
+def training_phase(torch, fa, dev):
+    """(h0)-(h4): see the module docstring (5b)."""
+    rec = {"grads": remat_grads_phase(torch, fa, dev)}
+    rec["h1_full_remat"] = runner_rung(
+        torch, fa, "(h1)", ["--remat", "--remat-policy", "nothing"], 8, 2)
+    rec["h2_save_flash_full"] = runner_rung(
+        torch, fa, "(h2)", ["--remat", "--remat-policy", "save_flash_full"],
+        8, 1)
+    rec["h2b_remat_cost"] = remat_cost_probe(torch, dev)
+    rec["h3_save_flash_min_chunked"] = loss_chunk_rung(torch, fa, dev)
+    rec["h4_moe"] = runner_rung(
+        torch, fa, "(h4)", ["--experts", str(MOE_EXPERTS), "--remat",
+                            "--remat-policy", "save_flash_full"], 4, 1)
+    rec["h4_moe"]["aux"] = moe_aux_probe(torch, dev)
+    log(f"train (h4) aux: CE {rec['h4_moe']['aux']['ce']:.6f}, mean aux "
+        f"{rec['h4_moe']['aux']['aux_mean']:.6f}, term "
+        f"{rec['h4_moe']['aux']['aux_term']:.6f}")
+    return rec
+
+
+def http_json(url, payload=None, timeout=600, with_headers=False):
+    """GET (or POST ``payload``) and decode a JSON answer; text otherwise
+    (with the response headers too when ``with_headers``)."""
     data = None if payload is None else json.dumps(payload).encode()
     req = urllib.request.Request(url, data=data, headers={
         "Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=timeout) as r:
         body = r.read()
-        ctype = r.headers.get("Content-Type", "")
-    return json.loads(body) if ctype == "application/json" else body.decode()
+        headers = r.headers
+        ctype = headers.get("Content-Type", "")
+    out = json.loads(body) if ctype == "application/json" else body.decode()
+    return (out, headers) if with_headers else out
 
 
 def sse_tokens(url, payload, timeout=600):
@@ -921,6 +1320,8 @@ def engine_phase(torch, fa, export_dir, gap_cfg, prompts, dev):
         check(blk["slots"] == ENGINE_SLOTS, f"engine block {blk}")
         check(http_json(f"{url}/healthz") == {"status": "alive"},
               "healthz")
+        rec["flight"] = flight_http_checks(url, gen_url, one(prompts[0]),
+                                           len(prompts))
     finally:
         server.stop()
     eng = pred.engine
@@ -994,6 +1395,7 @@ def engine_phase(torch, fa, export_dir, gap_cfg, prompts, dev):
         chunk()
         chunk()
         check(int(eng._active.sum()) == ENGINE_SLOTS, "slots not active")
+        rec["flight"].update(flight_cost(torch, eng))
         chunk_ms = event_ms(torch, chunk, 5)
         enq = []
         for _ in range(3):
@@ -1044,6 +1446,81 @@ def engine_phase(torch, fa, export_dir, gap_cfg, prompts, dev):
         f"{json.dumps(prof)}; pool {eng.pool_bytes / 1e9:.3f} GB; peak "
         f"{rec['peak_memory_gb']:.2f} GB; flash launches {launches}")
     return rec
+
+def flight_http_checks(url, gen_url, body, wave):
+    """(h5) on the engine phase's server after its waves: /debug/flight
+    holds iteration records, /debug/requests the waves' requests with
+    admit ... first_token ... retire trails, and a :generate answer
+    carries the timing block and the X-Kfx-Timing header."""
+    flight = http_json(f"{url}/debug/flight")["models"]["lm"]
+    reqs = http_json(f"{url}/debug/requests")["models"]["lm"]["requests"]
+    check(len(flight["records"]) > 0, "(h5) no flight records")
+    check(len(reqs) >= wave, f"(h5) {len(reqs)} retired requests")
+    for r in reqs[-wave:]:
+        names = [e["ev"] for e in r["events"]]
+        check(names[0] == "admit" and names[-1] == "retire"
+              and "first_token" in names and r["error"] is None,
+              f"(h5) request trail {names}")
+    out, headers = http_json(gen_url, body, with_headers=True)
+    timing = out.get("timing") or [{}]
+    hdr = headers.get("X-Kfx-Timing") or ""
+    check(set(timing[0]) == {"queue_wait_s", "prefill_s", "decode_s",
+                             "stalled_s", "spec_accept"},
+          f"(h5) timing block {out.get('timing')}")
+    check("decode_s=" in hdr, f"(h5) X-Kfx-Timing {hdr!r}")
+    rec = {"records": len(flight["records"]),
+           "ring_size": flight["ring_size"], "requests": len(reqs),
+           "timing": timing[0], "header": hdr}
+    log(f"flight (h5) /debug/flight {rec['records']} records, "
+        f"/debug/requests {rec['requests']} requests (trails admit .. "
+        f"first_token .. retire), X-Kfx-Timing: {hdr}")
+    return rec
+
+
+def flight_cost(torch, eng):
+    """(h5) on the stopped engine with 8 active slots: the iteration (a
+    decode chunk through _decode_once, which reads its result back) with
+    the recorder off (``flight`` None, what KFX_FLIGHT=0 builds) and on
+    (its hooks plus _record_flight), in turns off, on, on, off; the
+    record alone; and the record run under CUDA's sync-debug mode set to
+    "error", which raises if it synchronises the device."""
+    recorder = eng.flight
+    check(recorder is not None, "(h5) the engine has no flight recorder")
+
+    def iteration(on):
+        eng.flight = recorder if on else None
+        try:
+            eng._decode_once()
+            if on:
+                eng._record_flight()
+        finally:
+            eng.flight = recorder
+
+    iteration(True)   # warm
+    times = {False: [], True: []}
+    for on in (False, True, True, False):
+        times[on].append(event_ms(torch, lambda: iteration(on), 3))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._record_flight()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    rec_us = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        eng._record_flight()
+        rec_us.append((time.perf_counter() - t0) * 1e6)
+    check(int(eng._active.sum()) == ENGINE_SLOTS, "(h5) slots retired")
+    off, on = (sum(times[k]) / 2 for k in (False, True))
+    out = {"chunk_ms_flight_off": times[False], "chunk_ms_flight_on":
+           times[True], "record_us": sorted(rec_us)[25],
+           "record_syncs": 0}
+    log(f"flight (h5) iteration at {ENGINE_SLOTS} slots: recorder off "
+        f"{times[False]} ms, on {times[True]} ms (means {off:.2f} vs "
+        f"{on:.2f}); _record_flight {out['record_us']:.1f} us, no device "
+        f"sync (sync-debug mode 'error')")
+    return out
+
 
 def window_logits(torch, eng, prompts, toks, index):
     """On the stopped engine ``eng``: each prompt prefilled through pages
@@ -1431,6 +1908,10 @@ def main() -> int:
     launches = main_path_phase(torch, fa, export_dir)
     torch.cuda.empty_cache()
 
+    # 5b. training options: remat policies, chunked CE, MoE
+    training = training_phase(torch, fa, dev)
+    torch.cuda.empty_cache()
+
     # 6. serving
     from kubeflow_tpu_torch.models.transformer import preset_config
 
@@ -1475,6 +1956,7 @@ def main() -> int:
     log(json.dumps({"serving": serving}))
     log(json.dumps({"engine": engine}))
     log(json.dumps({"spec": spec}))
+    log(json.dumps({"training": training}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,10 @@ The reference's ``TransformerLM`` params (under ``nn.scan``) are::
     layers/ln1/scale, layers/ln2/scale    [L, d]
     layers/mlp/wi/kernel                  [L, d, 2F]
     layers/mlp/wo/kernel                  [L, F, d]
+      or, with experts (MoEFFN):
+    layers/moe/gate/kernel                [L, d, E]
+    layers/moe/wi                         [L, E, d, 2F]
+    layers/moe/wo                         [L, E, F, d]
     ln_f/scale                            [d]
     lm_head/kernel                        [d, V]
 
@@ -32,7 +36,8 @@ _TOP = {
     ("ln_f", "scale"): "ln_f.scale",
     ("lm_head", "kernel"): "lm_head.kernel",
 }
-# Leaf paths inside the stack (under "layers"): flax path -> key suffix.
+# Leaf paths inside the stack (under "layers"): flax path -> key suffix,
+# for the attention and norms, then for each kind of FFN.
 _LAYER = {
     ("attn", "query", "kernel"): "attn.query.kernel",
     ("attn", "key", "kernel"): "attn.key.kernel",
@@ -40,9 +45,20 @@ _LAYER = {
     ("attn", "out", "kernel"): "attn.out.kernel",
     ("ln1", "scale"): "ln1.scale",
     ("ln2", "scale"): "ln2.scale",
+}
+_DENSE_FFN = {
     ("mlp", "wi", "kernel"): "mlp.wi.kernel",
     ("mlp", "wo", "kernel"): "mlp.wo.kernel",
 }
+_MOE_FFN = {
+    ("moe", "gate", "kernel"): "moe.gate.kernel",
+    ("moe", "wi"): "moe.wi",
+    ("moe", "wo"): "moe.wo",
+}
+
+
+def _layer_leaves(moe: bool) -> Dict[tuple, str]:
+    return {**_LAYER, **(_MOE_FFN if moe else _DENSE_FFN)}
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -76,17 +92,18 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     if set(tree) == {"params"}:
         tree = tree["params"]
     flat = _flatten(tree)
-    want = set(_TOP) | {("layers",) + p for p in _LAYER}
+    layer = _layer_leaves(("layers", "moe", "wi") in flat)
+    want = set(_TOP) | {("layers",) + p for p in layer}
     missing = sorted("/".join(p) for p in want - set(flat))
     extra = sorted("/".join(p) for p in set(flat) - want)
     if missing or extra:
-        raise KeyError(f"param tree does not match the dense TransformerLM: "
+        raise KeyError(f"param tree does not match the TransformerLM: "
                        f"missing {missing}, unexpected {extra}")
     out = {key: _tensor(flat[path]) for path, key in _TOP.items()}
-    depths = {flat[("layers",) + p].shape[0] for p in _LAYER}
+    depths = {flat[("layers",) + p].shape[0] for p in layer}
     if len(depths) != 1:
         raise ValueError(f"stacked layer leaves disagree on depth: {depths}")
-    for path, suffix in _LAYER.items():
+    for path, suffix in layer.items():
         stacked = flat[("layers",) + path]
         for i in range(stacked.shape[0]):
             out[f"layers.{i}.{suffix}"] = _tensor(stacked[i])
@@ -101,17 +118,18 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
     depth = 0
     while f"layers.{depth}.{_LAYER[('ln1', 'scale')]}" in sd:
         depth += 1
+    layer = _layer_leaves(f"layers.0.{_MOE_FFN[('moe', 'wi')]}" in sd)
     want = set(_TOP.values()) | {f"layers.{i}.{s}" for i in range(depth)
-                                 for s in _LAYER.values()}
+                                 for s in layer.values()}
     missing, extra = sorted(want - set(sd)), sorted(set(sd) - want)
     if missing or extra or depth == 0:
-        raise KeyError(f"state_dict does not match the dense TransformerLM: "
+        raise KeyError(f"state_dict does not match the TransformerLM: "
                        f"missing {missing}, unexpected {extra}, "
                        f"depth {depth}")
     tree: dict = {}
     for path, key in _TOP.items():
         _set(tree, path, sd[key])
-    for path, suffix in _LAYER.items():
+    for path, suffix in layer.items():
         _set(tree, ("layers",) + path,
              np.stack([sd[f"layers.{i}.{suffix}"] for i in range(depth)]))
     return tree

@@ -1,7 +1,7 @@
 """Decoder-only transformer LM — PyTorch port of
-``kubeflow_tpu/models/transformer.py`` (dense training path, dense
-KV-cache decode, the engine's paged KV-cache decode and the
-layer-truncated speculative draft).
+``kubeflow_tpu/models/transformer.py`` (training with or without remat,
+dense or MoE FFN, dense KV-cache decode, the engine's paged KV-cache
+decode and the layer-truncated speculative draft).
 
 Same math and the same precision rules as the flax reference:
 
@@ -17,6 +17,14 @@ Same math and the same precision rules as the flax reference:
     stack.
 
 Layers are an ``nn.ModuleList`` (eager PyTorch has no use for a scan).
+``cfg.remat`` runs each layer under ``torch.utils.checkpoint`` (the
+reference's ``nn.remat``) with the reference's save policies
+(``REMAT_POLICIES``): the reference's ``checkpoint_name`` tags become
+name scopes (``remat_name``) around the ops that produce the tagged
+tensors, and a selective-checkpoint policy keeps the outputs of those ops
+(a matrix product, or the ``kfx::flash_fwd`` op for ``flash_o`` /
+``flash_lse``); nothing is copied to tag it. MoE layers (``MoEFFN``)
+return their Switch aux loss through ``forward(..., aux_out=[])``.
 Decode mode (``decode=True``) keeps the reference's caches as explicit
 state the caller allocates and passes to ``forward`` instead of a flax
 "cache" collection: the dense ``KVCache`` (``kv_page_size == 0``, the
@@ -29,13 +37,17 @@ norm scales 1.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from ..ops import flash_attention as flash_ops
 
@@ -43,7 +55,6 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 # Fields this slice does not implement -> the ROADMAP item that brings them.
 _NOT_IN_SLICE = (
-    ("n_experts", lambda c: c.n_experts > 0, "Queue A 4, MoE"),
     ("cp", lambda c: c.cp > 1, "Queue A 6, multi-GPU"),
     ("sp", lambda c: c.sp, "Queue A 6, multi-GPU"),
     ("quant", lambda c: bool(c.quant),
@@ -52,9 +63,6 @@ _NOT_IN_SLICE = (
      "Queue A 5, the engine (int8 weights/KV)"),
     ("lora_rank", lambda c: c.lora_rank > 0, "Queue A 5, the engine (LoRA)"),
 )
-# ``remat`` and ``loss_chunk`` only matter to training, so they are refused
-# where training would use them (parallel/lm_train.py), not here: every
-# dense export loads and serves whatever it was trained with.
 
 
 def _as_dtype(x: Any) -> torch.dtype:
@@ -155,8 +163,8 @@ class TransformerConfig:
             if used(self):
                 raise NotImplementedError(
                     f"TransformerConfig.{name}={getattr(self, name)!r} is not "
-                    f"ported yet (ROADMAP.md, {item}); the port has dense "
-                    "training and dense one-shot decode")
+                    f"ported yet (ROADMAP.md, {item}); the port has "
+                    "single-device training and decode")
 
     @property
     def qkv_features(self) -> int:
@@ -262,6 +270,92 @@ class PagedKVCache:
                    for t in (self.key, self.value, self.pos))
 
 
+# ---------------------------------------------------------------------------
+# Remat: the reference's checkpoint_name tags and save policies
+# ---------------------------------------------------------------------------
+#
+# A tag names the tensor an op produces. The reference wraps the tensor
+# (``checkpoint_name(y, "attn_q")``); here the op runs inside
+# ``remat_name("attn_q")`` and the selective-checkpoint policy, which
+# sees every op as the dispatcher runs it, keeps the output of the
+# scope's matrix product. The outputs of the flash forward come out of
+# one ``kfx::flash_fwd`` launch, so they are kept together, when both
+# ``flash_o`` and ``flash_lse`` are in the save set (the reference keeps
+# either alone, but then re-runs the kernel for the other).
+
+_REMAT_NAME: "contextvars.ContextVar[Tuple[str, ...]]" = \
+    contextvars.ContextVar("kfx_remat_name", default=())
+
+_aten = torch.ops.aten
+# Matrix products as the dispatcher sees them (matmul and einsum lower to
+# these): the counterpart of XLA's dot_general.
+_MATMULS = frozenset((_aten.mm.default, _aten.addmm.default,
+                      _aten.bmm.default, _aten.baddbmm.default))
+_NO_BATCH_MATMULS = frozenset((_aten.mm.default, _aten.addmm.default))
+
+
+@contextlib.contextmanager
+def remat_name(*names: str):
+    """Tag the tensors the enclosed matrix product (or flash forward)
+    produces with ``names``, for the remat save policies."""
+    tok = _REMAT_NAME.set(names)
+    try:
+        yield
+    finally:
+        _REMAT_NAME.reset(tok)
+
+
+def _save_ops(ops) -> Callable:
+    def policy(ctx, op, *args, **kwargs):
+        return (_ckpt.CheckpointPolicy.MUST_SAVE if op in ops
+                else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+    return policy
+
+
+def _save_names(*names: str) -> Callable:
+    keep = frozenset(names)
+
+    def policy(ctx, op, *args, **kwargs):
+        tags = _REMAT_NAME.get()
+        if tags and keep.issuperset(tags) and (
+                op in _MATMULS or op == flash_ops.FLASH_FWD_OP):
+            return _ckpt.CheckpointPolicy.MUST_SAVE
+        return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
+
+
+# The reference's policies (models/transformer.py, TransformerLM), with
+# the same save sets; "nothing" is full remat.
+REMAT_POLICIES: Dict[str, Optional[Callable]] = {
+    "nothing": None,
+    "dots": _save_ops(_MATMULS),
+    "dots_no_batch": _save_ops(_NO_BATCH_MATMULS),
+    "save_dense": _save_names(
+        "attn_q", "attn_k", "attn_v", "attn_out", "mlp_wi", "mlp_wo",
+        "moe_wi", "moe_wo"),
+    "save_flash": _save_names(
+        "attn_q", "attn_k", "attn_v", "flash_o", "flash_lse"),
+    "save_flash_min": _save_names("flash_o", "flash_lse"),
+    "save_flash_full": _save_names(
+        "attn_q", "attn_k", "attn_v", "attn_out", "mlp_wo", "flash_o",
+        "flash_lse"),
+}
+
+
+def remat_policy(name: str) -> Optional[Callable]:
+    """The selective-checkpoint policy of ``name`` (None = full remat);
+    ``save_names:a,b,...`` keeps an ad-hoc set. Raises the reference's
+    ValueError for an unknown name."""
+    if name.startswith("save_names:"):
+        return _save_names(*(n for n in name.split(":", 1)[1].split(",")
+                             if n))
+    try:
+        return REMAT_POLICIES[name]
+    except KeyError:
+        raise ValueError(f"unknown remat_policy {name!r} "
+                         f"(have {sorted(REMAT_POLICIES)})") from None
+
+
 def flash_window_ok(cfg: TransformerConfig, seq_len: int) -> bool:
     """Whether ``seq_len`` falls in the configured attn_impl="auto"
     flash window (flash_max_seq <= 0 means unbounded above)."""
@@ -284,12 +378,15 @@ class Dense(nn.Module):
     shape ``in_shape + out_shape`` contracted over the input's trailing
     ``len(in_shape)`` dims, both operands cast to ``dtype``."""
 
-    def __init__(self, in_shape, out_shape, cfg: TransformerConfig):
+    def __init__(self, in_shape, out_shape, cfg: TransformerConfig,
+                 dtype: Optional[torch.dtype] = None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
-        self.dtype = cfg.dtype
+        self.dtype = dtype or cfg.dtype
         self.kernel = nn.Parameter(torch.empty(
-            *self.in_shape, *self.out_shape, dtype=cfg.param_dtype))
+            *self.in_shape, *self.out_shape,
+            dtype=param_dtype or cfg.param_dtype))
 
     def reset_parameters(self, generator=None) -> None:
         with torch.no_grad():
@@ -355,9 +452,13 @@ class Attention(nn.Module):
                 ) -> torch.Tensor:
         cfg = self.cfg
         B, S, _ = x.shape
-        q = self.query(x)
-        k = self.key(x)
-        v = self.value(x)
+        tag = _tagger(cfg)
+        with tag("attn_q"):
+            q = self.query(x)
+        with tag("attn_k"):
+            k = self.key(x)
+        with tag("attn_v"):
+            v = self.value(x)
         pos = torch.clamp(positions, min=0)
         q = rope(q, pos)
         k = rope(k, pos)
@@ -368,7 +469,12 @@ class Attention(nn.Module):
         elif kv is not None:
             out = self._decode_attend(q, k, v, positions, kv, cursor)
         elif self._use_flash(S, x.device):
-            out = flash_ops.flash_attention(q, k, v)
+            # The forward op's outputs carry the flash_o / flash_lse tags,
+            # so a save_flash* policy keeps them and the backward runs only
+            # the two backward kernels.
+            with tag("flash_o", "flash_lse"):
+                o, lse = flash_ops.flash_attention_fwd(q, k, v)
+            out = flash_ops.flash_attention_apply(q, k, v, o, lse)
         else:
             # Dense causal attention: scores in the compute dtype, masked
             # with the dtype's min, softmax in f32 (the reference's path).
@@ -378,7 +484,8 @@ class Attention(nn.Module):
             scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
             probs = torch.softmax(scores.to(torch.float32), -1)
             out = torch.einsum("bhqk,bkhd->bqhd", probs.to(cfg.dtype), v)
-        return self.out(out)
+        with tag("attn_out"):
+            return self.out(out)
 
     def _decode_attend(self, q, k, v, positions, kv: LayerKV,
                        cursor: torch.Tensor) -> torch.Tensor:
@@ -449,36 +556,164 @@ class Attention(nn.Module):
         return torch.einsum("bhqk,bkhd->bqhd", probs.to(self.cfg.dtype), gv)
 
 
+def _tagger(cfg: TransformerConfig) -> Callable:
+    """``remat_name`` when the model rematerialises, else a no-op scope
+    (the tags cost nothing on the decode path)."""
+    return remat_name if cfg.remat else _no_scope
+
+
+def _no_scope(*names: str):
+    return contextlib.nullcontext()
+
+
 class DenseFFN(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
+        self.cfg = cfg
         self.wi = Dense((cfg.d_model,), (2 * cfg.d_ff,), cfg)
         self.wo = Dense((cfg.d_ff,), (cfg.d_model,), cfg)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        gate, up = torch.chunk(self.wi(x), 2, dim=-1)
-        return self.wo(F.silu(gate) * up)  # SwiGLU
+        tag = _tagger(self.cfg)
+        with tag("mlp_wi"):
+            h = self.wi(x)
+        gate, up = torch.chunk(h, 2, dim=-1)
+        with tag("mlp_wo"):
+            return self.wo(F.silu(gate) * up)  # SwiGLU
+
+
+class MoEFFN(nn.Module):
+    """Top-k routed experts (the reference's ``MoEFFN``): an f32 router
+    ``gate``, expert kernels ``wi`` [E, d, 2F] and ``wo`` [E, F, d] in
+    ``param_dtype``, top-k routing with renormalised weights, and dispatch
+    and combine as einsums against one-hot routing tensors.
+
+    ``moe_dispatch="capacity"`` is GShard slotting: each batch row is a
+    routing group, every expert owns C = clamp(ceil(capacity_factor * K *
+    S / E), 1, S) slots a group, tokens claim slots in sequence order by a
+    cumsum over the k-major-last flattening (every first choice before any
+    second choice), and tokens past capacity are dropped (their FFN output
+    is 0). k is folded before the slot one-hot, so the largest tensor is
+    [B, S, E, C]. With C == S nothing drops and it equals ``"dense"``, the
+    masked exact oracle. ``forward`` returns (y, the Switch aux loss
+    E * sum(me * ce))."""
+
+    def __init__(self, cfg: TransformerConfig):
+        super().__init__()
+        self.cfg = cfg
+        E, d, F_ = cfg.n_experts, cfg.d_model, cfg.d_ff
+        self.gate = Dense((d,), (E,), cfg, dtype=torch.float32,
+                          param_dtype=torch.float32)
+        self.wi = nn.Parameter(torch.empty(E, d, 2 * F_,
+                                           dtype=cfg.param_dtype))
+        self.wo = nn.Parameter(torch.empty(E, F_, d, dtype=cfg.param_dtype))
+
+    def reset_parameters(self, generator=None) -> None:
+        # flax's lecun_normal on [E, in, out] counts the leading axis into
+        # the fan-in (receptive field E).
+        E = self.cfg.n_experts
+        with torch.no_grad():
+            _lecun_normal_(self.wi, E * self.wi.shape[1], generator)
+            _lecun_normal_(self.wo, E * self.wo.shape[1], generator)
+
+    def _experts(self, xe: torch.Tensor) -> torch.Tensor:
+        """xe: [E, B, T, d] per-expert token buffers -> [E, B, T, d]."""
+        cfg = self.cfg
+        tag = _tagger(cfg)
+        with tag("moe_wi"):
+            h = torch.einsum("ebtd,edf->ebtf", xe, self.wi.to(cfg.dtype))
+        gate_h, up = torch.chunk(h, 2, dim=-1)
+        with tag("moe_wo"):
+            return torch.einsum("ebtf,efd->ebtd", F.silu(gate_h) * up,
+                                self.wo.to(cfg.dtype))
+
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        cfg = self.cfg
+        B, S, _ = x.shape
+        E, K, dt = cfg.n_experts, cfg.expert_top_k, cfg.dtype
+        probs = torch.softmax(self.gate(x.to(torch.float32)), -1)
+        weights, idx = torch.topk(probs, K, dim=-1)
+        weights = weights / weights.sum(-1, keepdim=True)
+        one_hot = F.one_hot(idx, E)                       # [B, S, K, E]
+        if cfg.moe_dispatch == "capacity":
+            cap = max(1, min(int(math.ceil(cfg.capacity_factor * K * S / E)),
+                             S))
+            ohp = one_hot.transpose(1, 2).reshape(B, K * S, E)
+            pos = torch.cumsum(ohp, 1) - ohp              # [B, K*S, E]
+            keep = (pos < cap) * ohp
+            pos = pos.reshape(B, K, S, E).transpose(1, 2)
+            keep = keep.reshape(B, K, S, E).transpose(1, 2)
+            # A (token, expert) pair is claimed by at most one k (top-k
+            # indices are distinct), so k folds before the slot one-hot.
+            pos_se = (pos * keep).sum(2)                  # [B, S, E]
+            keep_se = keep.sum(2)                         # 0/1 [B, S, E]
+            w_se = (weights[..., None] * keep).sum(2)
+            dispatch = F.one_hot(pos_se, cap).to(dt) \
+                * keep_se.to(dt)[..., None]               # [B, S, E, C]
+            combine = w_se.to(dt)[..., None] * dispatch
+            xe = torch.einsum("bsd,bsec->ebcd", x, dispatch)
+            y = torch.einsum("ebcd,bsec->bsd", self._experts(xe), combine)
+        elif cfg.moe_dispatch == "dense":
+            # Every expert sees every token, masked: exact at any capacity,
+            # E times the token FLOPs (the numerics oracle).
+            combine = torch.einsum("bsk,bske->bse", weights.to(dt),
+                                   one_hot.to(dt))
+            dispatch = (combine > 0).to(dt)
+            xe = torch.einsum("bsd,bse->ebsd", x, dispatch)
+            y = torch.einsum("ebsd,bse->bsd", self._experts(xe), combine)
+        else:
+            raise ValueError(
+                f"unknown moe_dispatch {cfg.moe_dispatch!r} "
+                "(expected 'capacity' or 'dense')")
+        # Load-balancing auxiliary loss (Switch-style) over the first
+        # choices.
+        me = one_hot[..., 0, :].to(torch.float32).mean((0, 1))
+        ce = probs.mean((0, 1))
+        return y, E * torch.sum(me * ce)
 
 
 class Block(nn.Module):
-    """One pre-LN decoder layer."""
+    """One pre-LN decoder layer: attention, then the dense SwiGLU FFN
+    (``mlp``) or, with ``n_experts > 0``, the routed experts (``moe``),
+    whose aux loss is appended to ``aux_out`` when one is given."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.ln1 = RMSNorm(cfg.d_model, cfg.dtype)
         self.attn = Attention(cfg)
         self.ln2 = RMSNorm(cfg.d_model, cfg.dtype)
-        self.mlp = DenseFFN(cfg)
+        if cfg.n_experts > 0:
+            self.moe = MoEFFN(cfg)
+        else:
+            self.mlp = DenseFFN(cfg)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 kv: Optional[LayerKV] = None,
                 cursor: Optional[torch.Tensor] = None,
                 block_tables: Optional[torch.Tensor] = None,
-                write_locations: Optional[torch.Tensor] = None
+                write_locations: Optional[torch.Tensor] = None,
+                aux_out: Optional[List[torch.Tensor]] = None
                 ) -> torch.Tensor:
         x = x + self.attn(self.ln1(x), positions, kv, cursor, block_tables,
                           write_locations)
-        return x + self.mlp(self.ln2(x))
+        h = self.ln2(x)
+        if hasattr(self, "moe"):
+            y, aux = self.moe(h)
+            if aux_out is not None:
+                aux_out.append(aux)
+            return x + y
+        return x + self.mlp(h)
+
+
+def _layer_with_aux(layer: Block, x: torch.Tensor, positions: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One training-path layer call returning (x, its MoE aux or None):
+    the unit ``torch.utils.checkpoint`` re-runs, so a recompute fills a
+    list of its own, never the caller's."""
+    aux: List[torch.Tensor] = []
+    x = layer(x, positions, aux_out=aux)
+    return x, (aux[0] if aux else None)
 
 
 class Embed(nn.Module):
@@ -508,6 +743,14 @@ class TransformerLM(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
+        # torch.utils.checkpoint's arguments for one remat'd layer; an
+        # unknown policy raises here, as the reference's does at apply.
+        self._remat_kw: Dict[str, Any] = {}
+        if cfg.remat:
+            policy = remat_policy(cfg.remat_policy)
+            if policy is not None:
+                self._remat_kw["context_fn"] = functools.partial(
+                    _ckpt.create_selective_checkpoint_contexts, policy)
         # Params are allocated on ``device`` directly (a base-size model
         # would otherwise pass through host memory first).
         with torch.device(device if device is not None else "cpu"):
@@ -530,14 +773,22 @@ class TransformerLM(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 cache: Union[KVCache, PagedKVCache, None] = None,
                 block_tables: Optional[torch.Tensor] = None,
-                write_locations: Optional[torch.Tensor] = None
+                write_locations: Optional[torch.Tensor] = None,
+                return_hidden: bool = False,
+                aux_out: Optional[List[torch.Tensor]] = None
                 ) -> torch.Tensor:
         """``cache`` is required with ``cfg.decode`` and refused without
         it: a decode model always reads and extends its cache, as the
         reference's does. ``kv_page_size > 0`` takes a ``PagedKVCache``
         with ``block_tables`` [B, L/P] int32 and optional
         ``write_locations`` [B, S] (see ``Attention._paged_attend``);
-        otherwise a dense ``KVCache``."""
+        otherwise a dense ``KVCache``.
+
+        ``return_hidden`` returns ``ln_f(x)`` [B, S, d] before the
+        ``lm_head`` (chunked cross-entropy applies the head per chunk).
+        ``aux_out``, a list, receives each MoE layer's aux loss. Without a
+        cache, with ``cfg.remat`` and grad enabled, each layer runs under
+        ``torch.utils.checkpoint`` with the ``remat_policy``."""
         cfg = self.cfg
         if cfg.decode != (cache is not None):
             raise ValueError("a KVCache is passed exactly when cfg.decode "
@@ -561,9 +812,19 @@ class TransformerLM(nn.Module):
             positions = torch.arange(S, device=tokens.device,
                                      dtype=torch.int32).expand(tokens.shape)
         layers_kv = cache.layers if cache is not None else None
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             if cache is None:
-                x = layer(x, positions)
+                if remat:
+                    # No randomness in a layer: no RNG state to keep.
+                    x, aux = _ckpt.checkpoint(
+                        _layer_with_aux, layer, x, positions,
+                        use_reentrant=False, preserve_rng_state=False,
+                        **self._remat_kw)
+                else:
+                    x, aux = _layer_with_aux(layer, x, positions)
+                if aux is not None and aux_out is not None:
+                    aux_out.append(aux)
             elif paged:
                 x = layer(x, positions, layers_kv[i], None, block_tables,
                           write_locations)
@@ -572,7 +833,10 @@ class TransformerLM(nn.Module):
         if isinstance(cache, KVCache):
             cache.cursor += S
             cache.length += S
-        return self.lm_head(self.ln_f(x)).to(torch.float32)
+        x = self.ln_f(x)
+        if return_hidden:
+            return x
+        return self.lm_head(x).to(torch.float32)
 
 
 def truncate_layers(model: TransformerLM, n_layers: int,
@@ -592,6 +856,7 @@ def truncate_layers(model: TransformerLM, n_layers: int,
     draft = TransformerLM.__new__(TransformerLM)
     nn.Module.__init__(draft)
     draft.cfg = cfg
+    draft._remat_kw = model._remat_kw
     draft.embed = model.embed
     draft.layers = nn.ModuleList(model.layers[:n_layers])
     draft.ln_f = model.ln_f

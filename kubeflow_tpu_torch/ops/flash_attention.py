@@ -30,11 +30,20 @@ the f32 kernels' 1e-4 bound.
 ``LAUNCHES`` counts kernel launches per kernel (plain-version calls do
 not count), so a run can show its main path went through the kernels.
 
-The reference splits the op into ``flash_attention_fwd`` +
-``flash_attention_apply`` so remat policies can save (o, lse) and skip
-the forward in the backward. This port has no remat yet, so one
-``torch.autograd.Function`` takes the place of ``_flash_apply``; it saves
-exactly (q, k, v, o, lse), the reference's residuals.
+The op is split in two, as in the reference, so a remat policy can save
+the forward kernel's outputs instead of re-running it in the backward:
+
+    o, lse = flash_attention_fwd(q, k, v)   # kfx::flash_fwd, no grad path
+    out = flash_attention_apply(q, k, v, o, lse)
+
+``flash_attention_fwd`` is a ``torch.library`` custom op (``kfx::flash_fwd``:
+the kernel launch on CUDA, ``_fwd_reference`` on the CPU), so the
+dispatcher, and with it a selective-checkpoint policy
+(``models/transformer.py``), sees the forward as one op whose outputs it
+can keep. ``flash_attention_apply`` returns ``o`` and owns the backward:
+its residuals are exactly its inputs, so a policy that keeps (o, lse)
+runs only the dQ and dK/dV kernels in the backward, while full remat
+re-runs the forward op to rebuild them.
 """
 
 from __future__ import annotations
@@ -288,15 +297,41 @@ def _dkv(q, k, v, do, lse, delta) -> Tuple[torch.Tensor, torch.Tensor]:
 # ---------------------------------------------------------------------------
 # Public op
 # ---------------------------------------------------------------------------
+#
+# The forward is a custom op so that autograd's saved-tensor machinery and
+# torch.utils.checkpoint's selective policies see it: a ctypes launch alone
+# is invisible to the dispatcher, and a recompute would re-launch it
+# whatever the policy said.
 
-class _FlashAttention(torch.autograd.Function):
-    """Takes the place of the reference's ``_flash_apply`` custom VJP:
-    residuals are exactly (q, k, v, o, lse); the backward runs the dQ and
-    the dK/dV kernels against them."""
+@torch.library.custom_op(
+    "kfx::flash_fwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v) -> (Tensor, Tensor)")
+def _flash_fwd_op(q, k, v):
+    return _fwd(q, k, v)
+
+
+@_flash_fwd_op.register_kernel("cpu")
+def _flash_fwd_op_cpu(q, k, v):
+    return _fwd_reference(q, k, v)
+
+
+@_flash_fwd_op.register_fake
+def _flash_fwd_op_fake(q, k, v):
+    return (torch.empty_like(q),
+            q.new_empty(*q.shape[:3], 1, dtype=torch.float32))
+
+
+FLASH_FWD_OP = torch.ops.kfx.flash_fwd.default
+
+
+class _FlashApply(torch.autograd.Function):
+    """The reference's ``_flash_apply`` custom VJP: returns ``o``; its
+    residuals are exactly its inputs (q, k, v, o, lse), and the backward
+    runs the dQ and dK/dV kernels against them. (o, lse) are constants of
+    the differentiated path: they get no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
-        o, lse = _fwd(q, k, v)
+    def forward(ctx, q, k, v, o, lse):
         ctx.save_for_backward(q, k, v, o, lse)
         return o
 
@@ -307,19 +342,30 @@ class _FlashAttention(torch.autograd.Function):
         delta = torch.sum(do.float() * o.float(), dim=-1, keepdim=True)
         dq = _dq(q, k, v, do, lse, delta)
         dk, dv = _dkv(q, k, v, do, lse, delta)
-        return dq, dk, dv
+        return dq, dk, dv, None, None
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward only: [B, S, H, D] -> (o [B, S, H, D], lse [B, S, H, 1]
-    f32). No gradient flows through this call."""
-    with torch.no_grad():
-        return _fwd(q.detach(), k.detach(), v.detach())
+    f32), through the ``kfx::flash_fwd`` op. No gradient flows through
+    this call: pair it with ``flash_attention_apply``."""
+    _on_cuda(q)  # a tensor on neither device is refused, not faked
+    return _flash_fwd_op(q.detach(), k.detach(), v.detach())
+
+
+def flash_attention_apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          o: torch.Tensor, lse: torch.Tensor
+                          ) -> torch.Tensor:
+    """Attention output given (o, lse) from ``flash_attention_fwd``:
+    numerically ``o``; gradients to q/k/v run the backward kernels
+    against the given residuals."""
+    return _FlashApply.apply(q, k, v, o, lse)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                     ) -> torch.Tensor:
     """Causal attention, [B, S, H, D] in/out, differentiable. q must be
     pre-scaled by 1/sqrt(D) (the model's convention)."""
-    return _FlashAttention.apply(q, k, v)
+    o, lse = flash_attention_fwd(q, k, v)
+    return flash_attention_apply(q, k, v, o, lse)

@@ -8,6 +8,12 @@ warmup, max(total, warmup + 1))`` with end value 0. optax evaluates the
 schedule at the count *before* the update, so the first update uses
 ``lr = schedule(0) = 0``; ``AdamW`` keeps that convention.
 
+The loss is the reference's: f32 cross-entropy over the whole logits,
+or per ``cfg.loss_chunk``-token chunk (``_chunked_ce``, each chunk body
+checkpointed, so the [B, S, vocab] f32 logits never exist whole), plus
+``moe_aux_weight`` times the mean of the MoE layers' Switch aux losses.
+``cfg.remat`` rematerialises each layer (models/transformer.py).
+
 The port updates params and optimizer state in place (the reference
 returns a new state pytree). Meshes (dp/fsdp/tp/sp/cp/ep/pp) come in a
 later slice; this loop owns one device.
@@ -23,6 +29,7 @@ from typing import Dict, Iterable, List, Optional, Tuple, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 from ..device import resolve_device
 from ..models.transformer import TransformerConfig, TransformerLM
@@ -35,6 +42,7 @@ class LMHyperParams:
     total_steps: int = 10_000
     weight_decay: float = 0.1
     grad_clip: float = 1.0
+    moe_aux_weight: float = 0.01
     seed: int = 0
 
 
@@ -103,15 +111,6 @@ class LMTrainLoop:
     def __init__(self, cfg: TransformerConfig,
                  hp: Optional[LMHyperParams] = None,
                  device: Union[str, torch.device] = "cuda"):
-        for name, item in (("remat", "Queue A 2, remat with the fwd/apply "
-                                     "split"),
-                           ("loss_chunk", "Queue A 3, chunked "
-                                          "cross-entropy")):
-            if getattr(cfg, name):
-                raise NotImplementedError(
-                    f"training with TransformerConfig.{name}="
-                    f"{getattr(cfg, name)!r} is not ported yet "
-                    f"(ROADMAP.md, {item})")
         self.cfg = cfg
         self.hp = hp or LMHyperParams()
         self.device = resolve_device(device)
@@ -140,15 +139,65 @@ class LMTrainLoop:
         return self.model
 
     # -- loss ---------------------------------------------------------------
+    def _chunk_ce(self, h_c: torch.Tensor, t_c: torch.Tensor,
+                  kernel: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One chunk's lm_head (in ``cfg.dtype``, the Dense it replaces)
+        and f32 CE: (sum of CE, number of hits)."""
+        dt = self.cfg.dtype
+        logits = torch.matmul(h_c.to(dt), kernel.to(dt)).to(torch.float32)
+        ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                             t_c.reshape(-1), reduction="sum")
+        hits = (logits.argmax(-1) == t_c).to(torch.float32).sum()
+        return ce, hits
+
+    def _chunked_ce(self, hidden: torch.Tensor, targets: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The reference's ``_chunked_ce``: lm_head + CE per
+        ``cfg.loss_chunk``-token chunk, each chunk checkpointed, so only
+        one [B, C, vocab] f32 transient (and its grad) exists at a time.
+        Returns (mean CE, accuracy); the lm_head grad flows through the
+        kernel used here."""
+        C = self.cfg.loss_chunk
+        B, S, _ = hidden.shape
+        if S % C:
+            raise ValueError(f"seq len {S} not divisible by "
+                             f"loss_chunk={C}")
+        kernel = self.model.lm_head.kernel
+        ce_sum = hit_sum = 0.0
+        for i in range(S // C):
+            h_c, t_c = hidden[:, i * C:(i + 1) * C], \
+                targets[:, i * C:(i + 1) * C]
+            if torch.is_grad_enabled():
+                ce, hits = _ckpt.checkpoint(
+                    self._chunk_ce, h_c, t_c, kernel, use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                ce, hits = self._chunk_ce(h_c, t_c, kernel)
+            ce_sum = ce_sum + ce
+            hit_sum = hit_sum + hits
+        return ce_sum / (B * S), hit_sum / (B * S)
+
     def _loss_fn(self, tokens: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens: [B, S+1] (inputs || shifted targets) -> (mean CE,
-        accuracy) over the f32 logits."""
+        """tokens: [B, S+1] (inputs || shifted targets) -> (loss,
+        accuracy): mean f32 CE (whole logits, or chunked with
+        ``loss_chunk``) plus, with experts, ``moe_aux_weight`` times the
+        layers' mean aux loss."""
+        cfg = self.cfg
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
-        logits = self.model(inputs)
-        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                               targets.reshape(-1))
-        acc = (logits.argmax(-1) == targets).to(torch.float32).mean()
+        aux: List[torch.Tensor] = []
+        out = self.model(inputs, return_hidden=cfg.loss_chunk > 0,
+                         aux_out=aux)
+        if cfg.loss_chunk > 0:
+            loss, acc = self._chunked_ce(out, targets)
+        else:
+            loss = F.cross_entropy(out.reshape(-1, out.shape[-1]),
+                                   targets.reshape(-1))
+            acc = (out.argmax(-1) == targets).to(torch.float32).mean()
+        if cfg.n_experts:
+            loss = loss + self.hp.moe_aux_weight * (
+                torch.stack(aux).sum() / max(cfg.n_layers, 1))
         return loss, acc
 
     def _tokens(self, tokens: np.ndarray) -> torch.Tensor:

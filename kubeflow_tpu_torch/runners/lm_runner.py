@@ -11,10 +11,11 @@ tokens_per_s=…``, ``train_done …``, ``loss=``, ``accuracy=``,
         --dataset=lm-small --steps=100 --batch-size=4
 
 ``--export-dir`` writes the reference's LM export format
-(``serving/lm_server.py``), which both packages serve. Flags that need
-parts of the reference not ported yet (meshes, remat, MoE, checkpoints)
-exit 2 naming the ROADMAP item that brings
-them. ``--collective-overlap`` has no counterpart on one GPU: ``auto`` and
+(``serving/lm_server.py``), which both packages serve. ``--remat``
+(with ``--remat-policy``, the reference's policies) and ``--experts E``
+(MoE, top-2; the plan gains ``/ep{E}``) train as in the reference.
+Flags that need parts of the reference not ported yet (meshes,
+checkpoints) exit 2 naming the ROADMAP item that brings them. ``--collective-overlap`` has no counterpart on one GPU: ``auto`` and
 ``off`` are accepted as no-ops, ``on`` exits 2.
 """
 
@@ -105,9 +106,6 @@ def _unported(args) -> str:
         (args.cp > 1, f"--cp>1 needs {mesh}"),
         (args.sp, f"--sp needs {mesh}"),
         (args.fsdp, f"--fsdp needs {mesh}"),
-        (args.experts > 0, "--experts needs ROADMAP.md Queue A 4, MoE"),
-        (args.remat, "--remat needs ROADMAP.md Queue A 2, remat with the "
-                     "fwd/apply split"),
         (bool(os.environ.get("KFX_CHECKPOINT_DIR")) and not
          args.no_checkpoint, "KFX_CHECKPOINT_DIR needs ROADMAP.md Queue A 7 "
                              "(training/checkpoint.py); pass "
@@ -164,8 +162,9 @@ def main(argv=None) -> int:
         if hi is not None:
             flash_overrides["flash_max_seq"] = hi
     cfg = preset_config(args.preset, vocab_size=ds.vocab_size,
-                        max_seq_len=ds.seq_len, attn_impl=args.attn_impl,
-                        remat_policy=args.remat_policy, **flash_overrides)
+                        max_seq_len=ds.seq_len, n_experts=args.experts,
+                        remat=args.remat, remat_policy=args.remat_policy,
+                        attn_impl=args.attn_impl, **flash_overrides)
     hp = LMHyperParams(learning_rate=args.learning_rate,
                        warmup_steps=args.warmup_steps,
                        total_steps=args.steps, seed=args.seed)
@@ -173,7 +172,9 @@ def main(argv=None) -> int:
     rank, world = 0, 1
     print(f"runner_start model=transformer-{args.preset} "
           f"dataset={args.dataset} rank={rank} world={world} "
-          f"devices=1 plan=pp1/dp1/tp1 seq_len={ds.seq_len} "
+          f"devices=1 plan=pp1/dp1/tp1"
+          f"{f'/ep{cfg.n_experts}' if cfg.n_experts else ''} "
+          f"seq_len={ds.seq_len} "
           f"device={device.type}", flush=True)
 
     model = loop.init_state()

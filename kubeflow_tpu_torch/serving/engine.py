@@ -80,8 +80,15 @@ Usage metering: every engine keeps a ``TenantLedger``
 (``serving/metering.py``) billed once at first admission (prompt tokens)
 and once at retirement (generated tokens less ``meter_skip``).
 
+Flight recorder (``obs/flightrec.py``, on unless ``KFX_FLIGHT=0``, as in
+the reference): one record of host state at the end of every iteration
+(slots, free pages in both pools, spec counters, stall, queue depth,
+preemptions) and a per-request trail (admit, prefill_chunk, preempt,
+first_token, retire) folded into a latency breakdown at retirement. It
+reads no tensor, so it adds no device sync to the iteration.
+
 Not in this slice (ROADMAP.md Queue A 5b): int8 weights/KV (the draft's
-too), LoRA adapters, QoS/deadlines/rate limits, the flight recorder, KV
+too), LoRA adapters, QoS/deadlines/rate limits, KV
 transfer/offload/roles, the weight pool, chaos points.
 """
 
@@ -100,6 +107,7 @@ import torch
 from ..device import resolve_device
 from ..models.generate import decode_config, load_decode_model, pow2_bucket
 from ..models.transformer import PagedKVCache, truncate_layers
+from ..obs import flightrec
 from ..obs import trace as obs_trace
 from ..obs.metrics import MetricsRegistry, default_registry
 from .metering import TenantLedger
@@ -146,6 +154,7 @@ class Request:
                  "stop", "tokens", "error", "t_enqueue", "t_admitted",
                  "t_first", "t_done", "counted", "trace_id", "span_id",
                  "rid", "preempts", "on_token", "tenant", "meter_skip",
+                 "events", "stall_s", "spec_prop", "spec_acc", "_flight",
                  "_usage", "_event")
 
     _rid_counter = itertools.count(1)
@@ -177,6 +186,15 @@ class Request:
         self.span_id = obs_trace.current_span_id()
         self.rid = next(Request._rid_counter)
         self.preempts = 0
+        # Flight-recorder trail: a small event list (the loop appends) and
+        # the attribution counters folded into the latency breakdown at
+        # retirement. ``_flight`` is the engine's recorder (None when
+        # recording is off: every hook is skipped).
+        self.events: List[dict] = []
+        self.stall_s = 0.0            # stall seconds while active
+        self.spec_prop = 0            # draft tokens proposed for us
+        self.spec_acc = 0             # ...and accepted
+        self._flight: Optional[flightrec.FlightRecorder] = None
         # Usage metering (serving/metering.py): the billable tenant (the
         # base tenant unless the client named one), the ledger to bill
         # (None = metering off), and how many leading generated tokens a
@@ -211,6 +229,10 @@ class Request:
         if self._usage is not None and self.counted:
             self._usage.retire(self.tenant, METER_QOS, METER_ADAPTER,
                                len(self.tokens) - self.meter_skip)
+        if self._flight is not None:
+            self._flight.event(self, "retire",
+                               err=type(error).__name__ if error else None)
+            self._flight.retire(self)
         # End-of-stream marker BEFORE the event: a streamer that woke on
         # the sentinel can rely on result() returning immediately.
         self._notify(None)
@@ -801,7 +823,16 @@ class DecodeEngine:
         self._iterations = 0
         self._last_progress = time.monotonic()
         self._draining = False
+        # Cumulative preemption count (loop thread), mirrored into every
+        # flight record.
         self._preempts = 0
+        # Flight recorder (obs/flightrec.py): a bounded ring of
+        # per-iteration host state plus a recent-requests ring, built
+        # before the loop starts; KFX_FLIGHT=0 leaves it None and every
+        # hook is skipped.
+        self.flight: Optional[flightrec.FlightRecorder] = \
+            flightrec.FlightRecorder() if flightrec.enabled_from_env() \
+            else None
 
         self._cond = threading.Condition()
         self._queue = FairQueue()
@@ -955,6 +986,11 @@ class DecodeEngine:
                       "window (0 when idle).").set(
                           round(self._spec_accept_rate(), 4),
                           model=self.name)
+        if self.flight is not None:
+            reg.gauge("kfx_lm_flight_ring_records",
+                      "Iteration records currently held in the flight "
+                      "recorder ring.").set(len(self.flight),
+                                            model=self.name)
 
     def _active_count(self) -> int:
         return sum(1 for r in self._slots if r is not None)
@@ -1180,6 +1216,7 @@ class DecodeEngine:
         if tenant:
             req.tenant = str(tenant)
         req._usage = self.usage
+        req._flight = self.flight
         return req
 
     def _enqueue(self, reqs: List[Request]) -> None:
@@ -1331,8 +1368,17 @@ class DecodeEngine:
                             "prefill dispatch, per engine iteration.",
                             buckets=QUEUE_WAIT_BUCKETS).observe(
                                 self._iter_stall, model=self.name)
+                        # Attribute the stall to every active request that
+                        # waited through it (the ``stalled_s`` leg of the
+                        # flight recorder's breakdown).
+                        if self.flight is not None:
+                            for slot, r in enumerate(self._slots):
+                                if r is not None and self._active[slot]:
+                                    r.stall_s += self._iter_stall
                     if bool(self._active.any()):
                         self._decode_once()
+                if self.flight is not None:
+                    self._record_flight()
                 # The progress heartbeat: one completed iteration.
                 self._iterations += 1
                 self._last_progress = time.monotonic()
@@ -1340,6 +1386,33 @@ class DecodeEngine:
                 self._fail_inflight(e)  # requests, never the engine;
                 time.sleep(0.01)        # KeyboardInterrupt/SystemExit
                 #                         propagate (shutdown)
+
+    def _record_flight(self) -> None:
+        """Append this iteration's flight record (loop thread, end of the
+        iteration, so a loop stuck mid-iteration leaves the ring frozen at
+        the last completed one). Host state only: slot bookkeeping, the
+        free lists and the spec counters; no tensor is read, so the
+        record adds no device sync. Queue depth is read without the lock
+        (a one-record-stale depth is fine for forensics)."""
+        active, prefilling = [], []
+        for slot, r in enumerate(self._slots):
+            if r is None:
+                continue
+            if slot in self._prefilling:
+                prefilling.append((slot, r.rid))
+            elif self._active[slot]:
+                active.append((slot, r.rid))
+        self.flight.record_iteration(
+            iteration=self._iterations,
+            active=active, prefilling=prefilling,
+            pages_free=self._mgr.n_free,
+            draft_pages_free=(self._draft_mgr.n_free
+                              if self._draft_mgr is not None else 0),
+            spec_proposed=self._spec_proposed,
+            spec_accepted=self._spec_accepted,
+            stall_s=self._iter_stall,
+            queue_depth=len(self._queue),
+            preemptions=self._preempts)
 
     def _admit_ready(self) -> None:
         """Admit queued requests into free slots (between chunks, never
@@ -1511,6 +1584,8 @@ class DecodeEngine:
             return False
         req.counted = True
         req.t_admitted = time.monotonic()
+        if self.flight is not None:
+            self.flight.event(req, "admit", matched=matched, prompt=n)
         self._reg().histogram(
             "kfx_lm_queue_wait_seconds",
             "Decode-engine admission wait (enqueue to slot prefill).",
@@ -1656,6 +1731,9 @@ class DecodeEngine:
             "kfx_lm_prefill_chunks_total",
             "Prompt-chunk prefill dispatches (chunked admission).").inc(
                 1, model=self.name)
+        if self.flight is not None:
+            self.flight.event(req, "prefill_chunk", start=start,
+                              tokens=length)
         cur["next"] = start + length
         self._register_prefix_pages(slot, cur, final=last)
         if last:
@@ -1769,6 +1847,8 @@ class DecodeEngine:
             ).inc(1, model=self.name)
         self._preempts += 1
         req.preempts += 1
+        if self.flight is not None:
+            self.flight.event(req, "preempt", slot=slot)
         with self._cond:
             self._queue.push_front(req)
 
@@ -1804,6 +1884,8 @@ class DecodeEngine:
             emitted += len(hits)
             if len(hits) and req.t_first == 0.0:
                 req.t_first = now
+                if self.flight is not None:
+                    self.flight.event(req, "first_token")
             if not self._active[slot]:
                 self._slots[slot] = None
                 self._release_slot(slot)
@@ -2021,6 +2103,8 @@ class DecodeEngine:
                 break
         if landed and req.t_first == 0.0:
             req.t_first = time.monotonic()
+            if self.flight is not None:
+                self.flight.event(req, "first_token")
         if done:
             self._slots[slot] = None
             self._release_slot(slot)
@@ -2064,6 +2148,11 @@ class DecodeEngine:
             if spec_on[slot]:
                 proposed += k
                 accepted += a
+                # Per-request attribution (spec_accept in the flight
+                # recorder's breakdown).
+                req = self._slots[slot]
+                req.spec_prop += k
+                req.spec_acc += a
             emitted += self._emit(
                 slot, [int(t) for t in D[slot, :a]] + [int(bonus[slot])])
             if self._slots[slot] is not None:

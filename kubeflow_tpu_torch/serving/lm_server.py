@@ -36,10 +36,15 @@ ledger, and the predictor seeds the default tenant's row, so
 any traffic; the body field ``tenant`` names the billable tenant and
 ``stream_skip`` is not billed again.
 
-One default still differs from the reference: the flight recorder
-(``KFX_FLIGHT``, ROADMAP.md Queue A 5b.3) is not ported, and the port
-has no ``/debug/flight``. Every knob of an engine extension that is not
-ported raises ``NotImplementedError`` naming its Queue A 5b item rather
+The flight recorder is on by default, as in the reference
+(``KFX_FLIGHT``, "0" turns it off; ``KFX_FLIGHT_RING``,
+``KFX_FLIGHT_RECENT``): each ``:generate`` answer carries a ``timing``
+list (one ``{queue_wait_s, prefill_s, decode_s, stalled_s, spec_accept}``
+per prompt; the server folds the first into the ``X-Kfx-Timing``
+header), each streamed ``done`` event its request's ``timing``, and the
+server answers ``/debug/flight`` and ``/debug/requests``. With the
+one-shot path or the recorder off there is no ``timing``. Every knob of
+an engine extension that is not ported raises ``NotImplementedError`` naming its Queue A 5b item rather
 than being ignored: ``KFX_CHAOS`` set (5b.4), ``KFX_LM_QUANT`` /
 ``_KV_QUANT`` / ``_QUANT_DRAFT`` other than 0 (5b.5),
 ``KFX_LM_ADAPTERS`` (5b.6), ``KFX_LM_QOS_DEFAULT`` other than
@@ -362,6 +367,23 @@ class LMPredictor(Predictor):
             return None
         return self._engine.heartbeat()
 
+    def flight_snapshot(self) -> Optional[Dict[str, Any]]:
+        """The /debug/flight payload: the engine's flight ring plus the
+        current heartbeat (None without an engine or with the recorder
+        off). Safe from any HTTP thread: the ring is a deque the loop
+        appends to atomically."""
+        if self._engine is None or self._engine.flight is None:
+            return None
+        return self._engine.flight.snapshot(
+            heartbeat=self._engine.heartbeat())
+
+    def flight_requests(self) -> Optional[Dict[str, Any]]:
+        """The /debug/requests payload: recently retired requests with
+        their latency breakdowns (None when recording is off)."""
+        if self._engine is None or self._engine.flight is None:
+            return None
+        return self._engine.flight.requests()
+
     def drain(self, wait_s: float = 0.0) -> bool:
         """Stop admitting and wait up to ``wait_s`` for in-flight
         generations to finish. Trivially drained on the one-shot path
@@ -461,8 +483,13 @@ class LMPredictor(Predictor):
             "Wall time of generate calls.").observe(elapsed,
                                                     model=self.name)
 
-    def _run(self, p: Dict[str, Any]) -> Tuple[List[List[int]], float]:
+    def _run(self, p: Dict[str, Any]
+             ) -> Tuple[List[List[int]], float, Optional[list]]:
+        """Generate for the parsed body: the token lists, the seconds, and
+        the engine's Request handles (None on the one-shot path), which
+        the flight recorder's timing reads."""
         t0 = time.perf_counter()
+        reqs = None
         if self._engine is not None:
             reqs = self._engine.submit_batch(p["prompts"],
                                              stop_token=p["stop"],
@@ -474,14 +501,20 @@ class LMPredictor(Predictor):
             out = self._gen.generate(p["prompts"], **p["kw"])
         elapsed = time.perf_counter() - t0
         self._record_generate(sum(len(ids) for ids in out), elapsed)
-        return out, elapsed
+        return out, elapsed, reqs
 
     def generate(self, body: Dict[str, Any]) -> Dict[str, Any]:
-        out, elapsed = self._run(self._parse_generate(body))
+        out, elapsed, reqs = self._run(self._parse_generate(body))
         n_tokens = sum(len(ids) for ids in out)
         tps = n_tokens / elapsed if elapsed > 0 else 0.0
-        return {"generated_tokens": out,
-                "tokens_per_second": round(tps, 2)}
+        result = {"generated_tokens": out,
+                  "tokens_per_second": round(tps, 2)}
+        if reqs is not None and self._engine.flight is not None:
+            # One latency breakdown per prompt, in order; the server folds
+            # the first into the X-Kfx-Timing header.
+            flight = self._engine.flight
+            result["timing"] = [flight.timing(r) for r in reqs]
+        return result
 
     def generate_stream(self, body: Dict[str, Any]) -> Iterator[bytes]:
         """SSE token streaming. Validates and SUBMITS synchronously —
@@ -507,7 +540,7 @@ class LMPredictor(Predictor):
                 or skip < 0:
             raise ValueError("stream_skip must be an int >= 0")
         if self._engine is None:
-            out, elapsed = self._run(p)
+            out, elapsed, _ = self._run(p)
             return iter(self._replay_events(out[0], skip, elapsed))
         q: "_queue.Queue[Optional[int]]" = _queue.Queue()
         req = self._engine.submit(p["prompts"][0], stop_token=p["stop"],
@@ -566,5 +599,8 @@ class LMPredictor(Predictor):
         n = len(req.tokens)
         self._record_generate(n, elapsed)
         tps = n / elapsed if elapsed > 0 else 0.0
-        yield self._sse({"done": True, "n_tokens": n,
-                         "tokens_per_second": round(tps, 2)})
+        done = {"done": True, "n_tokens": n,
+                "tokens_per_second": round(tps, 2)}
+        if self._engine.flight is not None:
+            done["timing"] = self._engine.flight.timing(req)
+        yield self._sse(done)

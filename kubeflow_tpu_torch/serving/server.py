@@ -5,6 +5,9 @@
                                            503 {"status": "wedged"} while
                                            a decode loop is stalled with
                                            work in flight
+    GET  /debug/flight                  -> {"models": {m: flight ring}}
+    GET  /debug/requests                -> {"models": {m: retired reqs}}
+                                           (both 404 without a recorder)
     GET  /metrics[?format=json]         -> Prometheus text (or JSON, with
                                            the decode engines' load block)
     GET  /v1/models                     -> {"models": [...]}
@@ -18,11 +21,15 @@
 requests shed with 503 + Retry-After, and each predictor's engine stops
 admitting and finishes its in-flight requests (``drained`` says whether
 they finished within ``wait_s``). An engine's bounded-queue overflow
-(``EngineOverloaded``) is a 503 + Retry-After too. The reference's
-weight-pool, KV-transfer and flight-recorder routes (``:kvimport``,
-``:migrate``, ``:kvpeers``, ``:evict``, ``/debug/*``), its chaos points
-and the classifier predictors and micro-batcher are not ported yet
-(ROADMAP.md Queue A 5b, 7 and 8).
+(``EngineOverloaded``) is a 503 + Retry-After too. An engine-served
+``:generate`` answer carries the flight recorder's ``X-Kfx-Timing``
+header, and each ``/healthz`` writes the newest flight snapshot to
+``$KFX_WORKDIR/flight/<KFX_COMPONENT>-<pid>.json`` (atomically, at most
+once every ``KFX_FLIGHT_SNAP_S`` seconds, default 1, "0" off). The
+reference's weight-pool and KV-transfer routes (``:kvimport``,
+``:migrate``, ``:kvpeers``, ``:evict``), its chaos points and the
+classifier predictors and micro-batcher are not ported yet (ROADMAP.md
+Queue A 5b, 7 and 8).
 
     python -m kubeflow_tpu_torch.serving.server --model-dir EXPORT \\
         [--device cpu]
@@ -33,6 +40,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import socket
 import sys
 import threading
@@ -57,6 +65,27 @@ SERVING_BUCKETS = (
     30.0, 60.0)
 
 
+TIMING_HEADER = "X-Kfx-Timing"
+
+
+def _timing_header(result: Dict[str, Any]) -> Optional[Dict[str, str]]:
+    """Fold the first request's latency breakdown into the
+    ``X-Kfx-Timing`` response header (``k=v;...``), so a client reads
+    where the time went without parsing the body. None when the engine
+    or its recorder is off."""
+    timing = result.get("timing") if isinstance(result, dict) else None
+    if not timing:
+        return None
+    first = timing[0]
+    parts = []
+    for key in ("queue_wait_s", "prefill_s", "decode_s", "stalled_s",
+                "spec_accept"):
+        v = first.get(key)
+        if v is not None:
+            parts.append(f"{key}={v:g}")
+    return {TIMING_HEADER: ";".join(parts)} if parts else None
+
+
 class Predictor:
     """Base predictor: load() once, predict(instances) per request."""
 
@@ -79,6 +108,9 @@ class ModelServer:
         # Drain mode: readiness false, new requests shed with 503 +
         # Retry-After. One-way.
         self.draining = False
+        # Last flight-snapshot-file write (monotonic): the /healthz
+        # piggyback's throttle.
+        self._flight_snap_ts = 0.0
         self.metrics = MetricsRegistry()
         self.latency = self.metrics.histogram(
             "kfx_serving_request_seconds",
@@ -269,7 +301,20 @@ class ModelServer:
         path = h.path
         if path == "/healthz" or path == "/":
             live = self._liveness()
+            # The operator polls /healthz every reconcile, so the on-disk
+            # flight snapshot stays fresh enough to be the postmortem
+            # source when a crash leaves no process to ask.
+            self._maybe_snapshot_flight()
             h._send(503 if live["status"] == "wedged" else 200, live)
+        elif path in ("/debug/flight", "/debug/requests"):
+            attr = "flight_snapshot" if path == "/debug/flight" \
+                else "flight_requests"
+            snaps = self._flight_payloads(attr)
+            if not snaps:
+                h._send(404, {"error": "no flight recorder (engine off "
+                                       "or KFX_FLIGHT=0)"})
+            else:
+                h._send(200, {"models": snaps})
         elif path == "/metrics" or path.startswith("/metrics?"):
             # Prometheus exposition by default; JSON via ?format=json.
             # Both render the same registry state.
@@ -421,7 +466,7 @@ class ModelServer:
         except Exception as e:
             h._send(500, {"error": str(e)})
             return
-        h._send(200, result)
+        h._send(200, result, extra_headers=_timing_header(result))
 
     def _send_sse(self, h, events) -> None:
         """Stream SSE events over a chunked HTTP/1.1 response. The
@@ -451,6 +496,52 @@ class ModelServer:
             except OSError:
                 pass
         h.close_connection = True
+
+    # -- flight recorder ----------------------------------------------------
+    def _flight_payloads(self, attr: str) -> Dict[str, Any]:
+        """{model: payload} of each predictor's ``attr`` (flight_snapshot
+        or flight_requests) that has a recorder."""
+        out = {}
+        for name, p in self.predictors.items():
+            fn = getattr(p, attr, None)
+            payload = fn() if fn is not None else None
+            if payload is not None:
+                out[name] = payload
+        return out
+
+    def _maybe_snapshot_flight(self) -> None:
+        """Persist the newest flight snapshot to
+        ``$KFX_WORKDIR/flight/<KFX_COMPONENT>-<pid>.json`` (atomic
+        replace), at most once every KFX_FLIGHT_SNAP_S seconds (default 1;
+        "0" disables): the file a crash-reap bundles when the replica died
+        without answering HTTP."""
+        workdir = os.environ.get("KFX_WORKDIR", "")
+        if not workdir:
+            return
+        try:
+            period = float(os.environ.get("KFX_FLIGHT_SNAP_S", "1"))
+        except ValueError:
+            period = 1.0
+        if period <= 0:
+            return
+        now = time.monotonic()
+        if now - self._flight_snap_ts < period:
+            return
+        self._flight_snap_ts = now
+        snaps = self._flight_payloads("flight_snapshot")
+        if not snaps:
+            return
+        comp = os.environ.get("KFX_COMPONENT", "server")
+        d = os.path.join(workdir, "flight")
+        path = os.path.join(d, f"{comp}-{os.getpid()}.json")
+        try:
+            os.makedirs(d, exist_ok=True)
+            tmp = f"{path}.tmp"
+            with open(tmp, "w") as f:
+                json.dump({"models": snaps, "pid": os.getpid()}, f)
+            os.replace(tmp, path)
+        except OSError:
+            pass  # snapshotting must never fail the probe
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> "ModelServer":

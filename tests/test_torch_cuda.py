@@ -213,6 +213,46 @@ def test_model_auto_launches_kernels(cuda):
     assert all(torch.isfinite(p.grad).all() for p in model.parameters())
 
 
+def test_flash_fwd_op_launches_the_kernel(cuda):
+    """flash_attention_fwd is the kfx::flash_fwd op: on CUDA tensors it
+    launches the forward kernel once and returns what _fwd returns."""
+    q, k, v, _ = _inputs((1, 256, 2, 64), 3, cuda, torch.bfloat16)
+    fa.reset_launches()
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    assert fa.LAUNCHES["flash_fwd"] == 1
+    o2, lse2 = fa._fwd(q, k, v)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("policy", ["nothing", "save_flash_full"])
+def test_remat_policies_launch_counts_on_cuda(cuda, policy):
+    """Under a policy that keeps (o, lse) the backward launches no flash
+    forward (L a step); full remat re-runs it (2L); grads equal the
+    no-remat grads in f32."""
+    from kubeflow_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM)
+
+    kw = dict(vocab_size=512, d_model=128, n_heads=2, head_dim=64,
+              n_layers=2, d_ff=256, max_seq_len=256, attn_impl="flash",
+              dtype="float32")
+    tokens = torch.randint(0, 512, (2, 256), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(1))
+    grads = {}
+    for remat in (False, True):
+        model = TransformerLM(
+            TransformerConfig(**kw, remat=remat, remat_policy=policy),
+            device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+        fa.reset_launches()
+        model(tokens).logsumexp(-1).mean().backward()
+        torch.cuda.synchronize()
+        fwd = 2 * 2 if remat and policy == "nothing" else 2
+        assert fa.LAUNCHES == {"flash_fwd": fwd, "flash_dq": 2,
+                               "flash_dkv": 2}
+        grads[remat] = {n: p.grad for n, p in model.named_parameters()}
+    for n, g in grads[False].items():
+        assert _rel(grads[True][n], g) <= 1e-5, n
+
+
 def test_runner_on_cuda_goes_through_kernels(cuda, capsys):
     from kubeflow_tpu_torch.runners import lm_runner
 

@@ -57,12 +57,13 @@ def test_every_module_imports_with_jax_blocked():
                          env=env)
     assert res.returncode == 0, res.stderr
     assert f"imported {len(_modules())}" in res.stdout
-    assert len(_modules()) >= 23
-    # The serving engine, its prefix keying and its usage ledger are on
-    # the list.
+    assert len(_modules()) >= 24
+    # The serving engine, its prefix keying, its usage ledger and its
+    # flight recorder are on the list.
     assert {"kubeflow_tpu_torch.serving.engine",
             "kubeflow_tpu_torch.serving.prefix",
-            "kubeflow_tpu_torch.serving.metering"} <= set(_modules())
+            "kubeflow_tpu_torch.serving.metering",
+            "kubeflow_tpu_torch.obs.flightrec"} <= set(_modules())
 
 
 def _sources():

@@ -150,8 +150,8 @@ def test_runner_cuda_without_gpu_raises():
 
 @pytest.mark.parametrize("argv,env", [
     (["--tp", "2"], {}), (["--pp", "2"], {}), (["--cp", "2"], {}),
-    (["--sp"], {}), (["--fsdp"], {}), (["--experts", "4"], {}),
-    (["--remat"], {}), ([], {"KFX_PARALLELISM": '{"pipeline": 2}'}),
+    (["--sp"], {}), (["--fsdp"], {}),
+    ([], {"KFX_PARALLELISM": '{"pipeline": 2}'}),
     (["--collective-overlap", "on"], {}),
     ([], {"KFX_CHECKPOINT_DIR": "/nonexistent"}),
     ([], {"KFX_PARALLELISM": '{"tensor": 2}'}),
@@ -163,6 +163,21 @@ def test_runner_rejects_unported_flags(argv, env, monkeypatch, capsys):
     assert rc == 2
     assert "ROADMAP" in capsys.readouterr().err or \
         argv == ["--collective-overlap", "on"]
+
+
+@pytest.mark.parametrize("argv,plan", [
+    (["--experts", "4"], "pp1/dp1/tp1/ep4"),
+    (["--remat", "--remat-policy", "save_flash_full"], "pp1/dp1/tp1"),
+])
+def test_runner_accepts_ported_flags(argv, plan, capsys):
+    """Refused by earlier slices, ported since: the runner trains with
+    them, and the runner_start plan carries the reference's /ep suffix."""
+    rc = lm_runner.main(["--preset", "tiny", "--steps", "1",
+                         "--batch-size", "1", "--device", "cpu",
+                         "--seq-len", "64", *argv])
+    out = capsys.readouterr().out
+    assert rc == 0 and "train_done" in out
+    assert f" plan={plan} " in out
 
 
 @pytest.mark.parametrize("overlap", ["auto", "off"])

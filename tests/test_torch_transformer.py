@@ -135,9 +135,11 @@ def test_config_validation_matches_reference(kw):
 
 
 UNPORTED = [
-    dict(n_experts=2), dict(cp=2), dict(sp=True), dict(quant="int8"),
-    dict(lora_rank=4), dict(remat=True), dict(loss_chunk=128),
+    dict(cp=2), dict(sp=True), dict(quant="int8"), dict(lora_rank=4),
 ]
+# Refused by earlier slices, ported since: each constructs as in the
+# reference, and a training loop takes it.
+NOW_ACCEPTED = [dict(n_experts=2), dict(remat=True), dict(loss_chunk=128)]
 # The paged cache is ported (the engine's pool): these construct, with
 # the reference's field values.
 PAGED = [
@@ -145,23 +147,30 @@ PAGED = [
     pytest.param(dict(decode=True, kv_page_size=16, kv_pages=4),
                  id="decode"),
 ]
-# Training-only fields: every export loads and serves with them (decode
-# uses neither); training with them raises.
-TRAINING_ONLY = {"remat", "loss_chunk"}
 
 
 @pytest.mark.parametrize("kw", UNPORTED, ids=lambda kw: ",".join(kw))
 def test_unported_fields_raise_not_implemented(kw):
     ref.TransformerConfig(**kw)  # valid in the reference
-    if set(kw) <= TRAINING_ONLY:
-        from kubeflow_tpu_torch.parallel.lm_train import LMTrainLoop
-
-        cfg = port.TransformerConfig(**kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LMTrainLoop(cfg, device="cpu")
-        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.TransformerConfig(**kw)
+
+
+@pytest.mark.parametrize("kw", NOW_ACCEPTED, ids=lambda kw: ",".join(kw))
+def test_ported_training_fields_are_accepted(kw):
+    from kubeflow_tpu_torch.parallel.lm_train import LMTrainLoop
+
+    want = ref.TransformerConfig(**kw)
+    cfg = port.TransformerConfig(**{**SMALL, **kw}, max_seq_len=128,
+                                  dtype="float32")
+    for f in kw:
+        assert getattr(cfg, f) == getattr(want, f), f
+    loop = LMTrainLoop(cfg, device="cpu")
+    loop.init_state()
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 129)).astype(np.int32)
+    loss, acc = loop.train_step(tokens)
+    assert np.isfinite(loss) and 0.0 <= acc <= 1.0
 
 
 @pytest.mark.parametrize("kw", PAGED, ids=lambda kw: ",".join(kw))
