@@ -176,6 +176,21 @@ TOL_REMAT_F32 = 1e-5   # remat vs no remat grads, f32, rel. to each max
 LOSS_CHUNK = 256
 MOE_EXPERTS = 8
 
+# Classifier phase (i): ResNet-50 through the JAXJob runner at the
+# reference's own points (bench.py _bench_resnet50: the MPIJob config,
+# cifar10 b256, and imagenet-sim 224^2 b64), then that 224^2 export behind
+# the V1 server with JaxPredictor(max_batch_size=64): batch-1 :predict
+# latency (BASELINE's "KFServing p50 latency") and a wave of 64 concurrent
+# single-image requests with the micro-batcher (maxLatencyMs 5) and without.
+CLS_POINTS = (("cifar10", 256), ("imagenet-sim", 64))
+CLS_STEPS = 8
+CLS_EVAL = 512
+CLS_TOL_F32 = 1e-4     # forward on cuda vs CPU, f32, TF32 off, rel. to max
+CLS_TOL_STATS = 1e-5   # BN running stats vs an explicit biased update, rel.
+CLS_SEQ = 50
+CLS_WAVE = 64
+CLS_BATCHER_MS = 5.0
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -900,8 +915,9 @@ def event_ms(torch, fn, reps):
 
 def step_profile(torch, fn, n):
     """torch.profiler over ``n`` calls of ``fn``, per call: the kernel time
-    (ms) and the number of kernels, and the five ops with the most host
-    (self CPU) time; {"note": reason} where it records no device time."""
+    (ms) and the number of kernels, the five kernels with the most device
+    time and the five ops with the most host (self CPU) time; {"note":
+    reason} where it records no device time."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     try:
@@ -920,8 +936,12 @@ def step_profile(torch, fn, n):
     host = sorted((e for e in events
                    if getattr(e, "device_type", None) != cuda),
                   key=lambda e: -e.self_cpu_time_total)[:5]
+    top = sorted(kern, key=lambda e: -(getattr(
+        e, "self_device_time_total", 0) or 0))[:5]
     return {"kernel_ms": us / 1e3 / n,
             "kernels": sum(e.count for e in kern) / n,
+            "top_kernels_ms": [[e.key[:80], e.self_device_time_total / 1e3
+                                / n, e.count / n] for e in top],
             "top_host_ops_ms": [[e.key, e.self_cpu_time_total / 1e3 / n]
                                 for e in host]}
 
@@ -1853,6 +1873,353 @@ def spec_phase(torch, fa, export_dir, gap_cfg, prompts, f1, f2_tokens, dev):
     return rec
 
 
+# -- (i) the classifier / JAXJob path ---------------------------------------
+
+def classifier_models_check(torch, dev):
+    """(i0) every registered classifier (and ResNet-50 on the ImageNet
+    stem) in f32 with TF32 off: the same weights (converted to the flax
+    tree and back) and inputs on the card and on the CPU, eval and train
+    mode; then one ResNet-50 train step on
+    the card (bf16, the default) with each BatchNorm's running stats held
+    to an explicit biased-variance update of its captured input."""
+    from kubeflow_tpu_torch.models import get_model, model_names
+    from kubeflow_tpu_torch.models.convert import (
+        classifier_params_from_jax, classifier_params_to_jax)
+    from kubeflow_tpu_torch.training import TrainLoop
+
+    shapes = [(n, (28, 28, 1) if n in ("mlp", "cnn") else (32, 32, 3))
+              for n in model_names()] + [("resnet50", (224, 224, 3))]
+    errs = {}
+    for name, shape in shapes:
+        cpu = get_model(name, input_shape=shape, dtype=torch.float32, seed=1)
+        # The card's copy takes the CPU model's weights through the flax
+        # tree and back (the converter both directions of an export use).
+        card = get_model(name, input_shape=shape, dtype=torch.float32,
+                         seed=2)
+        card.load_state_dict(classifier_params_from_jax(
+            name, *classifier_params_to_jax(name, cpu.state_dict())))
+        card.to(dev, memory_format=torch.channels_last)
+        x = torch.rand((4,) + shape, generator=torch.Generator().manual_seed(2))
+        err = 0.0
+        for train in (False, True):
+            with torch.no_grad():
+                err = max(err, max_rel(card(x.to(dev), train=train).cpu(),
+                                       cpu(x, train=train)))
+        key = f"{name}@{shape[0]}"
+        errs[key] = err
+        check(err <= CLS_TOL_F32, f"(i0) {key} cuda vs cpu {err:.3g}")
+        del cpu, card
+    log("classifier (i0) f32 forward cuda vs cpu, max-abs rel: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (tol {CLS_TOL_F32})")
+
+    shape = (32, 32, 3)
+    loop = TrainLoop(get_model("resnet50", input_shape=shape), device=dev)
+    state = loop.init_state(shape)
+    seen = []
+
+    def capture(mod, args):
+        seen.append((mod, args[0].detach().float(), mod.mean.clone(),
+                     mod.var.clone()))
+
+    from kubeflow_tpu_torch.models.layers import BatchNorm
+
+    hooks = [m.register_forward_pre_hook(capture)
+             for m in state.model.modules() if isinstance(m, BatchNorm)]
+    g = torch.Generator().manual_seed(3)
+    x = torch.rand((32,) + shape, generator=g).numpy()
+    y = torch.randint(0, 10, (32,), generator=g).numpy()
+    state, loss, _ = loop.train_step(state, x, y)
+    for h in hooks:
+        h.remove()
+    check(math.isfinite(loss), f"(i0) ResNet-50 step loss {loss}")
+    err, gap = 0.0, 0.0
+    for mod, inp, mean0, var0 in seen:
+        mean = inp.mean((0, 2, 3))
+        var = ((inp - mean[:, None, None]) ** 2).mean((0, 2, 3))   # biased
+        n = inp.numel() // inp.shape[1]
+        want_var = 0.9 * var0 + 0.1 * var
+        err = max(err, max_rel(mod.mean, 0.9 * mean0 + 0.1 * mean),
+                  max_rel(mod.var, want_var))
+        unbiased = 0.9 * var0 + 0.1 * var * n / (n - 1)
+        gap = max(gap, max_rel(unbiased, want_var))
+    log(f"classifier (i0) ResNet-50 train step b32: loss {loss:.4f}; "
+        f"{len(seen)} BatchNorms, running stats vs the biased update max "
+        f"rel {err:.3g} (tol {CLS_TOL_STATS}); the unbiased update would "
+        f"differ by up to {gap:.3g}")
+    check(len(seen) == 53, f"(i0) {len(seen)} BatchNorms ran, want 53")
+    check(err <= CLS_TOL_STATS and err * 10 < gap,
+          f"(i0) BN running stats {err:.3g} (unbiased gap {gap:.3g})")
+    del loop, state, seen
+    torch.cuda.empty_cache()
+    return {"forward_max_rel_err": errs, "bn_stats_max_rel_err": err,
+            "bn_unbiased_gap": gap}
+
+
+def classifier_rung(torch, dev, dataset, batch, export_dir=""):
+    """(i1) the runner trains ResNet-50 on ``dataset`` at ``batch`` with
+    device batches (--data-pipeline auto), CLS_STEPS steps in chunks of 2;
+    step ms (median of the chunks after the first), images/s, GFLOP an
+    image (FlopCounterMode over one step), MFU, peak memory and the busy
+    share of a profiled step."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from kubeflow_tpu_torch.data import get_dataset
+    from kubeflow_tpu_torch.models import get_model
+    from kubeflow_tpu_torch.runners import jax_runner
+    from kubeflow_tpu_torch.training import TrainLoop
+    from kubeflow_tpu_torch.utils.flops import peak_flops_per_card
+
+    argv = ["--model", "resnet50", "--dataset", dataset, "--batch-size",
+            str(batch), "--steps", str(CLS_STEPS), "--log-every", "2",
+            "--scan-steps", "2", "--eval-samples", str(CLS_EVAL),
+            "--data-pipeline", "auto"]
+    if export_dir:
+        argv += ["--export-dir", export_dir]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        rc = jax_runner.main(argv)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    out = buf.getvalue()
+    tag = f"(i1) resnet50 {dataset} b{batch}"
+    check(rc == 0, f"{tag}: runner returned {rc}")
+    check("data_pipeline=device" in out and f"platform={dev.type}" in out,
+          f"{tag}: not on device batches on {dev}:\n{out}")
+    losses = [float(v) for v in re.findall(r"^step=\d+ loss=(\S+)", out,
+                                           re.M)]
+    final = [float(v) for v in re.findall(r"^(?:loss|accuracy)=(\S+)$",
+                                          out, re.M)]
+    check(len(losses) == CLS_STEPS // 2 and len(final) == 2
+          and all(math.isfinite(v) for v in losses + final),
+          f"{tag}: losses {losses}, final {final}")
+    times = [float(t) for t in re.findall(r"step_time=(\S+)", out)][1:]
+    step = sorted(times)[len(times) // 2]
+
+    ds = get_dataset(dataset)
+    loop = TrainLoop(get_model("resnet50", num_classes=ds.num_classes,
+                               input_shape=ds.shape), device=dev)
+    state = loop.init_state(ds.shape)
+    fn = ds.device_batch_fn()
+    loop.train_steps_device(state, fn, batch, 0, 1)
+    consts = torch.from_numpy(fn.consts).to(dev)
+    x, y = fn(consts, torch.Generator(device=dev).manual_seed(0), batch)
+    with FlopCounterMode(display=False) as fc:
+        loop._step(state, x, y)
+    gflop = fc.get_total_flops() / batch / 1e9
+    prof = step_profile(
+        torch, lambda: loop.train_steps_device(state, fn, batch, 2, 1), 1)
+    busy = prof.get("kernel_ms")
+    ips = batch / step
+    rec = {"dataset": dataset, "batch": batch, "step_ms": step * 1e3,
+           "step_times_s": times, "images_per_s": ips,
+           "gflop_per_image": gflop,
+           "mfu": ips * gflop * 1e9 / peak_flops_per_card(),
+           "peak_memory_gb": peak / 1e9, "losses": losses,
+           "eval_loss": final[0], "eval_accuracy": final[1],
+           "busy_share": busy / (step * 1e3) if busy else None, **prof}
+    log(f"classifier {tag}: step {rec['step_ms']:.2f} ms (of "
+        f"{[round(t * 1e3, 2) for t in times]}), {ips:.1f} images/s, "
+        f"{gflop:.3f} GFLOP/image, MFU {rec['mfu']:.4f}, peak "
+        f"{rec['peak_memory_gb']:.2f} GB, kernels "
+        f"{prof.get('kernel_ms', 0):.1f} ms a step, busy "
+        f"{rec['busy_share'] or 0:.2f}")
+    del loop, state, consts, x, y
+    torch.cuda.empty_cache()
+    return rec
+
+
+def classifier_resume_check(repo):
+    """(i2) on the card, in fresh processes: with KFX_CHECKPOINT_DIR, the
+    JAXJob runner (mlp, mnist) and the LM runner (tiny) exit 17 at
+    --fail-at-step, and the rerun resumes from the checkpoint and reaches
+    train_done. The two chains run side by side."""
+    import shutil
+
+    chains = {
+        "jax_runner": ["--model", "mlp", "--dataset", "mnist", "--steps",
+                       "6", "--batch-size", "64", "--log-every", "2",
+                       "--checkpoint-every", "2", "--eval-samples", "512"],
+        "lm_runner": ["--preset", "tiny", "--steps", "4", "--batch-size",
+                      "2", "--log-every", "1", "--checkpoint-every", "2"],
+    }
+
+    def chain(name):
+        ck = os.path.join(repo, "build", f"ckpt_{name}")
+        shutil.rmtree(ck, ignore_errors=True)
+        env = dict(os.environ, PYTHONPATH=repo, KFX_CHECKPOINT_DIR=ck)
+        cmd = [sys.executable, "-m", f"kubeflow_tpu_torch.runners.{name}"]
+        t0 = time.perf_counter()
+        crash = subprocess.run(cmd + chains[name] + ["--fail-at-step", "3"],
+                               env=env, capture_output=True, text=True,
+                               timeout=300, cwd=repo)
+        again = subprocess.run(cmd + chains[name], env=env,
+                               capture_output=True, text=True, timeout=300,
+                               cwd=repo)
+        resumed = re.search(r"resumed_from_checkpoint step=(\d+)",
+                            again.stdout)
+        check(crash.returncode == 17
+              and "fault_injection_crash step=3" in crash.stdout,
+              f"(i2) {name} crash: rc {crash.returncode}\n{crash.stdout}"
+              f"\n{crash.stderr[-2000:]}")
+        check(again.returncode == 0 and resumed is not None
+              and "train_done" in again.stdout,
+              f"(i2) {name} resume: rc {again.returncode}\n{again.stdout}"
+              f"\n{again.stderr[-2000:]}")
+        return {"resumed_step": int(resumed.group(1)),
+                "seconds": time.perf_counter() - t0}
+
+    names = sorted(chains)
+    out = dict(zip(names, run_threads(chain, names, timeout=600)))
+    log("classifier (i2) crash at step 3 and resume on cuda: " + ", ".join(
+        f"{k} resumed at step {v['resumed_step']} ({v['seconds']:.1f} s)"
+        for k, v in out.items()))
+    return out
+
+
+def post_raw(url, body, timeout=600):
+    """POST pre-encoded JSON bytes; (decoded answer, client ms)."""
+    req = urllib.request.Request(url, data=body, headers={
+        "Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        out = json.loads(r.read())
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def classifier_serving(torch, export_dir):
+    """(i3) the 224^2 ResNet-50 export (1000 classes) behind ModelServer
+    with JaxPredictor(max_batch_size=64) on the card: batch-1 :predict
+    latency over CLS_SEQ sequential requests, then a wave of CLS_WAVE
+    concurrent single-image requests without the micro-batcher and with
+    it (maxLatencyMs CLS_BATCHER_MS). Every flush the batcher makes is
+    recorded; each request's answer must be its slice of that flush, and
+    JaxPredictor.predict on the same stacked batch must answer the same."""
+    from kubeflow_tpu_torch.data import get_dataset
+    from kubeflow_tpu_torch.serving.server import JaxPredictor, ModelServer
+
+    t0 = time.perf_counter()
+    pred = JaxPredictor(export_dir, name="resnet50", max_batch_size=64)
+    pred.load()
+    load_s = time.perf_counter() - t0
+    check(pred.device == "cuda" and set(pred.placement.values())
+          == {"accelerator"} and pred._buckets == [1, 2, 4, 8, 16, 32, 64],
+          f"(i3) placement {pred.placement}")
+    images, _ = get_dataset("imagenet-sim", "eval").eval_arrays(CLS_WAVE)
+    bodies = [json.dumps({"instances": images[i:i + 1].tolist()}).encode()
+              for i in range(CLS_WAVE)]
+    rec = {"load_s": load_s, "probe_ms": pred.probe_ms,
+           "request_bytes": len(bodies[0])}
+
+    def serve(batcher):
+        srv = ModelServer(port=0)
+        srv.register(pred, batcher)
+        srv.start()
+        return srv, f"http://127.0.0.1:{srv.port}/v1/models/resnet50:predict"
+
+    srv, url = serve(None)
+    try:
+        for i in range(3):
+            post_raw(url, bodies[i])   # warm the handler path
+        seq, seq_preds = [], []
+        for i in range(CLS_SEQ):
+            out, ms = post_raw(url, bodies[i % CLS_WAVE])
+            seq.append(ms)
+            seq_preds.append(out["predictions"][0])
+        server_side = http_json(url.split("/v1/")[0]
+                                + "/metrics?format=json")["latency_ms"]
+        t0 = time.perf_counter()
+        plain = run_threads(lambda i: post_raw(url, bodies[i]),
+                            list(range(CLS_WAVE)))
+        plain_s = time.perf_counter() - t0
+    finally:
+        srv.stop()
+    flushes = []
+    orig = pred.predict
+
+    def spy(instances, probabilities=False):
+        out = orig(instances, probabilities=probabilities)
+        flushes.append((instances.copy(), out["predictions"]))
+        return out
+
+    pred.predict = spy
+    srv, url = serve({"maxBatchSize": 64, "maxLatencyMs": CLS_BATCHER_MS})
+    try:
+        post_raw(url, bodies[0])
+        flushes.clear()
+        t0 = time.perf_counter()
+        batched = run_threads(lambda i: post_raw(url, bodies[i]),
+                              list(range(CLS_WAVE)))
+        batched_s = time.perf_counter() - t0
+    finally:
+        srv.stop()
+        pred.predict = orig
+    by_image = {}
+    for stacked, preds in flushes:
+        check(orig(stacked)["predictions"] == preds,
+              "(i3) JaxPredictor.predict on a flushed batch answers "
+              "differently")
+        for row, p in zip(stacked, preds):
+            by_image[row.tobytes()] = p
+    for i, (out, _) in enumerate(batched):
+        check(out["predictions"] == [by_image[images[i].tobytes()]],
+              f"(i3) request {i}: batcher answered {out['predictions']}")
+    check(sum(len(p) for _, p in flushes) == CLS_WAVE,
+          f"(i3) flushes {[len(p) for _, p in flushes]}")
+    stack = orig(images)["predictions"]
+    agree_seq = sum(p == stack[i % CLS_WAVE]
+                    for i, p in enumerate(seq_preds)) / len(seq_preds)
+
+    def lat(xs):
+        return {"p50_ms": percentile(xs, 0.5), "p99_ms": percentile(xs, 0.99)}
+
+    rec.update({
+        "batch1": {**lat(seq), "n": len(seq), "server_ms": server_side},
+        "wave_plain": {**lat([ms for _, ms in plain]),
+                       "images_per_s": CLS_WAVE / plain_s,
+                       "wall_s": plain_s},
+        "wave_batched": {**lat([ms for _, ms in batched]),
+                         "images_per_s": CLS_WAVE / batched_s,
+                         "wall_s": batched_s,
+                         "flush_sizes": [len(p) for _, p in flushes]},
+        "batch1_vs_stacked_agreement": float(agree_seq)})
+    log(f"classifier (i3) resnet50 224^2 export: load {load_s:.1f} s, "
+        f"request {len(bodies[0]) / 1e6:.2f} MB of JSON; batch-1 p50 "
+        f"{rec['batch1']['p50_ms']:.1f} ms, p99 "
+        f"{rec['batch1']['p99_ms']:.1f} ms (server-side {server_side}); "
+        f"{CLS_WAVE} concurrent: plain {rec['wave_plain']['images_per_s']:.1f}"
+        f" images/s (p50 {rec['wave_plain']['p50_ms']:.0f} ms, p99 "
+        f"{rec['wave_plain']['p99_ms']:.0f}), batcher "
+        f"{rec['wave_batched']['images_per_s']:.1f} images/s (p50 "
+        f"{rec['wave_batched']['p50_ms']:.0f} ms, p99 "
+        f"{rec['wave_batched']['p99_ms']:.0f}; flushes "
+        f"{rec['wave_batched']['flush_sizes']}); batch-1 answers equal the "
+        f"stacked batch's on {agree_seq:.3f}")
+    return rec
+
+
+def classifier_phase(torch, fa, dev, repo):
+    """(i): (i0)-(i3), flash launch counters set to 0 just before and read
+    just after (no classifier reaches a flash kernel, as none reaches a
+    Pallas kernel in the reference)."""
+    fa.reset_launches()
+    rec = {"models": classifier_models_check(torch, dev)}
+    export_dir = os.path.join(repo, "build", "cls_export")
+    rec["train"] = [classifier_rung(torch, dev, ds, b,
+                                    export_dir if ds == "imagenet-sim"
+                                    else "")
+                    for ds, b in CLS_POINTS]
+    rec["resume"] = classifier_resume_check(repo)
+    rec["serving"] = classifier_serving(torch, export_dir)
+    rec["launches"] = dict(fa.LAUNCHES)
+    check(rec["launches"] == {"flash_fwd": 0, "flash_dq": 0,
+                              "flash_dkv": 0},
+          f"(i) flash launches {rec['launches']}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1924,6 +2291,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     spec = spec_phase(torch, fa, export_dir, gap_cfg, prompts, f1, f2_tokens,
                       dev)
+    torch.cuda.empty_cache()
+
+    # 6i. the classifier / JAXJob path
+    classifier = classifier_phase(torch, fa, dev, repo)
 
     # 7. report
     csrc = "kubeflow_tpu_torch/ops/csrc/"
@@ -1957,6 +2328,7 @@ def main() -> int:
     log(json.dumps({"engine": engine}))
     log(json.dumps({"spec": spec}))
     log(json.dumps({"training": training}))
+    log(json.dumps({"classifier": classifier}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,3 @@
-"""Synthetic datasets (numpy only)."""
+"""Synthetic datasets (numpy; the image sets' device batches in torch)."""
+
+from .synthetic import Dataset, get_dataset  # noqa: F401

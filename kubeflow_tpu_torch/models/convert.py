@@ -1,5 +1,7 @@
-"""Param conversion between the reference's flax tree and the port's
-``state_dict``.
+"""Param conversion between the reference's flax trees and the port's
+``state_dict``s: the TransformerLM (``params_from_jax`` /
+``params_to_jax``) and the classifier zoo (``classifier_params_from_jax``
+/ ``classifier_params_to_jax``, below).
 
 The reference's ``TransformerLM`` params (under ``nn.scan``) are::
 
@@ -133,3 +135,63 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
         _set(tree, ("layers",) + path,
              np.stack([sd[f"layers.{i}.{suffix}"] for i in range(depth)]))
     return tree
+
+
+# -- the classifier zoo (mlp, cnn, resnet18/50, vit, vit-s) ----------------
+#
+# The port's classifiers name their modules as flax auto-names them
+# (Dense_i, Conv_i, BatchNorm_i, conv_init, bn_init, ResNetBlock_i /
+# BottleneckBlock_i with conv_proj and norm_proj, head, patch_embed,
+# pos_embed, ViTBlock_i with MultiHeadDotProductAttention_0 {query, key,
+# value, out} and LayerNorm_i), so a flax path is a state_dict key with
+# "/" for ".". Conv kernels are the one layout change: flax's [kh, kw,
+# cin, cout] is the port's ``weight`` [cout, cin, kh, kw]. BatchNorm's
+# ``batch_stats`` {mean, var} are the port's buffers of the same names.
+
+_STATS = ("mean", "var")
+
+
+def _check_classifier(name: str) -> None:
+    from .registry import model_names
+
+    if name not in model_names():
+        raise KeyError(f"unknown model {name!r}; have {model_names()}")
+
+
+def classifier_params_from_jax(name: str, params: Mapping,
+                               batch_stats: Mapping = None
+                               ) -> Dict[str, torch.Tensor]:
+    """The reference classifier ``name``'s flax ``params`` (and
+    ``batch_stats``) -> a ``state_dict`` for the port's model of the same
+    name. Exact: values are copied, conv kernels transposed."""
+    _check_classifier(name)
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(params).items():
+        t = _tensor(leaf)
+        if path[-1] == "kernel" and t.ndim == 4:
+            path, t = path[:-1] + ("weight",), t.permute(3, 2, 0, 1)
+        out[".".join(path)] = t.contiguous()
+    for path, leaf in _flatten(batch_stats or {}).items():
+        if path[-1] not in _STATS:
+            raise KeyError(f"unexpected batch_stats leaf {'/'.join(path)}")
+        out[".".join(path)] = _tensor(leaf)
+    return out
+
+
+def classifier_params_to_jax(name: str,
+                             state_dict: Mapping[str, torch.Tensor]):
+    """Inverse of ``classifier_params_from_jax``: (params, batch_stats) as
+    nested dicts of f32 numpy arrays in flax's layout."""
+    _check_classifier(name)
+    params: dict = {}
+    stats: dict = {}
+    for key, t in state_dict.items():
+        path = tuple(key.split("."))
+        t = t.detach().cpu()
+        if path[-1] in _STATS:
+            _set(stats, path, t.numpy().copy())
+            continue
+        if path[-1] == "weight" and t.ndim == 4:
+            path, t = path[:-1] + ("kernel",), t.permute(2, 3, 1, 0)
+        _set(params, path, np.ascontiguousarray(t.numpy()))
+    return params, stats

@@ -138,6 +138,26 @@ class LMTrainLoop:
         self.step = 0
         return self.model
 
+    def state_tree(self) -> Dict[str, object]:
+        """What a checkpoint holds (``training/checkpoint.py``): the step,
+        the params and AdamW's moments and count."""
+        return {"step": self.step, "params": self.model.state_dict(),
+                "opt_state": {"mu": list(self.opt.mu),
+                              "nu": list(self.opt.nu),
+                              "count": self.opt.count}}
+
+    @torch.no_grad()
+    def load_state_tree(self, tree: Dict[str, object]) -> "LMTrainLoop":
+        """Copy a tree of ``state_tree``'s structure into this loop."""
+        self.model.load_state_dict(tree["params"])
+        opt = tree["opt_state"]
+        for mine, saved in zip(self.opt.mu + self.opt.nu,
+                               list(opt["mu"]) + list(opt["nu"])):
+            mine.copy_(saved)
+        self.opt.count = int(opt["count"])
+        self.step = int(tree["step"])
+        return self
+
     # -- loss ---------------------------------------------------------------
     def _chunk_ce(self, h_c: torch.Tensor, t_c: torch.Tensor,
                   kernel: torch.Tensor

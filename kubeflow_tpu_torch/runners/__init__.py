@@ -1,1 +1,1 @@
-"""Worker entry points."""
+"""Worker entry points: the LM runner and the JAXJob runner."""

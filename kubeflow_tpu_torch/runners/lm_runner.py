@@ -11,11 +11,15 @@ tokens_per_s=…``, ``train_done …``, ``loss=``, ``accuracy=``,
         --dataset=lm-small --steps=100 --batch-size=4
 
 ``--export-dir`` writes the reference's LM export format
-(``serving/lm_server.py``), which both packages serve. ``--remat``
+(``serving/lm_server.py``), which both packages serve. With
+``KFX_CHECKPOINT_DIR`` set (and no ``--no-checkpoint``) it saves the
+params, AdamW's moments and count every ``--checkpoint-every`` steps
+(``training/checkpoint.py``) and resumes from the newest on restart,
+printing ``resumed_from_checkpoint step=K``. ``--remat``
 (with ``--remat-policy``, the reference's policies) and ``--experts E``
 (MoE, top-2; the plan gains ``/ep{E}``) train as in the reference.
-Flags that need parts of the reference not ported yet (meshes,
-checkpoints) exit 2 naming the ROADMAP item that brings them. ``--collective-overlap`` has no counterpart on one GPU: ``auto`` and
+Flags that need parts of the reference not ported yet (meshes) exit 2
+naming the ROADMAP item that brings them. ``--collective-overlap`` has no counterpart on one GPU: ``auto`` and
 ``off`` are accepted as no-ops, ``on`` exits 2.
 """
 
@@ -106,10 +110,6 @@ def _unported(args) -> str:
         (args.cp > 1, f"--cp>1 needs {mesh}"),
         (args.sp, f"--sp needs {mesh}"),
         (args.fsdp, f"--fsdp needs {mesh}"),
-        (bool(os.environ.get("KFX_CHECKPOINT_DIR")) and not
-         args.no_checkpoint, "KFX_CHECKPOINT_DIR needs ROADMAP.md Queue A 7 "
-                             "(training/checkpoint.py); pass "
-                             "--no-checkpoint to train without"),
         (args.collective_overlap == "on", "--collective-overlap=on has no "
                                           "counterpart on one GPU"),
     )
@@ -180,15 +180,31 @@ def main(argv=None) -> int:
     model = loop.init_state()
     print(f"model_params={n_params(model)}", flush=True)
 
+    ckpt = None
+    start_step = 0
+    ckpt_dir = os.environ.get("KFX_CHECKPOINT_DIR", "")
+    if ckpt_dir and not args.no_checkpoint:
+        from ..training.checkpoint import Checkpointer
+
+        ckpt = Checkpointer(ckpt_dir, save_every=args.checkpoint_every,
+                            keep=args.keep_checkpoints)
+        if ckpt.restore_latest(loop) is not None:
+            start_step = loop.step
+            print(f"resumed_from_checkpoint step={start_step}", flush=True)
+
     it = ds.batches(args.batch_size, shard_index=rank, num_shards=world)
+    for _ in range(start_step):
+        next(it)
     t_start = time.time()
     t_last = t_start
     tokens_per_step = args.batch_size * ds.seq_len
     loss = acc = 0.0
     warmed = False
-    last_log_step = 0
-    for step in range(args.steps):
+    last_log_step = start_step
+    for step in range(start_step, args.steps):
         if step == args.fail_at_step:
+            if ckpt is not None:
+                ckpt.wait()   # the last scheduled save is durable first
             print(f"fault_injection_crash step={step}", flush=True)
             os._exit(17)
         loss, acc = loop.train_step(next(it))
@@ -207,6 +223,8 @@ def main(argv=None) -> int:
                   f"step_time={dt:.4f} tokens_per_s={tps:.0f}", flush=True)
             t_last = now
             last_log_step = step + 1
+        if ckpt is not None:
+            ckpt.maybe_save(step + 1, loop)
 
     metrics = loop.evaluate(ds.eval_batch(args.batch_size))
     wall = time.time() - t_start
@@ -215,6 +233,9 @@ def main(argv=None) -> int:
     print(f"loss={metrics['loss']:.6f}", flush=True)
     print(f"accuracy={metrics['accuracy']:.6f}", flush=True)
     print(f"entropy_floor={ds.entropy_floor():.6f}", flush=True)
+    if ckpt is not None:
+        ckpt.maybe_save(args.steps, loop, force=True)
+        ckpt.close()
     if args.export_dir:
         from ..models.convert import params_to_jax
         from ..serving.lm_server import export_lm

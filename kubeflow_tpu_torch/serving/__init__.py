@@ -1,1 +1,1 @@
-"""Model serving (one-shot LM generation behind the V1 HTTP server)."""
+"""Model serving: LM and classifier exports behind the V1 HTTP server."""

@@ -1,8 +1,154 @@
-"""Export format constants shared with ``kubeflow_tpu/serving/export.py``.
+"""Classifier export format — port of ``kubeflow_tpu/serving/export.py``
+(the ``storageUri`` payload an InferenceService loads).
 
-v1: the unversioned config. v2: adds ``format_version`` and the optional
-``quant`` block. Loaders treat a missing field as v1, so every
-pre-versioning export stays loadable.
+A directory with:
+  config.json    — ``model``, ``input_shape``, ``num_classes``,
+                   ``format_version`` and, for a quantized export, a
+                   ``quant`` block
+  params.msgpack — {params, batch_stats} in flax's layout and msgpack
+                   encoding (``models.convert.classifier_params_to_jax``,
+                   ``serving/_msgpack.py``), byte for byte what the
+                   reference writes for the same weights
+
+so the reference's ``JaxPredictor`` serves a port export and the port's
+serves a reference export. ``quantize="int8"`` stores every kernel as
+per-output-channel symmetric int8 with an f32 scale per output channel
+(the ``{"q", "scale"}`` pair); ``load_exported`` dequantizes on load.
+LoRA adapter artifacts are not ported (ROADMAP.md Queue A 5b.6).
 """
 
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+
+from . import _msgpack
+
+# v1: the unversioned {model, input_shape, num_classes} config. v2: adds
+# format_version and the optional quant block. Loaders treat a missing
+# field as v1, so every pre-versioning export stays loadable.
 FORMAT_VERSION = 2
+CONFIG_FILE = "config.json"
+PARAMS_FILE = "params.msgpack"
+
+
+def quantize_leaf_int8(w) -> Tuple[np.ndarray, np.ndarray]:
+    """The reference's per-channel symmetric int8 scheme
+    (``models/transformer.py`` ``quantize_leaf_int8`` with one output
+    axis): max|w| over every axis but the last, ``scale = amax / 127``
+    (1 for an all-zero channel, so dequant is exact), values rounded
+    half-to-even and clipped to [-127, 127]. Returns (q int8, scale f32)."""
+    w = np.asarray(w, np.float32)
+    red = tuple(range(w.ndim - 1))
+    amax = np.max(np.abs(w), axis=red)
+    scale = np.where(amax > 0, amax / np.float32(127.0),
+                     np.float32(1.0)).astype(np.float32)
+    q = np.clip(np.round(w / np.expand_dims(scale, red)), -127, 127)
+    return q.astype(np.int8), scale
+
+
+def dequantize_leaf_int8(q, scale) -> np.ndarray:
+    q = np.asarray(q)
+    red = tuple(range(q.ndim - 1))
+    return q.astype(np.float32) * np.expand_dims(
+        np.asarray(scale, np.float32), red)
+
+
+def quantize_tree_int8(tree: Any) -> Any:
+    """Every array leaf NAMED "kernel" with >= 2 dims becomes ``{"q":
+    int8, "scale": f32[out]}`` (the last axis is the output channel for
+    Dense [in, out] and Conv [kh, kw, cin, cout] alike). Biases, norm
+    scales and batch_stats pass through; the input is not mutated."""
+    def walk(node):
+        if isinstance(node, dict):
+            out = {}
+            for k, v in node.items():
+                if k == "kernel" and not isinstance(v, dict):
+                    w = np.asarray(v)
+                    if w.ndim >= 2 and w.dtype != np.int8:
+                        q, scale = quantize_leaf_int8(w)
+                        out[k] = {"q": q, "scale": scale}
+                        continue
+                out[k] = walk(v)
+            return out
+        return node
+
+    return walk(tree)
+
+
+def dequantize_tree_int8(tree: Any) -> Any:
+    """Inverse of ``quantize_tree_int8`` (up to quantization error)."""
+    def walk(node):
+        if isinstance(node, dict):
+            if set(node) == {"q", "scale"}:
+                q = np.asarray(node["q"])
+                if q.dtype == np.int8:
+                    return dequantize_leaf_int8(q, node["scale"])
+            return {k: walk(v) for k, v in node.items()}
+        return node
+
+    return walk(tree)
+
+
+def _sorted(tree):
+    """Every dict's keys in sorted order: the order ``jax.device_get``
+    leaves a flax tree in, so the file is the reference's byte for byte."""
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def export_params(directory: str, model_name: str, input_shape,
+                  num_classes: int, state: Any, quantize: str = "") -> str:
+    """Write a servable export from a ``training.loop.TrainState`` (or any
+    object whose ``params`` and ``batch_stats`` map the port model's
+    state_dict names to tensors)."""
+    from ..models.convert import classifier_params_to_jax
+
+    if quantize not in ("", "int8"):
+        raise ValueError(
+            f"unknown quantize {quantize!r} (expected '' or 'int8')")
+    os.makedirs(directory, exist_ok=True)
+    params, stats = classifier_params_to_jax(
+        model_name, {**state.params, **state.batch_stats})
+    params = _sorted(params)
+    if quantize == "int8":
+        params = quantize_tree_int8(params)
+    with open(os.path.join(directory, PARAMS_FILE), "wb") as f:
+        _msgpack.dump({"params": params, "batch_stats": _sorted(stats)}, f)
+    config: Dict[str, Any] = {"model": model_name,
+                              "input_shape": list(input_shape),
+                              "num_classes": int(num_classes),
+                              "format_version": FORMAT_VERSION}
+    if quantize == "int8":
+        config["quant"] = {"weights": "int8",
+                           "scheme": "per_channel_symmetric"}
+    with open(os.path.join(directory, CONFIG_FILE), "w") as f:
+        json.dump(config, f)
+    return directory
+
+
+def export_format_version(config: Dict[str, Any]) -> int:
+    """Tolerant version read: pre-versioning exports (no field) are v1."""
+    try:
+        return int(config.get("format_version", 1))
+    except (TypeError, ValueError):
+        return 1
+
+
+def load_exported(uri: str) -> Tuple[Dict, Any]:
+    """Load an export -> (config, {params, batch_stats}) as numpy trees in
+    flax's layout. Accepts a bare path or a file:// URI; an int8 export is
+    dequantized here (classifier servers rebuild full-precision models)."""
+    path = uri[len("file://"):] if uri.startswith("file://") else uri
+    with open(os.path.join(path, CONFIG_FILE)) as f:
+        config = json.load(f)
+    payload = _msgpack.load(os.path.join(path, PARAMS_FILE))
+    quant: Optional[Dict] = config.get("quant")
+    if quant and quant.get("weights") == "int8":
+        payload = dict(payload)
+        payload["params"] = dequantize_tree_int8(payload.get("params"))
+    return config, payload

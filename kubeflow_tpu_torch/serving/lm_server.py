@@ -74,7 +74,7 @@ from ..models.transformer import TransformerConfig
 from ..obs.metrics import default_registry
 from . import _msgpack
 from .engine import METER_ADAPTER, METER_QOS, DecodeEngine, EngineOverloaded
-from .export import FORMAT_VERSION
+from .export import FORMAT_VERSION, _sorted
 from .server import Predictor
 
 CONFIG_FILE = "lm_config.json"
@@ -82,15 +82,6 @@ PARAMS_FILE = "params.msgpack"
 
 _ENGINE = "ROADMAP.md Queue A 5b, the engine's extensions"
 _DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
-
-
-def _sorted(tree):
-    """The tree with every dict's keys in sorted order: the order
-    ``jax.device_get`` leaves a flax tree in, so the port's file is the
-    reference's byte for byte."""
-    if isinstance(tree, dict):
-        return {k: _sorted(tree[k]) for k in sorted(tree)}
-    return tree
 
 
 def export_lm(directory: str, cfg: TransformerConfig, params,

@@ -1,5 +1,7 @@
 """Model server: the V1 data plane — port of
-``kubeflow_tpu/serving/server.py`` for LM serving.
+``kubeflow_tpu/serving/server.py``: LM exports through ``:generate`` and
+classifier exports through ``:predict`` (``JaxPredictor``, optionally
+behind the ``MicroBatcher``).
 
     GET  /healthz | /                   -> {"status": "alive"|"draining"}
                                            503 {"status": "wedged"} while
@@ -14,7 +16,10 @@
     GET  /v1/models/{m}                 -> {"name": m, "ready": true}
     POST /v1/models/{m}:generate        -> {"generated_tokens": [...], ...}
                                            ("stream": true -> SSE)
-    POST /v1/models/{m}:predict         -> 400/500 for an LM, 404 unknown
+    POST /v1/models/{m}:predict         -> {"predictions": [...]} (and
+                                           "probabilities" when asked);
+                                           400 on a bad body, 500 on a
+                                           predictor error (an LM's too)
     POST /drain[?wait_s=S]              -> {"draining": true, "drained": b}
 
 /drain is the operator's pre-kill hook: readiness flips false, new
@@ -27,12 +32,12 @@ header, and each ``/healthz`` writes the newest flight snapshot to
 ``$KFX_WORKDIR/flight/<KFX_COMPONENT>-<pid>.json`` (atomically, at most
 once every ``KFX_FLIGHT_SNAP_S`` seconds, default 1, "0" off). The
 reference's weight-pool and KV-transfer routes (``:kvimport``,
-``:migrate``, ``:kvpeers``, ``:evict``), its chaos points and the
-classifier predictors and micro-batcher are not ported yet (ROADMAP.md
-Queue A 5b, 7 and 8).
+``:migrate``, ``:kvpeers``, ``:evict``) and its chaos points are not
+ported yet (ROADMAP.md Queue A 5b), nor are its PyTorch, TensorFlow and
+scikit-learn predictors (Queue A 9).
 
     python -m kubeflow_tpu_torch.serving.server --model-dir EXPORT \\
-        [--device cpu]
+        [--device cpu] [--batcher-max-latency-ms 5]
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import argparse
 import json
 import logging
 import os
+import queue
 import socket
 import sys
 import threading
@@ -48,6 +54,9 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional
 from urllib.parse import parse_qs, urlsplit
+
+import numpy as np
+import torch
 
 from ..obs import trace as obs_trace
 from ..obs.metrics import MetricsRegistry
@@ -100,11 +109,245 @@ class Predictor:
         raise NotImplementedError
 
 
+def load_export_meta(model_dir: str, filename: str = "config.json"):
+    """(input_shape, num_classes) from an export's metadata sidecar."""
+    path = os.path.join(model_dir, filename)
+    if not os.path.exists(path):
+        return None, None
+    with open(path) as f:
+        meta = json.load(f)
+    shape = tuple(meta["input_shape"]) if meta.get("input_shape") else None
+    ncls = int(meta["num_classes"]) if meta.get("num_classes") else None
+    return shape, ncls
+
+
+class JaxPredictor(Predictor):
+    """Serves a classifier export (``serving/export.py``, the reference's
+    format, so the name is the reference's too) on one device.
+
+    Batch-size buckets are the powers of two up to ``max_batch_size``,
+    plus ``max_batch_size`` itself when it is not one; a request pads up
+    to its bucket and one larger than ``max_batch_size`` runs as chunks of
+    it, so the model sees a fixed set of shapes, each warmed at
+    ``load()`` (cuDNN picks its algorithms per shape on the first call).
+    Probabilities are copied to the host only when asked for.
+
+    One deliberate divergence: the reference's ``device="auto"`` probes
+    the accelerator against the host CPU and may place small buckets on
+    the CPU, for a tunneled TPU whose every sync costs 65-100 ms. Here
+    ``auto`` and ``default`` mean ``cuda``, as they do for the LM server,
+    and ``placement`` reads "accelerator" for every bucket; ``probe_ms``
+    records the best of three one-instance predicts on the device. Only
+    ``device="cpu"`` serves on the CPU.
+    """
+
+    def __init__(self, model_dir: str, name: str = "",
+                 max_batch_size: int = 64, device: str = "auto"):
+        self.model_dir = model_dir
+        self.name = name or "model"
+        self.max_batch_size = max_batch_size
+        self.device = "cuda" if device in ("auto", "default") else device
+        self._buckets: List[int] = []
+        self.placement: Dict[int, str] = {}
+        self.probe_ms: Dict[str, float] = {}
+        self._model = None
+        self._dev = None
+
+    def load(self) -> None:
+        from ..device import resolve_device
+        from ..models import get_model
+        from ..models.convert import classifier_params_from_jax
+        from .export import load_exported
+
+        dev = resolve_device(self.device)
+        config, payload = load_exported(self.model_dir)
+        self.input_shape = tuple(config["input_shape"])
+        self.num_classes = int(config["num_classes"])
+        model = get_model(config["model"], num_classes=self.num_classes,
+                          input_shape=self.input_shape)
+        model.load_state_dict(classifier_params_from_jax(
+            config["model"], payload["params"], payload.get("batch_stats")))
+        self._model = model.to(dev, memory_format=torch.channels_last).eval()
+        self._dev = dev
+        self._buckets = []
+        b = 1
+        while b <= self.max_batch_size:
+            self._buckets.append(b)
+            b *= 2
+        if self._buckets[-1] != self.max_batch_size:
+            self._buckets.append(self.max_batch_size)
+        where = "cpu" if dev.type == "cpu" else "accelerator"
+        self.placement = {b: where for b in self._buckets}
+        for b in self._buckets:
+            self._run(np.zeros((b,) + self.input_shape, np.float32))[0].cpu()
+        probe = np.zeros((1,) + self.input_shape, np.float32)
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            self._run(probe)[0].cpu()
+            best = min(best, (time.perf_counter() - t0) * 1000)
+        self.probe_ms = {where: round(best, 2)}
+        self.ready = True
+
+    @torch.inference_mode()
+    def _run(self, x: np.ndarray):
+        logits = self._model(torch.from_numpy(x).to(self._dev))
+        return logits.argmax(-1), torch.softmax(logits, -1)
+
+    def _bucket(self, n: int) -> int:
+        for b in self._buckets:
+            if n <= b:
+                return b
+        return self._buckets[-1]
+
+    def predict(self, instances: np.ndarray,
+                probabilities: bool = False) -> Dict[str, Any]:
+        instances = np.asarray(instances, np.float32)
+        if instances.size and tuple(instances.shape[1:]) != self.input_shape:
+            raise ValueError(
+                f"instance shape {tuple(instances.shape[1:])} does not "
+                f"match model input {self.input_shape}")
+        preds: List[Any] = []
+        probs_out: List[Any] = []
+        for start in range(0, instances.shape[0], self.max_batch_size):
+            chunk = instances[start:start + self.max_batch_size]
+            n = chunk.shape[0]
+            b = self._bucket(n)
+            if n < b:
+                pad = np.zeros((b - n,) + chunk.shape[1:], chunk.dtype)
+                chunk = np.concatenate([chunk, pad], 0)
+            cls, probs = self._run(chunk)
+            if probabilities:
+                probs_out.extend(p.tolist() for p in probs[:n].cpu())
+            preds.extend(cls[:n].cpu().tolist())
+        out: Dict[str, Any] = {"predictions": preds}
+        if probabilities:
+            out["probabilities"] = probs_out
+        return out
+
+
+class MicroBatcher:
+    """Aggregates concurrent predict calls into one device dispatch — the
+    reference's, unchanged: flush when ``max_batch_size`` instances wait or
+    the oldest has waited ``max_latency_ms``. ``workers`` > 1 runs that many
+    batcher threads, so a batch can dispatch while another is in flight.
+    Each reply goes to its request's own queue, in order."""
+
+    def __init__(self, predictor: Predictor, max_batch_size: int = 32,
+                 max_latency_ms: float = 2.0, reply_timeout_s: float = 60.0,
+                 workers: int = 1):
+        self.predictor = predictor
+        self.max_batch_size = max_batch_size
+        self.max_latency_s = max_latency_ms / 1000.0
+        self.reply_timeout_s = reply_timeout_s
+        # Entries carry the submitting request's (trace, span) context: the
+        # batch runs on a worker thread, where the flush span and the
+        # predict must still correlate to the requests behind them.
+        self._q: "queue.Queue" = queue.Queue()
+        self._stop = threading.Event()
+        # Orders enqueue against close(): once close() sets _stop under
+        # this gate, no new request can slip past the drain.
+        self._gate = threading.Lock()
+        self._threads = [
+            threading.Thread(target=self._run, daemon=True,
+                             name=f"kfx-batcher-{i}")
+            for i in range(max(1, workers))]
+        for t in self._threads:
+            t.start()
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            try:
+                first = self._q.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            batch = [first]
+            count = first[0].shape[0]
+            deadline = time.monotonic() + self.max_latency_s
+            while count < self.max_batch_size:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    item = self._q.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                batch.append(item)
+                count += item[0].shape[0]
+            # A bad request (mismatched shapes failing the concatenate)
+            # must reply an error to every caller in its batch, never kill
+            # the batcher thread. The flush span takes the OLDEST request's
+            # context (its deadline forced the flush).
+            try:
+                want_probs = any(b[1] for b in batch)
+                stacked = np.concatenate([b[0] for b in batch], 0)
+                with obs_trace.span("batcher.flush", trace_id=first[3],
+                                    parent_id=first[4],
+                                    requests=str(len(batch)),
+                                    instances=str(stacked.shape[0])):
+                    result = self.predictor.predict(
+                        stacked, probabilities=want_probs)
+                preds = result["predictions"]
+                probs = result.get("probabilities")
+                off = 0
+                for arr, wp, reply, _, _ in batch:
+                    n = arr.shape[0]
+                    out = {"predictions": preds[off:off + n]}
+                    if wp and probs is not None:
+                        out["probabilities"] = probs[off:off + n]
+                    reply.put(out)
+                    off += n
+            except Exception as e:  # propagate per-request
+                for _, _, reply, _, _ in batch:
+                    reply.put(e)
+
+    def predict(self, instances: np.ndarray,
+                probabilities: bool = False) -> Dict[str, Any]:
+        # Shape mismatches fail fast here instead of poisoning a batch.
+        want = getattr(self.predictor, "input_shape", None)
+        if want is not None and tuple(instances.shape[1:]) != tuple(want):
+            raise ValueError(
+                f"instance shape {tuple(instances.shape[1:])} does not "
+                f"match model input {tuple(want)}")
+        reply: "queue.Queue" = queue.Queue()
+        with self._gate:
+            if self._stop.is_set():
+                # A predict racing close() fails fast instead of waiting
+                # reply_timeout_s with no worker left.
+                raise RuntimeError("batcher is closed")
+            self._q.put((instances, probabilities, reply,
+                         obs_trace.current_trace_id(),
+                         obs_trace.current_span_id()))
+        try:
+            out = reply.get(timeout=self.reply_timeout_s)
+        except queue.Empty:
+            raise TimeoutError(
+                f"batcher did not reply within {self.reply_timeout_s}s")
+        if isinstance(out, Exception):
+            raise out
+        return out
+
+    def close(self) -> None:
+        """Stop the workers, then answer every request they left queued
+        with an error (none waits out its reply timeout)."""
+        with self._gate:
+            self._stop.set()
+        for t in self._threads:
+            t.join(timeout=5.0)
+        while True:
+            try:
+                reply = self._q.get_nowait()[2]
+            except queue.Empty:
+                break
+            reply.put(RuntimeError("batcher closed while request queued"))
+
+
 class ModelServer:
     """HTTP server hosting one or more predictors (V1 protocol)."""
 
     def __init__(self, port: int = 0, host: str = "127.0.0.1"):
         self.predictors: Dict[str, Predictor] = {}
+        self.batchers: Dict[str, MicroBatcher] = {}
         # Drain mode: readiness false, new requests shed with 503 +
         # Retry-After. One-way.
         self.draining = False
@@ -253,7 +496,11 @@ class ModelServer:
             name, verb, code, dt * 1000, h.headers.get(TRACE_HEADER, ""))
 
     # -- registration -------------------------------------------------------
-    def register(self, predictor: Predictor) -> None:
+    def register(self, predictor: Predictor,
+                 batcher: Optional[Dict[str, Any]] = None) -> None:
+        """Host ``predictor``; ``batcher`` (the InferenceService spec's
+        ``{maxBatchSize, maxLatencyMs, replyTimeoutS, workers}``) puts its
+        :predict behind a MicroBatcher."""
         self.predictors[predictor.name] = predictor
         # Predictors with their own instruments (LM tokens/sec) record
         # into the server's registry so one /metrics shows everything.
@@ -263,6 +510,13 @@ class ModelServer:
             # Re-seed gauges set before the swap (warm-bucket count) so a
             # scrape before the first request already sees them.
             hook()
+        if batcher:
+            self.batchers[predictor.name] = MicroBatcher(
+                predictor,
+                max_batch_size=int(batcher.get("maxBatchSize", 32)),
+                max_latency_ms=float(batcher.get("maxLatencyMs", 2.0)),
+                reply_timeout_s=float(batcher.get("replyTimeoutS", 60.0)),
+                workers=int(batcher.get("workers", 1)))
 
     # -- request handling ---------------------------------------------------
     def _liveness(self) -> Dict[str, Any]:
@@ -417,16 +671,18 @@ class ModelServer:
             return
         if self._unavailable(h, name, p):
             return
-        body = self._read_json(h)
-        if body is None:
-            return
-        if "instances" not in body:
-            h._send(400, {"error": "bad request: 'instances'"})
+        try:
+            length = int(h.headers.get("Content-Length", 0))
+            body = json.loads(h.rfile.read(length) or b"{}")
+            instances = np.asarray(body["instances"], np.float32)
+            want_probs = bool(body.get("probabilities", False))
+        except (ValueError, KeyError, TypeError) as e:
+            h._send(400, {"error": f"bad request: {e}"})
             return
         try:
-            result = p.predict(body["instances"],
-                               probabilities=bool(
-                                   body.get("probabilities", False)))
+            batcher = self.batchers.get(name)
+            result = (batcher or p).predict(instances,
+                                            probabilities=want_probs)
         except Exception as e:
             h._send(500, {"error": str(e)})
             return
@@ -551,8 +807,13 @@ class ModelServer:
         return self
 
     def stop(self) -> None:
+        for b in self.batchers.values():
+            b.close()
         self.httpd.shutdown()
         self.httpd.server_close()
+
+
+_OTHER_FRAMEWORKS = "ROADMAP.md Queue A 9, the other framework predictors"
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -561,49 +822,82 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="export directory (storageUri)")
     p.add_argument("--name", default="model")
     p.add_argument("--port", type=int, default=8080)
-    p.add_argument("--max-batch-size", type=int, default=8,
-                   help="prompts per :generate request")
+    p.add_argument("--max-batch-size", type=int, default=None,
+                   help="classifiers default 64 (request bucketing); LMs "
+                        "default 8 (the decode engine's slots)")
     p.add_argument("--device", default="auto",
                    choices=["auto", "default", "cuda", "cpu"],
                    help="auto/default mean cuda")
+    p.add_argument("--batcher-max-latency-ms", type=float, default=0.0,
+                   help=">0 enables the micro-batcher")
+    p.add_argument("--batcher-reply-timeout-s", type=float, default=60.0)
+    p.add_argument("--batcher-workers", type=int, default=1,
+                   help=">1 lets a batch dispatch while another is in "
+                        "flight")
     p.add_argument("--framework", default="auto",
                    choices=["auto", "jax", "pytorch", "tensorflow",
                             "sklearn", "lm"],
-                   help="predict backend; auto sniffs the export format")
+                   help="predict backend; auto serves an LM export as lm "
+                        "and otherwise the classifier export (jax)")
     args = p.parse_args(argv)
 
+    from .export import CONFIG_FILE
     from .lm_server import LMPredictor, is_lm_export
 
     framework = args.framework
-    if framework == "auto" and is_lm_export(args.model_dir):
-        framework = "lm"
-    if framework != "lm":
-        print(f"error: {args.model_dir} is not an LM export; the port "
-              "serves LM exports only (classifier predictors: ROADMAP.md "
-              "Queue A 7)", file=sys.stderr)
+    if framework == "auto":
+        framework = "lm" if is_lm_export(args.model_dir) else "jax"
+    if framework in ("pytorch", "tensorflow", "sklearn"):
+        print(f"error: --framework {framework}: the {framework} predictor "
+              f"is not ported yet ({_OTHER_FRAMEWORKS})", file=sys.stderr)
         return 2
-    predictor = LMPredictor(args.model_dir, name=args.name,
-                            max_batch_size=args.max_batch_size,
-                            device=args.device)
+    if framework == "jax" and not os.path.exists(
+            os.path.join(args.model_dir, CONFIG_FILE)):
+        print(f"error: {args.model_dir} holds no export (no {CONFIG_FILE} "
+              "of a classifier, no lm_config.json of an LM)",
+              file=sys.stderr)
+        return 2
+    if args.max_batch_size is None:
+        args.max_batch_size = 8 if framework == "lm" else 64
+    if framework == "lm":
+        predictor = LMPredictor(args.model_dir, name=args.name,
+                                max_batch_size=args.max_batch_size,
+                                device=args.device)
+    else:
+        predictor = JaxPredictor(args.model_dir, name=args.name,
+                                 max_batch_size=args.max_batch_size,
+                                 device=args.device)
     t0 = time.time()
     predictor.load()
     server = ModelServer(port=args.port)
-    server.register(predictor)
+    batcher = None
+    if args.batcher_max_latency_ms > 0:
+        batcher = {"maxBatchSize": args.max_batch_size,
+                   "maxLatencyMs": args.batcher_max_latency_ms,
+                   "replyTimeoutS": args.batcher_reply_timeout_s,
+                   "workers": args.batcher_workers}
+    server.register(predictor, batcher)
     server.start()
-    engine = predictor.engine
-    print(f"server_ready name={args.name} port={server.port} "
-          f"framework={framework} "
-          f"load_seconds={time.time() - t0:.1f} "
-          f"device={predictor.device} "
-          f"engine={'on' if engine is not None else 'off'} "
-          f"spec={'on' if engine is not None and engine.spec else 'off'}",
-          flush=True)
+    line = (f"server_ready name={args.name} port={server.port} "
+            f"framework={framework} "
+            f"load_seconds={time.time() - t0:.1f} "
+            f"device={predictor.device} ")
+    if framework == "lm":
+        engine = predictor.engine
+        line += (f"engine={'on' if engine is not None else 'off'} "
+                 f"spec={'on' if engine is not None and engine.spec else 'off'}")
+    else:
+        line += (f"placement={json.dumps(predictor.placement)} "
+                 f"probe_ms={json.dumps(predictor.probe_ms)}")
+    print(line, flush=True)
     try:
         while True:
             time.sleep(3600)
     except KeyboardInterrupt:
         server.stop()
-        predictor.close()
+        close = getattr(predictor, "close", None)
+        if close is not None:
+            close()
     return 0
 
 

@@ -458,3 +458,86 @@ def test_spec_engine_preempts_degrades_and_samples_on_cuda(cuda_serving):
     assert pages["preemptions"] >= 1 and st["degraded"] >= 1
     assert pages["free"] + pages["cached"] == pages["pages"]
     assert draft_free == eng.draft_n_pages
+
+
+@pytest.fixture
+def cuda_classifier():
+    if not torch.cuda.is_available():
+        pytest.skip("the classifier path on the card (a ResNet-50 "
+                    "TrainLoop step, JaxPredictor on cuda) needs an NVIDIA "
+                    "GPU; torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def test_resnet50_train_step_on_cuda_matches_cpu(cuda_classifier):
+    """One f32 ResNet-50 step (SGD, so a param moves by lr x its grad) on
+    the card against the CPU from the same seeded init and batch: loss
+    1e-4 relative, param changes 1e-3 of the largest, running stats 1e-5;
+    then the default bf16 model steps with a finite loss."""
+    from kubeflow_tpu_torch.models import get_model
+    from kubeflow_tpu_torch.training import TrainLoop
+
+    shape = (32, 32, 3)
+    rng = np.random.default_rng(0)
+    x = rng.uniform(0, 1, (8,) + shape).astype(np.float32)
+    y = rng.integers(0, 10, 8)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        loop = TrainLoop(get_model("resnet50", input_shape=shape,
+                                   dtype=torch.float32),
+                         optimizer="sgd", learning_rate=0.1, device=dev)
+        state = loop.init_state(shape)
+        p0 = {k: v.detach().cpu().clone() for k, v in state.params.items()}
+        state, loss, _ = loop.train_step(state, x, y)
+        out[dev] = (loss, {k: v.detach().cpu() - p0[k]
+                           for k, v in state.params.items()},
+                    {k: v.cpu() for k, v in state.batch_stats.items()})
+    (l_cpu, d_cpu, s_cpu), (l_gpu, d_gpu, s_gpu) = out["cpu"], out["cuda"]
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    scale = max(float(d.abs().max()) for d in d_cpu.values())
+    for k in d_cpu:
+        assert float((d_gpu[k] - d_cpu[k]).abs().max()) <= 1e-3 * scale, k
+    for k in s_cpu:
+        assert _rel(s_gpu[k], s_cpu[k]) <= 1e-5, k
+    loop = TrainLoop(get_model("resnet50", input_shape=shape),
+                     device=cuda_classifier)
+    state = loop.init_state(shape)
+    from kubeflow_tpu_torch.data import get_dataset
+
+    fn = get_dataset("cifar10").device_batch_fn()
+    state, loss, _ = loop.train_steps_device(state, fn, 32, 0, 2)
+    assert math.isfinite(loss) and state.step == 2
+
+
+def test_jax_predictor_on_cuda(cuda_classifier, tmp_path):
+    """The classifier export served on the card by default (auto means
+    cuda) answers as the CPU predictor does: probabilities within 3e-2
+    (bf16), predictions on at least 95% of the images."""
+    from kubeflow_tpu_torch.data import get_dataset
+    from kubeflow_tpu_torch.models import get_model
+    from kubeflow_tpu_torch.serving.export import export_params
+    from kubeflow_tpu_torch.serving.server import JaxPredictor
+    from kubeflow_tpu_torch.training import TrainLoop
+
+    ds = get_dataset("mnist")
+    loop = TrainLoop(get_model("cnn", input_shape=ds.shape), device="cpu")
+    state = loop.init_state(ds.shape)
+    for images, labels in ds.batches(64, steps=5):
+        state, *_ = loop.train_step(state, images, labels)
+    export_params(str(tmp_path), "cnn", ds.shape, ds.num_classes, state)
+    images, _ = get_dataset("mnist", "eval").eval_arrays(40)
+    got = {}
+    for device in ("auto", "cpu"):
+        p = JaxPredictor(str(tmp_path), max_batch_size=16, device=device)
+        p.load()
+        got[device] = p.predict(images, probabilities=True)
+        if device == "auto":
+            assert p.device == "cuda"
+            assert set(p.placement.values()) == {"accelerator"}
+    assert np.abs(np.asarray(got["auto"]["probabilities"])
+                  - np.asarray(got["cpu"]["probabilities"])).max() <= 3e-2
+    agree = np.mean(np.asarray(got["auto"]["predictions"])
+                    == np.asarray(got["cpu"]["predictions"]))
+    assert agree >= 0.95

@@ -57,13 +57,25 @@ def test_every_module_imports_with_jax_blocked():
                          env=env)
     assert res.returncode == 0, res.stderr
     assert f"imported {len(_modules())}" in res.stdout
-    assert len(_modules()) >= 24
+    assert len(_modules()) >= 36
     # The serving engine, its prefix keying, its usage ledger and its
-    # flight recorder are on the list.
+    # flight recorder are on the list, and the classifier / JAXJob path.
     assert {"kubeflow_tpu_torch.serving.engine",
             "kubeflow_tpu_torch.serving.prefix",
             "kubeflow_tpu_torch.serving.metering",
-            "kubeflow_tpu_torch.obs.flightrec"} <= set(_modules())
+            "kubeflow_tpu_torch.obs.flightrec",
+            "kubeflow_tpu_torch.data.synthetic",
+            "kubeflow_tpu_torch.models.registry",
+            "kubeflow_tpu_torch.models.layers",
+            "kubeflow_tpu_torch.models.mlp",
+            "kubeflow_tpu_torch.models.cnn",
+            "kubeflow_tpu_torch.models.resnet",
+            "kubeflow_tpu_torch.models.vit",
+            "kubeflow_tpu_torch.training",
+            "kubeflow_tpu_torch.training.loop",
+            "kubeflow_tpu_torch.training.checkpoint",
+            "kubeflow_tpu_torch.runners.jax_runner",
+            "kubeflow_tpu_torch.serving.export"} <= set(_modules())
 
 
 def _sources():
