@@ -93,9 +93,51 @@ Phases, in order; any failure raises and the process exits non-zero:
    the iteration at 8 slots with the recorder off and on, in turns, and
    the record run under CUDA's sync-debug mode "error" (it must not
    synchronise);
+   (j) int8 serving at the base preset's full width, counters set to 0
+   just before and read just after (0/0/0: no kernel on this path, as in
+   the reference): (j0) on (b)'s wide-gap f32 weights, TF32 off, the w8
+   model's logits against the f32 model's (within 5% of the largest
+   |logit|, NLL within 2%) and the dequantized tree through the
+   full-precision path against the w8 path (1e-4); (j1) the int8-KV and
+   w8+kv8 engines' greedy drift from LMGenerator (mean agreement >= 0.5;
+   the first token equal wherever the f32 top-1/top-2 gap exceeds twice
+   the int8 path's largest logit change at that decision, the rows under
+   it counted), then the bf16 export behind ModelServer with
+   KFX_LM_QUANT=int8 and KFX_LM_KV_QUANT=int8 set as a user sets them:
+   one :generate of (a)'s 8 prompts at full length, repeats identical,
+   quant "w8+kv8" and the int8 kv_bytes_per_token in the JSON engine
+   block; (j2) an int8-KV engine in f32 with a small pool and the prefix
+   cache (a prefix hit, preemption) gives (j1)'s int8-KV tokens (a pool
+   that holds every request, no hit) byte for byte; (j3) a bf16 and an
+   int8 pool of the same bytes, 16 requests of 256 + 16 tokens: the int8
+   pool's peak concurrent admissions >= 1.8x the bf16 pool's; (j4) an
+   int8 draft (6 layers) on the f32 target, greedy equal to (f1)'s
+   tokens, the accept rate, and KFX_LM_QUANT_DRAFT=int8 on the bf16
+   export (mode "d8", one request); (j5) the
+   decode chunk at 8 slots under bf16 compute with f32 weights, w8, kv8
+   and w8+kv8, with pool bytes, weight bytes, peak memory and load
+   seconds, and one QuantDense call against the Dense call and a bf16
+   matmul at the mlp.wi shape for 8 tokens. No gain is claimed;
+   (k) the chaos points, through KFX_CHAOS where a user sets it: (k1)
+   engine.admit:count=1 answers 500 "chaos[engine.admit]: lm", the next
+   request serves, /metrics counts 1; (k2) engine.kv_alloc:count=1
+   answers 503 with Retry-After, then serves; (k3)
+   engine.wedge:count=1,delay=1.5: the heartbeat and /healthz show the
+   stall, the flight ring's last record is the stalled iteration, the
+   drain completes and the request finishes; (k4) engine.spec_verify on
+   every iteration of a request (f32 target, int8 draft): tokens equal,
+   accepted frozen, no page leak, speculation resumes; (k5)
+   engine.kv_quant:count=2 on a w8+kv8 engine: full-length answers that
+   differ from the clean run, an empty prefix cache, every page free
+   after a drain; (k6, in phase (i)) serving.predict:count=1 on
+   :predict: one 500, then served; (k7) the JAXJob runner twice in
+   subprocesses under runner.crash and checkpoint.save corruption with a
+   state file: exit 137 at step 20, then quarantine, resume from step
+   10, train_done 40;
 7. one JSON line per kernel set, the serving line, the engine line, the
-   spec line, the training line, the card's name and power limit, and
-   the last line {"ok": true, "device": {...}}.
+   spec line, the training line, the classifier line, the int8 line, the
+   chaos line, the card's name and power limit, and the last line
+   {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or without the port's package beside it, it exits non-zero
@@ -113,6 +155,7 @@ import re
 import subprocess
 import sys
 import time
+import urllib.error
 import urllib.request
 
 # Tolerances (kernel vs its plain version on the same inputs).
@@ -190,6 +233,24 @@ CLS_TOL_STATS = 1e-5   # BN running stats vs an explicit biased update, rel.
 CLS_SEQ = 50
 CLS_WAVE = 64
 CLS_BATCHER_MS = 5.0
+
+# int8 phase (j): the reference's bars (tests/test_generate.py
+# TestQuantization, tests/test_engine.py TestInt8KV). (j0) w8 logits within
+# 5% of the largest f32 |logit| and NLL within 2% over 2 x 512 tokens; the
+# dequantized tree through the full-precision path within 1e-4 of the w8
+# path (relative to the largest |logit|: full width in f32); (j1) greedy
+# drift: first token equal, mean agreement >= 0.5; (j3) admission at the
+# same pool bytes: 16 slots, 16 requests of 256 + 16 tokens, so the pool,
+# not the slots, gates it; int8 >= 1.8x bf16.
+INT8_SEQ = 512
+INT8_TOL_LOGITS = 0.05
+INT8_TOL_NLL = 0.02
+INT8_TOL_DEQUANT = 1e-4
+INT8_AGREE = 0.5
+ADMIT_SLOTS = 16
+ADMIT_PROMPT = 256
+ADMIT_NEW = 16
+INT8_ADMIT_RATIO = 1.8
 
 
 def log(msg: str) -> None:
@@ -1873,6 +1934,674 @@ def spec_phase(torch, fa, export_dir, gap_cfg, prompts, f1, f2_tokens, dev):
     return rec
 
 
+# -- (j) int8 serving at full width -----------------------------------------
+
+def _agreement(got, want):
+    """(first tokens all equal, mean per-row share of equal positions)."""
+    first = all(g[0] == w[0] for g, w in zip(got, want))
+    rows = [sum(a == b for a, b in zip(g, w)) / len(w)
+            for g, w in zip(got, want)]
+    return first, sum(rows) / len(rows)
+
+
+def chunk_by_hand(torch, eng, prompts):
+    """The decode chunk at 8 active slots on a stopped engine (as (f3)):
+    the prompts admitted whole with a budget of a quarter of the cache,
+    then the chunk's CUDA-event time (median of 3), its host enqueue
+    (median of 3) and a profile of one chunk (step_profile)."""
+    with torch.inference_mode():
+        eng._cache.pos.fill_(-1)
+        eng.prefill_chunk_tokens = 0
+        budget = eng.cfg.max_seq_len // 4
+        for slot, p in enumerate(prompts[:ENGINE_SLOTS]):
+            eng._admit(eng._make_request(p, budget, 0.0, 0, 0, None), slot)
+
+        def chunk():
+            eng._ensure_chunk_pages()
+            eng._decode_chunk()
+
+        chunk()
+        chunk()
+        check(int(eng._active.sum()) == ENGINE_SLOTS, "slots not active")
+        chunk_ms = event_ms(torch, chunk, 3)
+        enq = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            packed = eng._chunk_launch()
+            enq.append((time.perf_counter() - t0) * 1e3)
+            eng._chunk_collect(packed)
+        prof = step_profile(torch, chunk, 1)
+    return chunk_ms, sorted(enq)[1], prof
+
+
+def first_logits(torch, eng, prompt):
+    """The logits a stopped engine's paged prefill gives the first new
+    token of ``prompt`` (the engine's own ``_prefill`` into fresh pages,
+    freed after)."""
+    import numpy as np
+
+    n = -(-len(prompt) // eng.page_size)
+    pages = eng._alloc_pages(n)
+    row = np.full((eng.n_blocks,), -1, np.int32)
+    row[:n] = pages
+    try:
+        with torch.inference_mode():
+            return eng._prefill(prompt, 0, row).clone()
+    finally:
+        eng._mgr.decref(pages)
+
+
+def peak_admission(eng, prompts, new):
+    """Submit every prompt at once and poll the engine's active slots
+    until all finish: (peak concurrent admissions, answers)."""
+    reqs = [eng.submit(p, max_new_tokens=new) for p in prompts]
+    peak, deadline = 0, time.monotonic() + 600
+    while not all(r.done() for r in reqs) and time.monotonic() < deadline:
+        peak = max(peak, eng._active_count())
+        time.sleep(0.002)
+    return peak, [r.result(60) for r in reqs]
+
+
+def int8_phase(torch, fa, export_dir, gap_cfg, prompts, f1, dev):
+    """(j) int8 weights, int8 paged KV and the int8 draft at the base
+    preset's full width; see the module docstring. ``f1`` holds phase
+    (f1)'s LMGenerator tokens on the wide-gap f32 weights. Returns the
+    {"int8": ...} record."""
+    import dataclasses
+
+    import numpy as np
+
+    from kubeflow_tpu_torch.models.convert import params_to_jax
+    from kubeflow_tpu_torch.models.generate import load_decode_model
+    from kubeflow_tpu_torch.models.transformer import (
+        Dense, QuantDense, TransformerLM, dequantize_params_int8,
+        quantize_leaf_int8, quantize_params_int8)
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+    from kubeflow_tpu_torch.serving.lm_server import LMPredictor, load_lm
+    from kubeflow_tpu_torch.serving.server import ModelServer
+
+    torch.cuda.empty_cache()
+    fa.reset_launches()
+    rec = {"seconds": {}}
+    kw = dict(n_slots=ENGINE_SLOTS, chunk_tokens=ENGINE_CHUNK,
+              kv_page_size=ENGINE_PAGE, device=dev)
+    t_sub = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        rec["seconds"][name] = now - t_sub[0]
+        t_sub[0] = now
+
+    # (j0) int8 weights against full precision: wide-gap f32 weights.
+    g = torch.Generator(device=dev).manual_seed(0)
+    model = TransformerLM(gap_cfg, device=dev, generator=g)
+    wide_gap_(torch, model)
+    model.eval().requires_grad_(False)
+    tree = params_to_jax(model.state_dict())
+    t0 = time.perf_counter()
+    qtree = quantize_params_int8(tree)
+    rec["quantize_seconds"] = time.perf_counter() - t0
+    cfg8 = dataclasses.replace(gap_cfg, quant="int8")
+    w8 = load_decode_model(cfg8, qtree, dev)
+    deq = load_decode_model(gap_cfg, dequantize_params_int8(qtree), dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, gap_cfg.vocab_size, (2, INT8_SEQ), device=dev,
+                         generator=gen)
+    with torch.inference_mode():
+        lf, lq, ld = model(toks), w8(toks), deq(toks)
+
+        def nll(logits):
+            lp = torch.log_softmax(logits[:, :-1], -1)
+            return -float(lp.gather(-1, toks[:, 1:, None]).mean())
+
+        nf, nq = nll(lf), nll(lq)
+    big = float(lf.abs().max())
+    rec["w8_logits_rel_err"] = max_abs(lq, lf) / big
+    rec["w8_nll"], rec["f32_nll"] = nq, nf
+    rec["w8_nll_rel_change"] = abs(nq - nf) / nf
+    rec["dequant_vs_w8_abs"] = max_abs(ld, lq)
+    rec["dequant_vs_w8_rel"] = rec["dequant_vs_w8_abs"] / big
+    check(rec["w8_logits_rel_err"] < INT8_TOL_LOGITS,
+          f"(j0) w8 logits off by {rec['w8_logits_rel_err']:.4f} of range")
+    check(rec["w8_nll_rel_change"] < INT8_TOL_NLL,
+          f"(j0) w8 NLL {nq:.5f} vs f32 {nf:.5f}")
+    check(rec["dequant_vs_w8_rel"] < INT8_TOL_DEQUANT,
+          f"(j0) dequantized path vs w8 {rec['dequant_vs_w8_rel']:.3g}")
+    log(f"int8 (j0) base f32 wide-gap, {toks.shape[0]}x{INT8_SEQ} tokens: "
+        f"w8 logits within {rec['w8_logits_rel_err']:.5f} of max |logit| "
+        f"{big:.3f} (bar {INT8_TOL_LOGITS}); NLL {nq:.5f} vs {nf:.5f} "
+        f"(change {rec['w8_nll_rel_change']:.5f}, bar {INT8_TOL_NLL}); "
+        f"dequantized tree through the f32 path vs w8 "
+        f"{rec['dequant_vs_w8_abs']:.3g} abs ({rec['dequant_vs_w8_rel']:.3g}"
+        f" rel); quantize {rec['quantize_seconds']:.2f} s on the host")
+    del w8, deq, lf, lq, ld
+    torch.cuda.empty_cache()
+    lap("j0")
+
+    # (j1) drift of the int8 engines from LMGenerator on those weights:
+    # the reference's contract, for int8 KV alone and for int8 weights and
+    # KV (the user's path below). Mean agreement >= 0.5 is held as it is;
+    # the first token is held equal wherever the f32 top-1/top-2 gap of
+    # the first decision exceeds twice the int8 path's largest logit
+    # change there (then no argmax can move); rows under that are counted.
+    with torch.inference_mode():
+        f32_first = [model(torch.tensor([p], device=dev))[0, -1]
+                     for p in prompts]
+    gaps = [float(t.topk(2).values[0] - t.topk(2).values[1])
+            for t in f32_first]
+    drift, drift_out = {}, {}
+    for mode, (cfg_m, tree_m) in (("kv8", (gap_cfg, tree)),
+                                  ("w8+kv8", (cfg8, qtree))):
+        eng = DecodeEngine(cfg_m, tree_m, name=f"drift-{mode}",
+                           kv_quant="int8", **kw)
+        try:
+            check(eng.quant_mode == mode, f"(j1) mode {eng.quant_mode}")
+            got = eng.generate(prompts, SERVE_NEW)
+        finally:
+            eng.close()
+        diffs = [max_abs(first_logits(torch, eng, p), t)
+                 for p, t in zip(prompts, f32_first)]
+        equal = [g[0] == w[0] for g, w in zip(got, f1["want"])]
+        held = [i for i in range(len(prompts)) if gaps[i] > 2 * diffs[i]]
+        drift_out[mode] = got
+        first, agree = _agreement(got, f1["want"])
+        drift[mode] = {"agreement": agree, "first_token_equal": equal,
+                       "first_gap": gaps, "first_logit_change": diffs,
+                       "rows_held": held}
+        check(all(len(r) == SERVE_NEW for r in got)
+              and all(equal[i] for i in held) and agree >= INT8_AGREE,
+              f"(j1) {mode} drift: {json.dumps(drift[mode])}")
+    rec["drift"] = drift
+    del model
+    torch.cuda.empty_cache()
+    log(f"int8 (j1) drift from LMGenerator on the f32 wide-gap weights, "
+        f"{len(prompts)} x {SERVE_NEW} greedy: {json.dumps(drift)}")
+    lap("j1_drift")
+
+    # (j1) the user's path: the bf16 export behind ModelServer with
+    # KFX_LM_QUANT=int8 and KFX_LM_KV_QUANT=int8 (speculation on, the
+    # default), one :generate of (a)'s 8 prompts, then twice more warm.
+    env = {"KFX_LM_QUANT": "int8", "KFX_LM_KV_QUANT": "int8"}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        pred = LMPredictor(export_dir, name="lm", device=dev.type)
+        pred.load()
+        rec["w8kv8_predictor_load_seconds"] = time.perf_counter() - t0
+    finally:
+        for k in env:
+            del os.environ[k]
+    eng = pred.engine
+    check(eng.quant_mode == "w8+kv8" and eng.spec,
+          f"(j1) served mode {eng.quant_mode}, spec {eng.spec}")
+    server = ModelServer(port=0)
+    server.register(pred)
+    server.start()
+    url = f"http://127.0.0.1:{server.port}"
+    gen_url = f"{url}/v1/models/lm:generate"
+    body = {"prompt_tokens": prompts, "max_new_tokens": SERVE_NEW}
+    t0 = time.perf_counter()
+    cold = http_json(gen_url, body)["generated_tokens"]
+    rec["w8kv8_http_seconds"] = time.perf_counter() - t0
+    warm = [http_json(gen_url, body)["generated_tokens"] for _ in range(2)]
+    blk = http_json(f"{url}/metrics?format=json")["engine"]["lm"]
+    check(all(len(r) == SERVE_NEW for r in cold),
+          f"(j1) answers {[len(r) for r in cold]}")
+    check(warm[0] == warm[1], "(j1) the repeated :generate answered "
+                              "differently")
+    check(blk["quant"] == "w8+kv8"
+          and blk["kv_bytes_per_token"] == eng.kv_bytes_per_token,
+          f"(j1) engine block {blk}")
+    rec["served"] = {"quant": blk["quant"],
+                     "kv_bytes_per_token": blk["kv_bytes_per_token"],
+                     "rows_equal_cold_warm": sum(
+                         a == b for a, b in zip(cold, warm[0])),
+                     "pool_bytes": eng.pool_bytes,
+                     "spec_accept_rate": blk.get("spec_accept_rate")}
+    log(f"int8 (j1) bf16 export served w8+kv8 (KFX_LM_QUANT=int8 "
+        f"KFX_LM_KV_QUANT=int8, speculation on): {len(prompts)} x "
+        f"{SERVE_NEW} in {rec['w8kv8_http_seconds']:.3f} s, full length; "
+        f"warm repeats identical; engine block {json.dumps(blk)}")
+
+    # (k1)-(k3) on that server (the wedge drains it, so it comes last).
+    lap("j1_served")
+    rec["_chaos"] = chaos_server_checks(server, pred, prompts)
+    server.stop()
+    pred._warm_thread.join(600)
+    eng.close()
+    del pred, eng, server
+    torch.cuda.empty_cache()
+    lap("k1_k3")
+
+    # (j2) the page machinery is invisible under int8 KV, f32 weights: a
+    # small pool with the prefix cache (the longest prompt twice, the
+    # second a prefix hit; then the 8 prompts, which preempt) against the
+    # (j1) int8-KV engine, whose pool holds every request whole and whose
+    # one wave of distinct prompts hits no cached page.
+    i512 = max(range(len(prompts)), key=lambda i: len(prompts[i]))
+    eng = DecodeEngine(gap_cfg, tree, name="kv8-small", kv_quant="int8",
+                       kv_pages=ENGINE_SMALL_POOL, **kw)
+    try:
+        got_s = [eng.generate([prompts[i512]], SERVE_NEW)[0]
+                 for _ in range(2)] + eng.generate(prompts, SERVE_NEW)
+        pages_s, pre_s = eng.page_stats(), eng.prefix_stats()
+    finally:
+        eng.close()
+    plain = drift_out["kv8"]
+    got_p = [plain[i512], plain[i512]] + plain
+    check(pages_s["preemptions"] >= 1 and pre_s["hits"] >= 1,
+          f"(j2) small pool {pages_s} {pre_s}")
+    check(pages_s["free"] + pages_s["cached"] == pages_s["pages"],
+          f"(j2) page leak {pages_s}")
+    bad = [(i, next(j for j, (a, b) in enumerate(zip(x, y)) if a != b))
+           for i, (x, y) in enumerate(zip(got_s, got_p)) if x != y]
+    check(not bad, f"(j2) int8 tokens changed with preemption / prefix "
+                   f"hits: (row, first differing index) {bad}")
+    lap("j2")
+    rec["page_machinery"] = {"small_pool": pages_s, "prefix": pre_s}
+    log(f"int8 (j2) f32 weights, int8 KV: pool of {ENGINE_SMALL_POOL} "
+        f"pages {pages_s}, prefix {pre_s}: tokens byte-identical to (j1)'s "
+        f"large pool")
+
+    # (j3) admission at the same pool bytes (bf16 export): pages gate it.
+    cfg_b, tree_b = load_lm(export_dir)
+    rng = np.random.default_rng(3)
+    adm_prompts = [rng.integers(0, cfg_b.vocab_size, ADMIT_PROMPT).tolist()
+                   for _ in range(ADMIT_SLOTS)]
+    akw = dict(n_slots=ADMIT_SLOTS, chunk_tokens=ENGINE_CHUNK,
+               kv_page_size=ENGINE_PAGE, prefix_cache=False, device=dev)
+    # The bf16 pool is the least an engine takes (one max-length request);
+    # the int8 pool gets as many pages as the same bytes buy, at the int8
+    # bytes a token of (j1)'s served engine (same geometry).
+    bf16_pages = cfg_b.max_seq_len // ENGINE_PAGE
+    adm = {}
+    for mode in ("", "int8"):
+        n_pages = bf16_pages if not mode else (
+            bf16_pages * adm["bf16"]["kv_bytes_per_token"]
+            // rec["served"]["kv_bytes_per_token"])
+        eng = DecodeEngine(cfg_b, tree_b, name=f"admit-{mode or 'bf16'}",
+                           kv_pages=n_pages, kv_quant=mode, **akw)
+        try:
+            peak, outs_a = peak_admission(eng, adm_prompts, ADMIT_NEW)
+            adm[mode or "bf16"] = {
+                "pages": n_pages, "peak_admitted": peak,
+                "kv_bytes_per_token": eng.kv_bytes_per_token,
+                "pool_bytes": eng.pool_bytes}
+        finally:
+            eng.close()
+        check(all(len(o) == ADMIT_NEW for o in outs_a),
+              "(j3) an admission test request came back short")
+    ratio = adm["int8"]["peak_admitted"] / adm["bf16"]["peak_admitted"]
+    adm["ratio"] = ratio
+    rec["admission"] = adm
+    check(ratio >= INT8_ADMIT_RATIO,
+          f"(j3) int8 admitted {ratio:.2f}x the bf16 pool's: {adm}")
+    log(f"int8 (j3) same pool bytes, {ADMIT_SLOTS} slots, {ADMIT_SLOTS} "
+        f"requests of {ADMIT_PROMPT}+{ADMIT_NEW} tokens: {json.dumps(adm)}")
+    torch.cuda.empty_cache()
+    lap("j3")
+
+    # (j4) the int8 draft: the speculating engine on the f32 target with
+    # an int8 draft; greedy equal to (f1)'s non-speculative tokens.
+    draft = max(1, gap_cfg.n_layers // 4)
+    eng = DecodeEngine(gap_cfg, tree, name="d8", draft_layers=draft,
+                       propose_tokens=SPEC_TOKENS, draft_quant="int8", **kw)
+    try:
+        check(eng.quant_mode == "d8", f"(j4) mode {eng.quant_mode}")
+        got = eng.generate(prompts, SERVE_NEW)
+        st = eng.spec_stats()
+        check(got == f1["want"], "(j4) int8-draft greedy tokens differ from "
+                                 "the non-speculative engine's")
+        check(eng._draft_mgr.n_free == eng.draft_n_pages,
+              "(j4) draft page leak")
+        rec["draft"] = dict(st, accept_rate=st["accepted"] / max(
+            1, st["proposed"]), draft_layers=draft)
+        # (k4) on the same engine: full-rejection waves across a request.
+        rec["_chaos"]["k4"] = chaos_spec_verify(eng, prompts[0], f1)
+    finally:
+        eng.close()
+    del eng
+    # The knob as a user sets it, on the bf16 export: one request.
+    os.environ["KFX_LM_QUANT_DRAFT"] = "int8"
+    try:
+        pred = LMPredictor(export_dir, name="lm", device=dev.type,
+                           warm_buckets=[8])
+        pred.load()
+    finally:
+        del os.environ["KFX_LM_QUANT_DRAFT"]
+    try:
+        check(pred.engine.quant_mode == "d8",
+              f"(j4) served mode {pred.engine.quant_mode}")
+        out = pred.generate({"prompt_tokens": prompts[:1],
+                             "max_new_tokens": SERVE_NEW})
+        check(len(out["generated_tokens"][0]) == SERVE_NEW,
+              "(j4) KFX_LM_QUANT_DRAFT=int8 answers short")
+        st = pred.engine.spec_stats()
+        rec["draft"]["served_bf16_accept_rate"] = st["accepted"] / max(
+            1, st["proposed"])
+    finally:
+        pred.close()
+    log(f"int8 (j4) int8 draft ({draft} layers) on the f32 target: greedy "
+        f"== (f1) for {len(prompts)} x {SERVE_NEW}, {json.dumps(rec['draft'])}")
+    del pred
+    torch.cuda.empty_cache()
+    lap("j4_k4")
+
+    # (j5) costs, bf16 export: the decode chunk at 8 slots per mode, pool
+    # bytes, peak memory and load seconds; QuantDense against Dense.
+    qtree_b = quantize_params_int8(tree_b)
+    cfg8_b = dataclasses.replace(cfg_b, quant="int8")
+    costs = {}
+    for mode, cfg_m, tree_m, kvq in (
+            ("bf16", cfg_b, tree_b, ""), ("w8", cfg8_b, qtree_b, ""),
+            ("kv8", cfg_b, tree_b, "int8"),
+            ("w8+kv8", cfg8_b, qtree_b, "int8")):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = DecodeEngine(cfg_m, tree_m, name=f"cost-{mode}", kv_quant=kvq,
+                           **kw)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        eng.close()
+        chunk_ms, enq, prof = chunk_by_hand(torch, eng, prompts)
+        busy = prof.get("kernel_ms")
+        costs[mode] = {
+            "chunk_ms": chunk_ms, "step_ms": chunk_ms / ENGINE_CHUNK,
+            "host_enqueue_ms": enq, "kernel_ms": busy,
+            "kernels": prof.get("kernels"),
+            "busy_share": busy / chunk_ms if busy else None,
+            "top_kernels_ms": prof.get("top_kernels_ms"),
+            "load_seconds": load_s,
+            "pool_bytes": eng.pool_bytes,
+            "kv_bytes_per_token": eng.kv_bytes_per_token,
+            "weight_bytes": sum(t.numel() * t.element_size() for t in
+                                eng.model.state_dict().values()),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del eng
+    rec["costs"] = costs
+    d, f = cfg_b.d_model, 2 * cfg_b.d_ff
+    w = np.random.default_rng(4).normal(size=(d, f)).astype(np.float32)
+    q, scale = quantize_leaf_int8(w * 0.02, 1)
+    qd = QuantDense((d,), (f,), cfg_b).to(dev)
+    qd.kernel.data = torch.from_numpy(q).to(dev)
+    qd.scale.data = torch.from_numpy(scale).to(dev)
+    dense = Dense((d,), (f,), cfg_b).to(dev)
+    with torch.no_grad():
+        dense.kernel.copy_(torch.from_numpy(w * 0.02))
+    x = torch.randn(ENGINE_SLOTS, 1, d, device=dev, dtype=cfg_b.dtype)
+    wb = dense.kernel.to(cfg_b.dtype)
+    with torch.inference_mode():
+        ms = {"quant_dense": time_ms(torch, lambda: qd(x), 20),
+              "dense": time_ms(torch, lambda: dense(x), 20),
+              "bf16_matmul": time_ms(torch, lambda: x @ wb, 20)}
+    nbytes = d * f + 2 * ENGINE_SLOTS * (d + f) + 4 * f
+    ms["int8_bound_ms"] = nbytes / HBM_BYTES_S * 1e3
+    ms["shape"] = [ENGINE_SLOTS, d, f]
+    rec["quant_dense"] = ms
+    rec["flash_launches"] = dict(fa.LAUNCHES)
+    check(all(v == 0 for v in rec["flash_launches"].values()),
+          f"(j) flash launches {rec['flash_launches']}")
+    lap("j5")
+    log(f"int8 (j5) decode chunk at {ENGINE_SLOTS} slots by mode: "
+        f"{json.dumps(costs)}; mlp.wi [{ENGINE_SLOTS}x{d}]x[{d}x{f}]: "
+        f"{json.dumps(ms)}; flash launches {rec['flash_launches']}")
+    return rec
+
+
+# -- (k) the chaos points on the card -----------------------------------------
+
+def chaos_metric(url, point):
+    """kfx_chaos_injected_total{point} from the server's /metrics."""
+    text = urllib.request.urlopen(f"{url}/metrics", timeout=60).read().decode()
+    m = re.search(r'^kfx_chaos_injected_total\{point="%s"\} (\S+)$'
+                  % re.escape(point), text, re.M)
+    return float(m.group(1)) if m else None
+
+
+def post_status(url, payload):
+    """POST JSON: (status, decoded answer, headers), errors included."""
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read()), r.headers
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), e.headers
+
+
+@contextlib.contextmanager
+def chaos_env(spec):
+    """KFX_CHAOS=spec for the block, with fresh process-local counts."""
+    from kubeflow_tpu_torch import chaos
+
+    chaos.reset()
+    os.environ["KFX_CHAOS"] = spec
+    try:
+        yield chaos
+    finally:
+        del os.environ["KFX_CHAOS"]
+        chaos.reset()
+
+
+def chaos_server_checks(server, pred, prompts):
+    """(k1) engine.admit, (k2) engine.kv_alloc, (k5) engine.kv_quant and
+    (k3) engine.wedge on the w8+kv8 server of (j1), through KFX_CHAOS as a
+    user sets it."""
+    url = f"http://127.0.0.1:{server.port}"
+    gen_url = f"{url}/v1/models/lm:generate"
+    one = {"prompt_tokens": [prompts[0][:64]], "max_new_tokens": 16}
+    out = {}
+    with chaos_env("engine.admit:count=1"):
+        code, body, _ = post_status(gen_url, one)
+        check(code == 500 and body["error"] == "chaos[engine.admit]: lm",
+              f"(k1) {code} {body}")
+        code2, body2, _ = post_status(gen_url, one)
+        check(code2 == 200 and len(body2["generated_tokens"][0]) == 16,
+              f"(k1) next request {code2} {body2}")
+        n = chaos_metric(url, "engine.admit")
+        check(n == 1, f"(k1) kfx_chaos_injected_total engine.admit {n}")
+    out["k1"] = {"status": code, "error": body["error"], "next": code2,
+                 "metric": n}
+    with chaos_env("engine.kv_alloc:count=1"):
+        code, body, headers = post_status(gen_url, one)
+        check(code == 503 and headers.get("Retry-After") == "1"
+              and "chaos[engine.kv_alloc]" in body["error"],
+              f"(k2) {code} {body} {dict(headers)}")
+        code2, body2, _ = post_status(gen_url, one)
+        check(code2 == 200 and len(body2["generated_tokens"][0]) == 16,
+              f"(k2) next request {code2} {body2}")
+    out["k2"] = {"status": code, "retry_after": headers.get("Retry-After"),
+                 "next": code2}
+    log(f"chaos (k1) engine.admit:count=1 -> {out['k1']}; (k2) "
+        f"engine.kv_alloc:count=1 -> {out['k2']}")
+    # (k3) the wedge: the heartbeat shows the stall, the ring's last
+    # record is the stalled iteration, drain completes, the request ends.
+    eng = pred.engine
+    eng.stall_threshold_s = 0.5
+    with chaos_env("engine.wedge:count=1,delay=1.5") as chaos:
+        req = eng.submit(prompts[0][:64], max_new_tokens=16)
+        seen, deadline = None, time.monotonic() + 60
+        while time.monotonic() < deadline and not req.done():
+            hb = eng.heartbeat()
+            if hb["busy"] and hb["stalled_s"] > 0.8:
+                seen = hb
+                break
+            time.sleep(0.02)
+        check(seen is not None, "(k3) no stall seen on the heartbeat")
+        try:
+            urllib.request.urlopen(f"{url}/healthz", timeout=60)
+            code = 200
+        except urllib.error.HTTPError as e:
+            code = e.code
+        check(code == 503, f"(k3) /healthz answered {code} mid-stall")
+        last = eng.flight.snapshot()["records"][-1]
+        frozen = eng.heartbeat()["iterations"]
+        check(last["it"] == frozen and (last["active"] or
+                                        last["prefilling"]),
+              f"(k3) last record {last} vs iterations {frozen}")
+        drained = server.drain(wait_s=60)
+        toks = req.result(60)
+        check(drained["drained"] is True and len(toks) == 16,
+              f"(k3) drain {drained}, {len(toks)} tokens")
+        check(chaos.injected_counts().get("engine.wedge") == 1,
+              "(k3) wedge count")
+    out["k3"] = {"stalled_s": seen["stalled_s"], "wedged": seen["wedged"],
+                 "healthz": code, "last_record_it": last["it"],
+                 "iterations": frozen, "drained": drained["drained"]}
+    log(f"chaos (k3) engine.wedge:count=1,delay=1.5 -> {out['k3']}")
+    return out
+
+
+def chaos_spec_verify(eng, prompt, f1):
+    """(k4) engine.spec_verify across a whole request on the f32 target:
+    output equal to the uninjected run's, accepted frozen, no page leak
+    from either pool, and the engine speculates again after."""
+    from kubeflow_tpu_torch import chaos
+
+    want = f1["want"][0]
+    acc0 = eng.spec_stats()["accepted"]
+    chaos.install(chaos.parse_spec("engine.spec_verify:count=100000"))
+    try:
+        got = eng.generate([prompt], SERVE_NEW)[0]
+        n = chaos.injected_counts().get("engine.spec_verify", 0)
+    finally:
+        chaos.reset()
+    acc1 = eng.spec_stats()["accepted"]
+    pages = eng.page_stats()
+    check(got == want and n >= 1 and acc1 == acc0,
+          f"(k4) tokens equal {got == want}, injections {n}, accepted "
+          f"{acc0} -> {acc1}")
+    check(pages["free"] + pages["cached"] == pages["pages"]
+          and eng._draft_mgr.n_free == eng.draft_n_pages,
+          f"(k4) page leak {pages}")
+    prop = eng.spec_stats()["proposed"]
+    check(eng.generate([prompt], SERVE_NEW)[0] == want
+          and eng.spec_stats()["proposed"] > prop,
+          "(k4) the engine does not speculate again")
+    out = {"injections": n, "accepted_frozen": acc1 == acc0,
+           "pages": pages}
+    log(f"chaos (k4) engine.spec_verify on every iteration of a "
+        f"{SERVE_NEW}-token request: {out}; tokens unchanged, speculates "
+        f"again after")
+    return out
+
+
+def chaos_kv_quant(export_dir, prompts, dev):
+    """(k5) engine.kv_quant:count=2 on the w8+kv8 engine at full width
+    (all prompts admitted before the first decode chunk): every request
+    completes at full length, the output differs from the clean run, the
+    prefix cache is empty after, and every page is free after a drain."""
+    import dataclasses
+
+    from kubeflow_tpu_torch import chaos
+    from kubeflow_tpu_torch.models.transformer import quantize_params_int8
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+    from kubeflow_tpu_torch.serving.lm_server import load_lm
+
+    cfg, tree = load_lm(export_dir)
+    eng = DecodeEngine(dataclasses.replace(cfg, quant="int8"),
+                       quantize_params_int8(tree), n_slots=ENGINE_SLOTS,
+                       chunk_tokens=ENGINE_CHUNK, kv_page_size=ENGINE_PAGE,
+                       kv_quant="int8", name="k5", device=dev)
+    try:
+        clean = eng.generate(prompts, SERVE_NEW)
+        check(len(eng._prefix) > 0, "(k5) nothing cached")
+        chaos.install(chaos.parse_spec("engine.kv_quant:count=2"))
+        try:
+            hit = eng.generate(prompts, SERVE_NEW)
+            n = chaos.injected_counts().get("engine.kv_quant")
+        finally:
+            chaos.reset()
+        cached = len(eng._prefix)
+        drained = eng.drain(60)
+        pages = eng.page_stats()
+    finally:
+        eng.close()
+    check(n == 2 and all(len(r) == SERVE_NEW for r in hit),
+          f"(k5) injections {n}, lengths {[len(r) for r in hit]}")
+    check(hit != clean, "(k5) crushing the scales changed no output")
+    check(cached == 0 and drained and pages["free"] == pages["pages"],
+          f"(k5) cache {cached}, drained {drained}, pages {pages}")
+    out = {"injections": n, "rows_changed": sum(
+        a != b for a, b in zip(hit, clean)), "prefix_entries_after": cached,
+        "pages": pages}
+    log(f"chaos (k5) engine.kv_quant:count=2 on w8+kv8: {out}")
+    return out
+
+
+def chaos_crash_story(repo):
+    """(k7) tests/test_chaos.py's crash story without the control plane:
+    the JAXJob runner on the card twice, under one KFX_CHAOS plan with a
+    state file. Run 1 corrupts save 20 and crashes there (exit 137); run
+    2 quarantines 20, resumes from 10 and finishes."""
+    import shutil
+
+    work = os.path.join(repo, "build", "chaos_crash")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    spec = (f"seed=7;state={work}/chaos.json;runner.crash:after=1,count=1;"
+            "checkpoint.save:mode=corrupt,after=1,count=1")
+    env = dict(os.environ, PYTHONPATH=repo, KFX_CHAOS=spec,
+               KFX_CHECKPOINT_DIR=os.path.join(work, "ck"))
+    cmd = [sys.executable, "-m", "kubeflow_tpu_torch.runners.jax_runner",
+           "--model=mlp", "--dataset=mnist", "--steps=40", "--batch-size=64",
+           "--log-every=10", "--checkpoint-every=10", "--keep-checkpoints=2",
+           "--eval-samples=512"]
+    t0 = time.perf_counter()
+    runs = [subprocess.run(cmd, env=env, capture_output=True, text=True,
+                           timeout=300, cwd=repo) for _ in range(2)]
+    first, second = runs
+    check(first.returncode == 137
+          and "chaos_corrupt_checkpoint step=20" in first.stdout
+          and "chaos_crash step=20" in first.stdout,
+          f"(k7) run 1: rc {first.returncode}\n{first.stdout}\n"
+          f"{first.stderr[-2000:]}")
+    check(second.returncode == 0 and all(
+        line in second.stdout for line in (
+            "checkpoint_quarantined step=20",
+            "resumed_from_checkpoint step=10", "train_done steps=40")),
+        f"(k7) run 2: rc {second.returncode}\n{second.stdout}\n"
+        f"{second.stderr[-2000:]}")
+    out = {"rc": [first.returncode, second.returncode],
+           "resumed_step": 10, "seconds": time.perf_counter() - t0}
+    log(f"chaos (k7) runner.crash on a corrupted save at step 20: exit 137, "
+        f"then quarantined 20, resumed from 10, train_done 40 ({out})")
+    return out
+
+
+def chaos_predict_check(export_dir):
+    """(k6) serving.predict:count=1 on the classifier export of (i): one
+    500 with the reference's message, then served."""
+    from kubeflow_tpu_torch.data import get_dataset
+    from kubeflow_tpu_torch.serving.server import JaxPredictor, ModelServer
+
+    pred = JaxPredictor(export_dir, name="resnet50", max_batch_size=64)
+    pred.load()
+    images, _ = get_dataset("imagenet-sim", "eval").eval_arrays(1)
+    srv = ModelServer(port=0)
+    srv.register(pred)
+    srv.start()
+    try:
+        url = f"http://127.0.0.1:{srv.port}/v1/models/resnet50:predict"
+        body = {"instances": images[:1].tolist()}
+        with chaos_env("serving.predict:count=1"):
+            code, out, _ = post_status(url, body)
+            code2, out2, _ = post_status(url, body)
+            n = chaos_metric(f"http://127.0.0.1:{srv.port}",
+                             "serving.predict")
+    finally:
+        srv.stop()
+    check(code == 500 and out == {"error": "chaos[serving.predict]: "
+                                           "resnet50"}, f"(k6) {code} {out}")
+    check(code2 == 200 and len(out2["predictions"]) == 1 and n == 1,
+          f"(k6) next {code2}, metric {n}")
+    rec = {"status": code, "next": code2, "metric": n}
+    log(f"chaos (k6) serving.predict:count=1 on :predict -> {rec}")
+    return rec
+
+
 # -- (i) the classifier / JAXJob path ---------------------------------------
 
 def classifier_models_check(torch, dev):
@@ -2213,6 +2942,7 @@ def classifier_phase(torch, fa, dev, repo):
                     for ds, b in CLS_POINTS]
     rec["resume"] = classifier_resume_check(repo)
     rec["serving"] = classifier_serving(torch, export_dir)
+    rec["chaos_predict"] = chaos_predict_check(export_dir)
     rec["launches"] = dict(fa.LAUNCHES)
     check(rec["launches"] == {"flash_fwd": 0, "flash_dq": 0,
                               "flash_dkv": 0},
@@ -2293,8 +3023,21 @@ def main() -> int:
                       dev)
     torch.cuda.empty_cache()
 
+    # 6j. int8 serving; 6k. the chaos points (k6 rides phase (i))
+    int8 = int8_phase(torch, fa, export_dir, gap_cfg, prompts, f1, dev)
+    chaos_rec = int8.pop("_chaos")
+    torch.cuda.empty_cache()
+    fa.reset_launches()
+    chaos_rec["k5"] = chaos_kv_quant(export_dir, prompts, dev)
+    chaos_rec["k7"] = chaos_crash_story(repo)
+    chaos_rec["flash_launches"] = dict(fa.LAUNCHES)
+    check(all(v == 0 for v in chaos_rec["flash_launches"].values()),
+          f"(k) flash launches {chaos_rec['flash_launches']}")
+    torch.cuda.empty_cache()
+
     # 6i. the classifier / JAXJob path
     classifier = classifier_phase(torch, fa, dev, repo)
+    chaos_rec["k6"] = classifier.pop("chaos_predict")
 
     # 7. report
     csrc = "kubeflow_tpu_torch/ops/csrc/"
@@ -2329,6 +3072,8 @@ def main() -> int:
     log(json.dumps({"spec": spec}))
     log(json.dumps({"training": training}))
     log(json.dumps({"classifier": classifier}))
+    log(json.dumps({"int8": int8}))
+    log(json.dumps({"chaos": chaos_rec}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

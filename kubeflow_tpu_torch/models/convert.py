@@ -18,6 +18,11 @@ The reference's ``TransformerLM`` params (under ``nn.scan``) are::
     ln_f/scale                            [d]
     lm_head/kernel                        [d, V]
 
+An int8 tree (``quant="int8"``, ``transformer.quantize_params_int8``)
+holds ``{kernel: int8, scale: f32}`` beside each quantized kernel
+(q/k/v scales ``[L, H, D]``, the others ``[L, out]``); the scales convert
+like the kernels (``layers.{i}.attn.query.scale`` ...).
+
 The port keeps every kernel's layout, so conversion renames the leaves
 and splits the stacked ``[L, ...]`` leaves per layer
 (``layers.{i}.attn.query.kernel`` ...). Trees are nested dicts of numpy
@@ -59,8 +64,23 @@ _MOE_FFN = {
 }
 
 
-def _layer_leaves(moe: bool) -> Dict[tuple, str]:
-    return {**_LAYER, **(_MOE_FFN if moe else _DENSE_FFN)}
+def _with_scales(leaves: Dict[tuple, str]) -> Dict[tuple, str]:
+    """``leaves`` plus the scale leaf beside every kernel an int8 tree
+    quantizes (attention, dense FFN, lm_head)."""
+    out = dict(leaves)
+    for path, key in leaves.items():
+        if path[-1] == "kernel" and path[0] in ("attn", "mlp", "lm_head"):
+            out[path[:-1] + ("scale",)] = key[:-len("kernel")] + "scale"
+    return out
+
+
+def _layer_leaves(moe: bool, quant: bool = False) -> Dict[tuple, str]:
+    leaves = {**_LAYER, **(_MOE_FFN if moe else _DENSE_FFN)}
+    return _with_scales(leaves) if quant else leaves
+
+
+def _top_leaves(quant: bool) -> Dict[tuple, str]:
+    return _with_scales(_TOP) if quant else _TOP
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -94,14 +114,16 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     if set(tree) == {"params"}:
         tree = tree["params"]
     flat = _flatten(tree)
-    layer = _layer_leaves(("layers", "moe", "wi") in flat)
-    want = set(_TOP) | {("layers",) + p for p in layer}
+    quant = ("lm_head", "scale") in flat
+    layer = _layer_leaves(("layers", "moe", "wi") in flat, quant)
+    top = _top_leaves(quant)
+    want = set(top) | {("layers",) + p for p in layer}
     missing = sorted("/".join(p) for p in want - set(flat))
     extra = sorted("/".join(p) for p in set(flat) - want)
     if missing or extra:
         raise KeyError(f"param tree does not match the TransformerLM: "
                        f"missing {missing}, unexpected {extra}")
-    out = {key: _tensor(flat[path]) for path, key in _TOP.items()}
+    out = {key: _tensor(flat[path]) for path, key in top.items()}
     depths = {flat[("layers",) + p].shape[0] for p in layer}
     if len(depths) != 1:
         raise ValueError(f"stacked layer leaves disagree on depth: {depths}")
@@ -120,16 +142,19 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
     depth = 0
     while f"layers.{depth}.{_LAYER[('ln1', 'scale')]}" in sd:
         depth += 1
-    layer = _layer_leaves(f"layers.0.{_MOE_FFN[('moe', 'wi')]}" in sd)
-    want = set(_TOP.values()) | {f"layers.{i}.{s}" for i in range(depth)
-                                 for s in layer.values()}
+    quant = "lm_head.scale" in sd
+    layer = _layer_leaves(f"layers.0.{_MOE_FFN[('moe', 'wi')]}" in sd,
+                          quant)
+    top = _top_leaves(quant)
+    want = set(top.values()) | {f"layers.{i}.{s}" for i in range(depth)
+                                for s in layer.values()}
     missing, extra = sorted(want - set(sd)), sorted(set(sd) - want)
     if missing or extra or depth == 0:
         raise KeyError(f"state_dict does not match the TransformerLM: "
                        f"missing {missing}, unexpected {extra}, "
                        f"depth {depth}")
     tree: dict = {}
-    for path, key in _TOP.items():
+    for path, key in top.items():
         _set(tree, path, sd[key])
     for path, suffix in layer.items():
         _set(tree, ("layers",) + path,

@@ -14,7 +14,8 @@ real prompt token's logits. Sampling: greedy (temperature <= 0),
 temperature, and top-k with the reference's tie rule, drawn from a
 ``torch.Generator`` seeded by ``seed`` (the reference draws from JAX's
 threefry, which a torch stream cannot reproduce: the port's streams are
-deterministic per seed and follow the same distribution).
+deterministic per seed and follow the same distribution). A
+``quant="int8"`` config serves int8 weights over the dense cache.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ import torch
 
 from ..device import resolve_device
 from .convert import params_from_jax
-from .transformer import KVCache, TransformerConfig, TransformerLM
+from .transformer import (KVCache, QuantDense, TransformerConfig,
+                          TransformerLM)
 
 
 def pow2_bucket(n: int, cap: int) -> int:
@@ -96,10 +98,17 @@ def load_decode_model(cfg: TransformerConfig, params: Mapping[str, Any],
     """The decode-mode ``TransformerLM`` for ``cfg`` with ``params`` (a
     reference param tree or a port ``state_dict``) on ``device``. Params go
     to the device once (the reference's device_put); the model is built on
-    the meta device so no random init is drawn."""
-    sd = {k: torch.as_tensor(v).to(device, cfg.param_dtype)
-          for k, v in _state_dict(params).items()}
+    the meta device so no random init is drawn. Float params take
+    ``cfg.param_dtype``; a ``QuantDense``'s int8 kernel and f32 scale keep
+    their dtypes (a blanket cast would turn the codes into floats and
+    round the scales)."""
     model = TransformerLM(cfg, device="meta")
+    frozen = {f"{name}.{leaf}" for name, mod in model.named_modules()
+              if isinstance(mod, QuantDense) for leaf in ("kernel", "scale")}
+    want = {k: t.dtype for k, t in model.state_dict().items()}
+    sd = {k: torch.as_tensor(v).to(
+              device, want[k] if k in frozen else cfg.param_dtype)
+          for k, v in _state_dict(params).items()}
     model.load_state_dict(sd, assign=True)
     return model.eval().requires_grad_(False)
 

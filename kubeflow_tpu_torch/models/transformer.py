@@ -16,6 +16,14 @@ Same math and the same precision rules as the flax reference:
     ``models/convert.py`` is a renaming plus a split of the scanned layer
     stack.
 
+``cfg.quant == "int8"`` serves int8 weights (``QuantDense``: an int8
+kernel and an f32 per-output-channel scale applied to the product, the
+reference's ``QuantDenseGeneral``) in the attention projections, the
+dense FFN and the lm_head; ``quantize_params_int8`` makes their params
+from a full-precision reference-layout tree. ``cfg.kv_quant == "int8"``
+stores the paged pool's K/V as int8 with a per-token f32 scale plane
+beside each (quantize on write, dequantize after the gather).
+
 Layers are an ``nn.ModuleList`` (eager PyTorch has no use for a scan).
 ``cfg.remat`` runs each layer under ``torch.utils.checkpoint`` (the
 reference's ``nn.remat``) with the reference's save policies
@@ -44,6 +52,7 @@ import functools
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -57,10 +66,6 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _NOT_IN_SLICE = (
     ("cp", lambda c: c.cp > 1, "Queue A 6, multi-GPU"),
     ("sp", lambda c: c.sp, "Queue A 6, multi-GPU"),
-    ("quant", lambda c: bool(c.quant),
-     "Queue A 5, the engine (int8 weights/KV)"),
-    ("kv_quant", lambda c: bool(c.kv_quant),
-     "Queue A 5, the engine (int8 weights/KV)"),
     ("lora_rank", lambda c: c.lora_rank > 0, "Queue A 5, the engine (LoRA)"),
 )
 
@@ -188,13 +193,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 @dataclasses.dataclass
 class LayerKV:
-    """One layer's dense cache: ``key``/``value`` [B, L, H, D] in
-    ``cfg.dtype`` and the cached position id of each slot, ``pos`` [B, L]
-    int32 (-1 = empty or a right-pad token, masked)."""
+    """One layer's cache: ``key``/``value`` [..., H, D] in ``cfg.dtype``
+    (int8 in an int8 paged pool, with the per-token f32 ``key_scale`` /
+    ``value_scale`` planes beside them) and the cached position id of each
+    slot, ``pos`` (-1 = empty or a right-pad token, masked)."""
 
     key: torch.Tensor
     value: torch.Tensor
     pos: torch.Tensor
+    key_scale: Optional[torch.Tensor] = None
+    value_scale: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -241,11 +249,18 @@ class PagedKVCache:
     has not allocated) lands there instead, because PyTorch has no
     dropping scatter. No block table maps it and the gather clips table
     entries to N - 1, so it is never read. Routing writes to it keeps
-    the decode step free of host syncs (no boolean-mask indexing)."""
+    the decode step free of host syncs (no boolean-mask indexing).
+
+    With ``cfg.kv_quant == "int8"`` the entries are int8 and
+    ``key_scale`` / ``value_scale`` [n_layers, N + 1, P] f32 hold each
+    token's scale (the sink page's too: the scale writes take the same
+    routing)."""
 
     key: torch.Tensor
     value: torch.Tensor
     pos: torch.Tensor
+    key_scale: Optional[torch.Tensor] = None
+    value_scale: Optional[torch.Tensor] = None
 
     @classmethod
     def allocate(cls, cfg: "TransformerConfig",
@@ -254,20 +269,37 @@ class PagedKVCache:
             raise ValueError("PagedKVCache needs cfg.kv_page_size > 0")
         n, N, P = cfg.n_layers, cfg.kv_pages, cfg.kv_page_size
         H, D = cfg.n_heads, cfg.head_dim
+        int8 = cfg.kv_quant == "int8"
+        dt = torch.int8 if int8 else cfg.dtype
+
+        def scale_plane():
+            return torch.zeros(n, N + 1, P, dtype=torch.float32,
+                               device=device) if int8 else None
+
         return cls(
-            torch.zeros(n, N + 1, P, H, D, dtype=cfg.dtype, device=device),
-            torch.zeros(n, N + 1, P, H, D, dtype=cfg.dtype, device=device),
-            torch.full((n, N + 1, P), -1, dtype=torch.int32, device=device))
+            torch.zeros(n, N + 1, P, H, D, dtype=dt, device=device),
+            torch.zeros(n, N + 1, P, H, D, dtype=dt, device=device),
+            torch.full((n, N + 1, P), -1, dtype=torch.int32, device=device),
+            scale_plane(), scale_plane())
+
+    @property
+    def scales(self) -> List[torch.Tensor]:
+        """The int8 pool's scale planes (none for a full-precision pool)."""
+        return [t for t in (self.key_scale, self.value_scale)
+                if t is not None]
 
     @property
     def layers(self) -> List[LayerKV]:
-        return [LayerKV(self.key[i], self.value[i], self.pos[i])
+        ks, vs = self.key_scale, self.value_scale
+        return [LayerKV(self.key[i], self.value[i], self.pos[i],
+                        None if ks is None else ks[i],
+                        None if vs is None else vs[i])
                 for i in range(self.key.shape[0])]
 
     @property
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size()
-                   for t in (self.key, self.value, self.pos))
+                   for t in (self.key, self.value, self.pos, *self.scales))
 
 
 # ---------------------------------------------------------------------------
@@ -400,6 +432,188 @@ class Dense(nn.Module):
         return y.reshape(*lead, *self.out_shape)
 
 
+# ---------------------------------------------------------------------------
+# int8 weights: the reference's per-output-channel symmetric scheme
+# ---------------------------------------------------------------------------
+#
+# Module paths ``quantize_params_int8`` rewrites (and ``QuantDense``
+# consumes when cfg.quant == "int8"): path suffix -> number of OUTPUT
+# axes of that kernel (the scale's shape; every other non-layer axis is a
+# contraction axis the per-channel max reduces over). Embeddings, norms
+# and MoE experts stay full precision.
+_QUANT_SUFFIXES: Dict[Tuple[str, ...], int] = {
+    ("attn", "query"): 2,
+    ("attn", "key"): 2,
+    ("attn", "value"): 2,
+    ("attn", "out"): 1,
+    ("mlp", "wi"): 1,
+    ("mlp", "wo"): 1,
+    ("lm_head",): 1,
+}
+
+
+def _quant_suffix(path: Tuple[str, ...]) -> Optional[int]:
+    for suffix, n_out in _QUANT_SUFFIXES.items():
+        if path[-len(suffix):] == suffix:
+            return n_out
+    return None
+
+
+def _np_f32(w) -> np.ndarray:
+    """An f32 numpy copy of an array or a tensor (a bf16 leaf of a
+    reference tree may be a tensor: numpy has no bfloat16)."""
+    if isinstance(w, torch.Tensor):
+        return w.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(w, np.float32)
+
+
+def _is_int8(x) -> bool:
+    return (x.dtype == torch.int8 if isinstance(x, torch.Tensor)
+            else np.asarray(x).dtype == np.int8)
+
+
+def quantize_leaf_int8(w, n_out: int, lead: int = 0
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """THE per-channel symmetric int8 scheme: max|w| over the contraction
+    axes (everything between ``lead`` layer-stack axes and the last
+    ``n_out`` output axes), ``scale = amax / 127`` in f32 (1 for an
+    all-zero channel, so dequant is exact), values rounded half-to-even
+    and clipped to [-127, 127]. Returns (q int8, scale f32). The
+    classifier export's quantizer (serving/export.py) is this with
+    ``n_out=1``."""
+    w = _np_f32(w)
+    red = tuple(range(lead, w.ndim - n_out))
+    amax = np.max(np.abs(w), axis=red)
+    scale = np.where(amax > 0, amax / np.float32(127.0),
+                     np.float32(1.0)).astype(np.float32)
+    q = np.clip(np.round(w / np.expand_dims(scale, red)), -127, 127)
+    return q.astype(np.int8), scale
+
+
+def dequantize_leaf_int8(q, scale, n_out: int, lead: int = 0) -> np.ndarray:
+    """Inverse of ``quantize_leaf_int8`` (up to the quantization error):
+    ``q * scale`` in f32, the scale broadcast over the contraction axes."""
+    q = np.asarray(q)
+    red = tuple(range(lead, q.ndim - n_out))
+    return q.astype(np.float32) * np.expand_dims(_np_f32(scale), red)
+
+
+def _map_quant_leaves(params, fn):
+    """Rebuild a reference-layout tree, replacing each covered
+    projection's dict ``v`` with ``fn(v, n_out, lead)`` (None keeps it);
+    the input is not mutated."""
+    def walk(node, path):
+        if not isinstance(node, dict):
+            return node
+        out = {}
+        for k, v in node.items():
+            p = path + (k,)
+            n_out = _quant_suffix(p)
+            got = None
+            if isinstance(v, dict) and "kernel" in v and n_out is not None:
+                got = fn(v, n_out, 1 if "layers" in p else 0)
+            out[k] = got if got is not None else walk(v, p)
+        return out
+
+    return walk(params, ())
+
+
+def quantize_params_int8(params):
+    """Full-precision TransformerLM params (the reference's layout: nested
+    dicts of arrays, the layers stacked) -> the ``quant="int8"``
+    structure: each covered projection's ``{"kernel": w}`` becomes
+    ``{"kernel": int8, "scale": f32}`` with one scale per output channel,
+    per layer for the stacked kernels. Everything else passes through."""
+    def quant(v, n_out, lead):
+        if _is_int8(v["kernel"]):
+            return None
+        q, scale = quantize_leaf_int8(v["kernel"], n_out, lead=lead)
+        return {**{k: x for k, x in v.items() if k != "kernel"},
+                "kernel": q, "scale": scale}
+
+    return _map_quant_leaves(params, quant)
+
+
+def dequantize_params_int8(params):
+    """Inverse of ``quantize_params_int8`` (up to the quantization error):
+    int8 kernels expand back to f32 ``q * scale`` and the scale leaves go
+    (the ``KFX_LM_QUANT=0`` escape hatch)."""
+    def dequant(v, n_out, lead):
+        if "scale" not in v or not _is_int8(v["kernel"]):
+            return None
+        w = dequantize_leaf_int8(v["kernel"], v["scale"], n_out, lead=lead)
+        return {**{k: x for k, x in v.items()
+                   if k not in ("kernel", "scale")}, "kernel": w}
+
+    return _map_quant_leaves(params, dequant)
+
+
+def params_quantized(params) -> bool:
+    """Whether a param tree (nested dicts) or a ``state_dict`` carries
+    int8 kernels."""
+    if isinstance(params, dict):
+        return any(params_quantized(v) for v in params.values())
+    return _is_int8(params)
+
+
+class QuantDense(nn.Module):
+    """The reference's ``QuantDenseGeneral``: an int8 ``kernel`` of shape
+    ``in_shape + out_shape`` and an f32 ``scale`` of ``out_shape``, both
+    frozen, with the scale applied to the product, never to the kernel:
+    ``y = (x @ kernel.to(dtype)) * scale`` in f32, then ``dtype``. The
+    convert materialises a ``dtype`` copy of the kernel on every call
+    (there is no fused int8-weight product here). Init is structural
+    (zero kernel, unit scales): real params come from
+    ``quantize_params_int8``."""
+
+    def __init__(self, in_shape, out_shape, cfg: TransformerConfig,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
+        self.dtype = dtype or cfg.dtype
+        self.kernel = nn.Parameter(torch.zeros(
+            *self.in_shape, *self.out_shape, dtype=torch.int8),
+            requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(
+            *self.out_shape, dtype=torch.float32), requires_grad=False)
+
+    def reset_parameters(self, generator=None) -> None:
+        with torch.no_grad():
+            self.kernel.zero_()
+            self.scale.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n_in, n_out = math.prod(self.in_shape), math.prod(self.out_shape)
+        lead = x.shape[:x.dim() - len(self.in_shape)]
+        w = self.kernel.to(self.dtype).reshape(n_in, n_out)
+        y = torch.matmul(x.to(self.dtype).reshape(*lead, n_in), w)
+        y = (y.to(torch.float32) * self.scale.reshape(n_out)).to(self.dtype)
+        return y.reshape(*lead, *self.out_shape)
+
+
+def _dense(cfg: TransformerConfig) -> type:
+    """The projection class of ``cfg``: ``QuantDense`` under int8 weights."""
+    return QuantDense if cfg.quant == "int8" else Dense
+
+
+# 1/127 in f32: the reference's compiled decode step computes max|x| / 127
+# as a product with this constant (XLA folds a constant divisor into its
+# reciprocal), so multiplying by it writes the reference's scales bit for
+# bit.
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def _q8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The int8 pool's quantize-on-write (the reference's ``q8``): each
+    token's K/V row [..., H, D] rounded half-to-even to int8 against its
+    own scale ``max|x| / 127`` in f32; a zero row gives zero codes and
+    scale 0."""
+    xf = x.to(torch.float32)
+    s = xf.abs().amax(dim=(-2, -1)) * _INV_127
+    q = torch.round(xf / s.clamp_min(1e-30)[..., None, None])
+    return q.clamp(-127, 127).to(torch.int8), s
+
+
 class RMSNorm(nn.Module):
     def __init__(self, dim: int, dtype: torch.dtype):
         super().__init__()
@@ -422,10 +636,11 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         heads = (cfg.n_heads, cfg.head_dim)
-        self.query = Dense((cfg.d_model,), heads, cfg)
-        self.key = Dense((cfg.d_model,), heads, cfg)
-        self.value = Dense((cfg.d_model,), heads, cfg)
-        self.out = Dense(heads, (cfg.d_model,), cfg)
+        proj = _dense(cfg)
+        self.query = proj((cfg.d_model,), heads, cfg)
+        self.key = proj((cfg.d_model,), heads, cfg)
+        self.value = proj((cfg.d_model,), heads, cfg)
+        self.out = proj(heads, (cfg.d_model,), cfg)
 
     def _use_flash(self, seq_len: int, device: torch.device) -> bool:
         cfg = self.cfg
@@ -532,12 +747,30 @@ class Attention(nn.Module):
         page = torch.gather(block_tables, 1, blk)               # [B, S]
         page = torch.where(ok & (page >= 0), page, N).long()
         slot = torch.where(ok, loc % P, 0).long()
-        kv.key[page, slot] = k.to(cfg.dtype)
-        kv.value[page, slot] = v.to(cfg.dtype)
+        int8 = kv.key_scale is not None
+        if int8:
+            # Quantize on write; the scale planes take the entries' routing
+            # (the sink page absorbs the dropped writes of both).
+            kq, ks = _q8(k)
+            vq, vs = _q8(v)
+            kv.key[page, slot] = kq
+            kv.value[page, slot] = vq
+            kv.key_scale[page, slot] = ks
+            kv.value_scale[page, slot] = vs
+        else:
+            kv.key[page, slot] = k.to(cfg.dtype)
+            kv.value[page, slot] = v.to(cfg.dtype)
         kv.pos[page, slot] = positions.to(torch.int32)
         pt = block_tables.clamp(0, N - 1).long()                # [B, L/P]
         gk = kv.key[pt].reshape(B, L, H, D)
         gv = kv.value[pt].reshape(B, L, H, D)
+        if int8:
+            # Dequantize after the gather: entries times their token's
+            # scale in f32, then the compute dtype.
+            gks = kv.key_scale[pt].reshape(B, L)[..., None, None]
+            gvs = kv.value_scale[pt].reshape(B, L)[..., None, None]
+            gk = (gk.to(torch.float32) * gks).to(cfg.dtype)
+            gv = (gv.to(torch.float32) * gvs).to(cfg.dtype)
         gp = torch.where(block_tables[..., None] >= 0, kv.pos[pt],
                          -1).reshape(B, L)
         return self._attend_cached(q, gk, gv, gp, positions)
@@ -570,8 +803,9 @@ class DenseFFN(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.cfg = cfg
-        self.wi = Dense((cfg.d_model,), (2 * cfg.d_ff,), cfg)
-        self.wo = Dense((cfg.d_ff,), (cfg.d_model,), cfg)
+        proj = _dense(cfg)
+        self.wi = proj((cfg.d_model,), (2 * cfg.d_ff,), cfg)
+        self.wo = proj((cfg.d_ff,), (cfg.d_model,), cfg)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         tag = _tagger(self.cfg)
@@ -758,7 +992,8 @@ class TransformerLM(nn.Module):
             self.layers = nn.ModuleList(
                 Block(cfg) for _ in range(cfg.n_layers))
             self.ln_f = RMSNorm(cfg.d_model, cfg.dtype)
-            self.lm_head = Dense((cfg.d_model,), (cfg.vocab_size,), cfg)
+            self.lm_head = _dense(cfg)((cfg.d_model,), (cfg.vocab_size,),
+                                       cfg)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None

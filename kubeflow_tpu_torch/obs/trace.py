@@ -10,6 +10,8 @@
   * ``span`` scopes one onto the current thread around a block (the
     engine's ``engine.admit`` / ``engine.prefill_chunk`` /
     ``engine.chunk`` spans, parented to the submitting request's span);
+  * ``record_span`` records an interval measured after the fact (the
+    runner's ``rendezvous.chaos`` straggler span);
   * spans nest per thread, and finished spans append to a per-process
     JSONL file ``<KFX_WORKDIR>/spans/<component>-<pid>.jsonl`` in the
     reference's record format, so its ``obs.timeline`` merges the port's
@@ -244,3 +246,17 @@ def span(name: str, trace_id: str = "", parent_id: str = "",
         raise
     finally:
         finish_span(sp)
+
+
+def record_span(name: str, ts: float, duration: float, trace_id: str = "",
+                parent_id: str = "", status: str = "ok",
+                **attrs: str) -> Span:
+    """Record an already-measured interval as a span (no thread scoping):
+    for call sites that know the timing only after the fact."""
+    sp = Span(name, trace_id or current_trace_id(),
+              parent_id=parent_id or current_span_id(), ts=ts,
+              attrs={k: str(v) for k, v in attrs.items()})
+    sp.duration = max(duration, 0.0)
+    sp.status = status
+    _emit(sp)
+    return sp

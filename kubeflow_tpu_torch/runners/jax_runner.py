@@ -7,7 +7,9 @@ same stdout contract: ``runner_start …``, ``step=N loss= accuracy=
 step_time= examples_per_sec=``, ``train_done …``, ``loss=``,
 ``accuracy=``, ``resumed_from_checkpoint step=K`` (checkpoints under
 ``KFX_CHECKPOINT_DIR``), ``fault_injection_crash step=`` with exit 17,
-``exported_model dir=``; plus ``--device {cuda,cpu}`` (default cuda):
+``chaos_crash step=`` with exit 137 (the ``runner.crash`` chaos point,
+drawn after each checkpoint save), ``exported_model dir=``; plus
+``--device {cuda,cpu}`` (default cuda):
 
     python -m kubeflow_tpu_torch.runners.jax_runner --model=resnet50 \\
         --dataset=cifar10 --steps=100 --batch-size=256
@@ -16,10 +18,10 @@ step_time= examples_per_sec=``, ``train_done …``, ``loss=``,
 and feeds host batches (prefetched on a thread) on the CPU, the
 reference's rule. Steps run in chunks of ``--scan-steps`` with one sync a
 chunk, cut at log, checkpoint and fault boundaries. One process, one
-device: ``KFX_NUM_PROCESSES`` > 1 raises (ROADMAP.md Queue A 6), and a
-set ``KFX_CHAOS`` (the ``runner.crash`` and checkpoint chaos points)
-raises (Queue A 5b.4). The reference's spans and profiler server are not
-ported (Queue A 8).
+device: ``KFX_NUM_PROCESSES`` > 1 raises (ROADMAP.md Queue A 6).
+``KFX_CHAOS`` reaches the startup ``rendezvous.delay`` point,
+``runner.crash`` and the checkpointer's points. The reference's step
+spans and profiler server are not ported (Queue A 8).
 """
 
 from __future__ import annotations
@@ -84,14 +86,12 @@ def main(argv=None) -> int:
 
     from ..data import get_dataset
     from ..device import resolve_device
+    from .. import chaos
     from ..models import get_model
+    from ..runtime.rendezvous import apply_startup_chaos
     from ..training import Checkpointer, TrainLoop
 
-    if os.environ.get("KFX_CHAOS"):
-        raise NotImplementedError(
-            f"KFX_CHAOS={os.environ['KFX_CHAOS']!r}: the runner.crash and "
-            "checkpoint chaos points are not ported yet (ROADMAP.md Queue A "
-            "5b.4); unset it")
+    apply_startup_chaos()
     device = resolve_device(args.device)
     rank, world = 0, 1
 
@@ -200,8 +200,15 @@ def main(argv=None) -> int:
                 f"step_time={dt:.4f} examples_per_sec={eps:.1f}")
             t_last = now
             last_log_step = step
-        if ckpt is not None:
-            ckpt.maybe_save(step, state)
+        if ckpt is not None and ckpt.maybe_save(step, state):
+            # Fault point: a worker crash at a checkpoint boundary, after
+            # the save became durable (the --fail-at-step contract), so a
+            # restart-resume sequence replays exactly.
+            if chaos.draw("runner.crash", target=f"step-{step}") is not None:
+                ckpt.wait()
+                log(f"chaos_crash step={step}")
+                sys.stdout.flush()
+                os._exit(137)
 
     eval_ds = get_dataset(args.dataset, split="eval", seed=args.seed)
     images, labels = eval_ds.eval_arrays(args.eval_samples)

@@ -87,9 +87,27 @@ preemptions) and a per-request trail (admit, prefill_chunk, preempt,
 first_token, retire) folded into a latency breakdown at retirement. It
 reads no tensor, so it adds no device sync to the iteration.
 
-Not in this slice (ROADMAP.md Queue A 5b): int8 weights/KV (the draft's
-too), LoRA adapters, QoS/deadlines/rate limits, KV
-transfer/offload/roles, the weight pool, chaos points.
+Quantization: a ``cfg.quant="int8"`` target serves int8 weights
+(``models/transformer.QuantDense``); ``kv_quant="int8"`` stores both
+pools' K/V as int8 with per-token scale planes (quantize on write,
+dequantize after the gather); ``draft_quant="int8"`` quantizes only the
+draft's weights (its layers truncated from the tree, then
+``quantize_params_int8``), which risks nothing but the accept rate.
+``quant_mode`` ("w8", "kv8", "d8" joined with "+", or "f32") and
+``kv_bytes_per_token`` feed the ``kfx_lm_quant_mode`` and
+``kfx_lm_kv_bytes_per_token`` gauges.
+
+Chaos points (``chaos``), each a host-side draw that adds no device sync:
+``engine.admit`` fails the admitted request; ``engine.kv_alloc`` fails a
+page allocation with ``PageAllocError`` (503 + Retry-After);
+``engine.wedge`` stalls the loop with work in flight (``delay`` seconds,
+default 30) after recording the in-flight iteration to the flight ring;
+``engine.spec_verify`` runs a full-rejection verify wave (outputs stay
+exact); ``engine.kv_quant`` zeroes both int8 pools' scale planes and
+drops the prefix cache.
+
+Not in this slice (ROADMAP.md Queue A 5b): LoRA adapters,
+QoS/deadlines/rate limits, KV transfer/offload/roles, the weight pool.
 """
 
 from __future__ import annotations
@@ -104,9 +122,12 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .. import chaos
 from ..device import resolve_device
+from ..models.convert import params_to_jax
 from ..models.generate import decode_config, load_decode_model, pow2_bucket
-from ..models.transformer import PagedKVCache, truncate_layers
+from ..models.transformer import (PagedKVCache, quantize_params_int8,
+                                  truncate_layers)
 from ..obs import flightrec
 from ..obs import trace as obs_trace
 from ..obs.metrics import MetricsRegistry, default_registry
@@ -118,6 +139,36 @@ from .prefix import chain_hash as _chain_hash
 QUEUE_WAIT_BUCKETS = (
     0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
     1.0, 2.5, 5.0, 10.0, 30.0)
+
+
+def quant_mode_string(weights: str, kv: str) -> str:
+    """The `kfx top` Q-column string from the ``kfx_lm_quant_mode``
+    gauge's label values (``int8`` / ``draft-int8`` / ``f32``): one
+    mapping shared by ``DecodeEngine.quant_mode`` and the server's JSON
+    engine block."""
+    parts = []
+    if weights == "int8":
+        parts.append("w8")
+    elif weights == "draft-int8":
+        parts.append("d8")
+    if kv == "int8":
+        parts.append("kv8")
+    return "+".join(parts) or "f32"
+
+
+def _draft_params(params, n_layers: int):
+    """The first ``n_layers`` layers of ``params`` (a reference-layout
+    tree or a port ``state_dict``) as a reference-layout tree: the stacked
+    leaves under ``layers`` sliced, embed/ln_f/lm_head kept."""
+    tree = params if any(isinstance(v, dict) for v in params.values()) \
+        else params_to_jax(params)
+
+    def cut(node):
+        if isinstance(node, dict):
+            return {k: cut(v) for k, v in node.items()}
+        return node[:n_layers]
+
+    return {k: cut(v) if k == "layers" else v for k, v in tree.items()}
 
 
 # The ledger's qos and adapter labels: the port serves one QoS class and
@@ -430,6 +481,15 @@ class PrefixCache:
                 return True
         return False
 
+    def drop_all(self) -> List[int]:
+        """Drop every entry, releasing the cache's page refs (a page a live
+        slot still reads survives until that slot retires). Returns the
+        pages that went back to the free list."""
+        freed: List[int] = []
+        for e in list(self._lru.values()):
+            freed += self._drop(e)
+        return freed
+
 
 class _WRRBand:
     """One weighted-round-robin rotation over per-tenant FIFO queues (the
@@ -677,6 +737,8 @@ class DecodeEngine:
                  draft_layers: int = 0,
                  propose_tokens: int = 4,
                  draft_kv_pages: Optional[int] = None,
+                 kv_quant: str = "",
+                 draft_quant: str = "",
                  device: Union[str, torch.device] = "cuda"):
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
@@ -687,6 +749,13 @@ class DecodeEngine:
                              "speculative decoding)")
         if draft_layers > 0 and propose_tokens < 1:
             raise ValueError("propose_tokens must be >= 1")
+        if kv_quant not in ("", "int8"):
+            raise ValueError(
+                f"unknown kv_quant {kv_quant!r} (expected '' or 'int8')")
+        if draft_quant not in ("", "int8"):
+            raise ValueError(
+                f"unknown draft_quant {draft_quant!r} "
+                "(expected '' or 'int8')")
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # The loop thread selects the device itself; pin the index of
@@ -712,8 +781,11 @@ class DecodeEngine:
             raise ValueError(
                 f"kv_pages {self.n_pages} < blocks per max-length "
                 f"request {self.n_blocks}")
+        # int8 paged KV is independent of the weights' quantization; the
+        # draft's pool follows it (its config derives from this one).
         self.cfg = dataclasses.replace(base, kv_page_size=ps,
-                                       kv_pages=self.n_pages)
+                                       kv_pages=self.n_pages,
+                                       kv_quant=kv_quant or base.kv_quant)
         self.name = name
         self.n_slots = n_slots
         self.chunk_tokens = chunk_tokens
@@ -765,8 +837,18 @@ class DecodeEngine:
                 else self.n_pages
             if self.draft_n_pages < 1:
                 raise ValueError("draft_kv_pages must be >= 1")
-            self.draft_model = truncate_layers(
-                self.model, draft_layers, kv_pages=self.draft_n_pages)
+            if draft_quant == "int8" and self.cfg.quant != "int8":
+                # A draft of its own with int8 weights (the target's are
+                # full precision, so it cannot share their modules).
+                dcfg = dataclasses.replace(
+                    self.cfg, n_layers=draft_layers, quant="int8",
+                    kv_pages=self.draft_n_pages)
+                self.draft_model = load_decode_model(
+                    dcfg, quantize_params_int8(
+                        _draft_params(params, draft_layers)), self.device)
+            else:
+                self.draft_model = truncate_layers(
+                    self.model, draft_layers, kv_pages=self.draft_n_pages)
             self._draft_cache = PagedKVCache.allocate(self.draft_model.cfg,
                                                       self.device)
             self._draft_mgr = BlockManager(self.draft_n_pages, ps)
@@ -853,14 +935,42 @@ class DecodeEngine:
         return r if r is not None else default_registry()
 
     @property
+    def draft_cfg(self):
+        """The draft's config (None without a draft)."""
+        return self.draft_model.cfg if self.spec else None
+
+    @property
     def kv_bytes_per_token(self) -> int:
-        """KV bytes per cached token: 2 (K+V) x layers x heads x head_dim x
-        entry bytes, plus the page's position-id word (4 bytes a layer,
-        as stored)."""
+        """KV bytes per cached token, as the pool stores them: 2 (K+V) x
+        layers x heads x head_dim x entry bytes (1 under int8 KV), the
+        int8 pool's two f32 scale words a layer, and the position-id word
+        (4 bytes a layer). The reference counts one position-id word for
+        all layers."""
         c = self.cfg
+        if c.kv_quant == "int8":
+            return (2 * c.n_layers * c.n_heads * c.head_dim
+                    + 2 * c.n_layers * 4 + 4 * c.n_layers)
         item = torch.empty((), dtype=c.dtype).element_size()
         return (2 * c.n_layers * c.n_heads * c.head_dim * item
                 + 4 * c.n_layers)
+
+    def _quant_labels(self) -> Tuple[str, str]:
+        """(weights, kv) label values of the ``kfx_lm_quant_mode`` info
+        gauge: ``int8``, ``draft-int8`` (only the draft's weights) or
+        ``f32``."""
+        if self.cfg.quant == "int8":
+            weights = "int8"
+        elif self.spec and self.draft_cfg.quant == "int8":
+            weights = "draft-int8"
+        else:
+            weights = "f32"
+        return weights, self.cfg.kv_quant or "f32"
+
+    @property
+    def quant_mode(self) -> str:
+        """"w8" (int8 weights), "kv8" (int8 paged KV), "d8" (int8 draft
+        only), joined with "+", or "f32": the server's JSON ``quant``."""
+        return quant_mode_string(*self._quant_labels())
 
     @property
     def pool_bytes(self) -> int:
@@ -942,12 +1052,12 @@ class DecodeEngine:
                   "KV-cache bytes per cached token (entries + "
                   "quantization scales + position id).").set(
                       self.kv_bytes_per_token, model=self.name)
-        # Info-style gauge (constant 1, the mode rides the labels): the
-        # port serves unquantized weights and KV only.
+        # Info-style gauge: constant 1, the mode rides the labels.
+        wmode, kvmode = self._quant_labels()
         reg.gauge("kfx_lm_quant_mode",
                   "Quantization mode info gauge (value is constant 1; "
                   "weights/kv labels carry the mode).").set(
-                      1, model=self.name, weights="f32", kv="f32")
+                      1, model=self.name, weights=wmode, kv=kvmode)
         reg.counter("kfx_lm_prefix_cache_hits_total",
                     "Admissions that reused cached prefix pages.").inc(
                         0, model=self.name)
@@ -1051,6 +1161,47 @@ class DecodeEngine:
     def draining(self) -> bool:
         return self._draining
 
+    def _maybe_wedge(self) -> None:
+        """Chaos point ``engine.wedge``: stall the loop with work in flight
+        (drawn only then, so the budget is spent on a stall liveness can
+        see) for ``delay`` seconds (default 30), without touching the
+        heartbeat. The in-flight iteration is recorded to the flight ring
+        first, so its last record (``it`` equal to the frozen counter)
+        shows what was in flight when the loop hung. ``close()`` still
+        wins: the stall polls ``_stopped``."""
+        inj = chaos.draw("engine.wedge", target=self.name)
+        if inj is None:
+            return
+        if self.flight is not None:
+            self._record_flight()
+        deadline = time.monotonic() + (inj.delay if inj.delay > 0
+                                       else 30.0)
+        while time.monotonic() < deadline and not self._stopped:
+            time.sleep(0.05)
+
+    def _maybe_kv_quant_chaos(self) -> None:
+        """Chaos point ``engine.kv_quant``, drawn once a hot iteration on
+        an int8 pool: a hit zeroes the scale planes of both pools (one
+        device op each, no sync), so every cached entry dequantizes to 0,
+        and drops the prefix cache (a cached page is never rewritten while
+        cached, so it would carry the fault past its budget). Positions,
+        tables and refcounts are untouched: quality degrades, nothing
+        leaks, and entries written later carry fresh scales."""
+        if self.cfg.kv_quant != "int8":
+            return
+        inj = chaos.draw("engine.kv_quant", target=self.name)
+        if inj is None:
+            return
+        if inj.delay > 0:
+            time.sleep(inj.delay)
+        if inj.mode == "delay":
+            return
+        for cache in (self._cache, self._draft_cache):
+            for plane in cache.scales if cache is not None else ():
+                plane.zero_()
+        if self._prefix is not None:
+            self._prefix.drop_all()
+
     # -- device operations (loop thread, except warm) -----------------------
     def _prefill(self, tokens: Sequence[int], start: int,
                  table: np.ndarray, draft: bool = False) -> torch.Tensor:
@@ -1120,8 +1271,8 @@ class DecodeEngine:
         the matched prefix are stamped -1, so the source's later tokens
         can never leak into the borrowing request)."""
         c = self._cache
-        c.key[:, dst] = c.key[:, src]
-        c.value[:, dst] = c.value[:, src]
+        for t in (c.key, c.value, *c.scales):
+            t[:, dst] = t[:, src]
         valid = torch.arange(self.page_size, device=self.device) < keep
         c.pos[:, dst] = torch.where(valid, c.pos[:, src], -1)
 
@@ -1298,7 +1449,10 @@ class DecodeEngine:
     def _alloc_pages(self, n: int) -> List[int]:
         """Take ``n`` pages, reclaiming LRU prefix-cache pages when the
         free list is short, and invalidating recycled pages' position ids
-        before handing them out."""
+        before handing them out. The ``engine.kv_alloc`` chaos point forces
+        the failure."""
+        chaos.fail_or_delay("engine.kv_alloc", PageAllocError, self.name,
+                            target=self.name)
         while self._mgr.n_free < n:
             if self._prefix is None or not self._prefix.evict_one():
                 break  # alloc() raises with the honest numbers
@@ -1359,6 +1513,7 @@ class DecodeEngine:
                 had_active = bool(self._active.any())
                 self._admit_ready()
                 if self._active_count():
+                    self._maybe_wedge()
                     # At most ONE prompt-chunk dispatch per iteration.
                     self._advance_prefill()
                     if had_active and self._iter_stall > 0:
@@ -1451,6 +1606,15 @@ class DecodeEngine:
         self._touch_gauges()
 
     def _admit(self, req: Request, slot: int) -> None:
+        # Fault point: admission failure or latency (the engine's
+        # serving.predict).
+        inj = chaos.draw("engine.admit", target=self.name)
+        if inj is not None:
+            if inj.delay > 0:
+                time.sleep(inj.delay)
+            if inj.mode != "delay":
+                req._finish(RuntimeError(f"chaos[engine.admit]: {self.name}"))
+                return
         L, ps = self.cfg.max_seq_len, self.page_size
         # Recompute continuation: a preempted request re-prefills prompt +
         # already-generated (the same values incremental decode wrote) and
@@ -1858,6 +2022,7 @@ class DecodeEngine:
         self._ensure_chunk_pages()
         if not self._active.any():
             return  # every decoding slot preempted away
+        self._maybe_kv_quant_chaos()
         oldest = min((r for r in self._slots if r is not None),
                      key=lambda r: r.t_enqueue)
         with obs_trace.span("engine.chunk", trace_id=oldest.trace_id,
@@ -1953,7 +2118,8 @@ class DecodeEngine:
         slot = torch.where(ok, locs % P, 0).long()
         cache.pos[:, page.reshape(-1), slot.reshape(-1)] = -1
 
-    def _spec_launch(self, fresh: np.ndarray, spec_on: np.ndarray
+    def _spec_launch(self, fresh: np.ndarray, spec_on: np.ndarray,
+                     draft_live: Optional[np.ndarray] = None
                      ) -> torch.Tensor:
         """Enqueue one speculative iteration over every slot at fixed
         shapes (nothing here waits for the device):
@@ -1974,7 +2140,12 @@ class DecodeEngine:
           5. the rollback: window entries past the accepted count get
              position -1 in both pools;
           6. the draft catch-up: one masked draft step writes window
-             index a where the proposal steps did not (a == k).
+             index a where the proposal steps did not: a == k, or a == 0
+             for a slot in ``draft_live`` (it holds draft pages; default
+             ``spec_on``) that a full-rejection wave took out of
+             ``spec_on``, so its draft pool stays aligned with the
+             target's and the wave costs throughput, never accept rate
+             after it.
 
         Returns the packed device result [n_slots, k+3]: pending, the k
         proposals, the accepted count a and the bonus token."""
@@ -1983,14 +2154,17 @@ class DecodeEngine:
         any_fresh = bool(fresh.any())
         sampled = bool((self._temp[live] > 0).any())
         with_topk = sampled and bool((self._topk[live] > 0).any())
+        if draft_live is None:
+            draft_live = spec_on
         state = torch.from_numpy(np.stack([
             self._pending, self._pos, self._loc, self._max_loc,
-            spec_on.astype(np.int64), self._active.astype(np.int64),
-            fresh.astype(np.int64), self._produced, self._topk,
-            self._seeds])).to(dev)
-        (pending, pos, loc, max_loc, spec_on, active, fresh, produced,
-         topk, seeds) = state
-        spec_on, active, fresh = spec_on.bool(), active.bool(), fresh.bool()
+            spec_on.astype(np.int64), draft_live.astype(np.int64),
+            self._active.astype(np.int64), fresh.astype(np.int64),
+            self._produced, self._topk, self._seeds])).to(dev)
+        (pending, pos, loc, max_loc, spec_on, draft_live, active, fresh,
+         produced, topk, seeds) = state
+        spec_on, draft_live = spec_on.bool(), draft_live.bool()
+        active, fresh = active.bool(), fresh.bool()
         temp = torch.from_numpy(self._temp).to(dev)
         both = torch.from_numpy(np.concatenate(
             [self._tables, self._draft_tables])).to(dev)
@@ -2075,8 +2249,8 @@ class DecodeEngine:
             torch.where(past & (steps < k) & spec_on[:, None], wloc, -1))
 
         # 6. draft catch-up at window index a when the proposal steps did
-        # not write it (k accepted)
-        on = active & spec_on & (a == k)
+        # not write it (k accepted, or a masked-off wave's pending token)
+        on = active & draft_live & ((a == k) | ~spec_on)
         self.draft_model(
             torch.where(active, win.gather(1, a[:, None])[:, 0], 0)[:, None],
             torch.where(on, pos + a, -1).int()[:, None], self._draft_cache,
@@ -2115,20 +2289,29 @@ class DecodeEngine:
         """One speculative iteration: budget the window's pages, launch
         ``_spec_launch``, read its packed result back once, then apply the
         verdicts: emit [pending if fresh] + d_1..d_a + [bonus], advance the
-        cursor by a + 1, and make the bonus the pending token."""
+        cursor by a + 1, and make the bonus the pending token. The
+        ``engine.spec_verify`` chaos point turns the iteration into a
+        full-rejection wave: no slot proposes, each emits the target's own
+        token, so the output stays exact and the accepted count frozen."""
+        inj = chaos.draw("engine.spec_verify", target=self.name)
+        wave_off = inj is not None and inj.mode != "delay"
+        if inj is not None and inj.delay > 0:
+            time.sleep(inj.delay)
         self._ensure_spec_pages()
         if not self._active.any():
             return  # every decoding slot preempted away
+        self._maybe_kv_quant_chaos()
         k = self.propose_tokens
         live = self._active.copy()
         fresh = live & (self._pending < 0)
-        spec_on = live & self._spec_ok
+        draft_live = live & self._spec_ok
+        spec_on = np.zeros_like(draft_live) if wave_off else draft_live
         oldest = min((r for r in self._slots if r is not None),
                      key=lambda r: r.t_enqueue)
         with obs_trace.span("engine.verify", trace_id=oldest.trace_id,
                             parent_id=oldest.span_id, model=self.name,
                             slots=str(int(live.sum())), k=str(k)) as sp:
-            out = self._spec_launch(fresh, spec_on).cpu().numpy()
+            out = self._spec_launch(fresh, spec_on, draft_live).cpu().numpy()
             pending, D = out[:, 0], out[:, 1:k + 1]
             A, bonus = out[:, k + 1], out[:, k + 2]
             sp.attrs["accepted"] = str(int(A[spec_on].sum()))

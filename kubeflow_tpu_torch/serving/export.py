@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
+from ..models.transformer import dequantize_leaf_int8, quantize_leaf_int8
 from . import _msgpack
 
 # v1: the unversioned {model, input_shape, num_classes} config. v2: adds
@@ -35,33 +36,13 @@ CONFIG_FILE = "config.json"
 PARAMS_FILE = "params.msgpack"
 
 
-def quantize_leaf_int8(w) -> Tuple[np.ndarray, np.ndarray]:
-    """The reference's per-channel symmetric int8 scheme
-    (``models/transformer.py`` ``quantize_leaf_int8`` with one output
-    axis): max|w| over every axis but the last, ``scale = amax / 127``
-    (1 for an all-zero channel, so dequant is exact), values rounded
-    half-to-even and clipped to [-127, 127]. Returns (q int8, scale f32)."""
-    w = np.asarray(w, np.float32)
-    red = tuple(range(w.ndim - 1))
-    amax = np.max(np.abs(w), axis=red)
-    scale = np.where(amax > 0, amax / np.float32(127.0),
-                     np.float32(1.0)).astype(np.float32)
-    q = np.clip(np.round(w / np.expand_dims(scale, red)), -127, 127)
-    return q.astype(np.int8), scale
-
-
-def dequantize_leaf_int8(q, scale) -> np.ndarray:
-    q = np.asarray(q)
-    red = tuple(range(q.ndim - 1))
-    return q.astype(np.float32) * np.expand_dims(
-        np.asarray(scale, np.float32), red)
-
-
 def quantize_tree_int8(tree: Any) -> Any:
     """Every array leaf NAMED "kernel" with >= 2 dims becomes ``{"q":
     int8, "scale": f32[out]}`` (the last axis is the output channel for
-    Dense [in, out] and Conv [kh, kw, cin, cout] alike). Biases, norm
-    scales and batch_stats pass through; the input is not mutated."""
+    Dense [in, out] and Conv [kh, kw, cin, cout] alike), by the LM's
+    per-channel formula (``models/transformer.quantize_leaf_int8`` with
+    one output axis). Biases, norm scales and batch_stats pass through;
+    the input is not mutated."""
     def walk(node):
         if isinstance(node, dict):
             out = {}
@@ -69,7 +50,7 @@ def quantize_tree_int8(tree: Any) -> Any:
                 if k == "kernel" and not isinstance(v, dict):
                     w = np.asarray(v)
                     if w.ndim >= 2 and w.dtype != np.int8:
-                        q, scale = quantize_leaf_int8(w)
+                        q, scale = quantize_leaf_int8(w, 1)
                         out[k] = {"q": q, "scale": scale}
                         continue
                 out[k] = walk(v)
@@ -86,7 +67,7 @@ def dequantize_tree_int8(tree: Any) -> Any:
             if set(node) == {"q", "scale"}:
                 q = np.asarray(node["q"])
                 if q.dtype == np.int8:
-                    return dequantize_leaf_int8(q, node["scale"])
+                    return dequantize_leaf_int8(q, node["scale"], 1)
             return {k: walk(v) for k, v in node.items()}
         return node
 

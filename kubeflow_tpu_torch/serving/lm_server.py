@@ -43,15 +43,24 @@ list (one ``{queue_wait_s, prefill_s, decode_s, stalled_s, spec_accept}``
 per prompt; the server folds the first into the ``X-Kfx-Timing``
 header), each streamed ``done`` event its request's ``timing``, and the
 server answers ``/debug/flight`` and ``/debug/requests``. With the
-one-shot path or the recorder off there is no ``timing``. Every knob of
-an engine extension that is not ported raises ``NotImplementedError`` naming its Queue A 5b item rather
-than being ignored: ``KFX_CHAOS`` set (5b.4), ``KFX_LM_QUANT`` /
-``_KV_QUANT`` / ``_QUANT_DRAFT`` other than 0 (5b.5),
-``KFX_LM_ADAPTERS`` (5b.6), ``KFX_LM_QOS_DEFAULT`` other than
+one-shot path or the recorder off there is no ``timing``.
+
+Quantization, as in the reference: ``export_lm(..., quantize="int8")``
+writes int8 kernels with per-output-channel f32 scales and
+``config.quant = "int8"``. ``KFX_LM_QUANT`` empty follows the export,
+``int8`` quantizes a full-precision export at load, ``0`` dequantizes an
+int8 export and serves full precision; ``KFX_LM_KV_QUANT=int8`` stores
+the engine's paged KV as int8 (the one-shot path keeps its dense
+full-precision cache); ``KFX_LM_QUANT_DRAFT=int8`` quantizes only the
+speculative draft. ``KFX_CHAOS`` activates the chaos points (``chaos``).
+
+Every knob of an engine extension that is not ported raises
+``NotImplementedError`` naming its Queue A 5b item rather than being
+ignored: ``KFX_LM_ADAPTERS`` (5b.6), ``KFX_LM_QOS_DEFAULT`` other than
 interactive, ``KFX_LM_DEADLINE_MS``, ``KFX_LM_RATE_LIMITS`` (5b.7), a
 ``KFX_LM_ROLE`` other than mixed, ``KFX_LM_KV_PEERS``,
-``KFX_LM_KV_OFFLOAD_PAGES`` and ``KFX_LM_MODELS`` (5b.8); so does an int8
-export. The body fields ``adapter`` and ``model`` are a 400.
+``KFX_LM_KV_OFFLOAD_PAGES`` and ``KFX_LM_MODELS`` (5b.8). The body
+fields ``adapter`` and ``model`` are a 400.
 
 Tokenization is caller-side.
 """
@@ -70,7 +79,8 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..models.transformer import TransformerConfig
+from ..models.transformer import (TransformerConfig, dequantize_params_int8,
+                                  quantize_params_int8)
 from ..obs.metrics import default_registry
 from . import _msgpack
 from .engine import METER_ADAPTER, METER_QOS, DecodeEngine, EngineOverloaded
@@ -88,19 +98,25 @@ def export_lm(directory: str, cfg: TransformerConfig, params,
               quantize: str = "") -> str:
     """Write a servable LM export from a config and the reference's param
     tree (nested dicts of numpy arrays; ``models.convert.params_to_jax``
-    makes one from a ``state_dict``)."""
+    makes one from a ``state_dict``). ``quantize="int8"`` rewrites the
+    attention, FFN and lm_head kernels to int8 with per-output-channel
+    scales (``quantize_params_int8``), sets the exported config's
+    ``quant`` and adds the ``quant`` block."""
     if quantize not in ("", "int8"):
         raise ValueError(
             f"unknown quantize {quantize!r} (expected '' or 'int8')")
-    if quantize:
-        raise NotImplementedError(
-            f"int8 LM exports are not ported yet ({_ENGINE})")
     os.makedirs(directory, exist_ok=True)
+    if quantize == "int8" and cfg.quant != "int8":
+        params = quantize_params_int8(params)
+        cfg = dataclasses.replace(cfg, quant="int8")
     d = dataclasses.asdict(cfg)
     d["dtype"] = _DTYPE_NAMES[cfg.dtype]
     d["param_dtype"] = _DTYPE_NAMES[cfg.param_dtype]
-    meta = {"framework": "lm", "format_version": FORMAT_VERSION,
-            "config": d}
+    meta: Dict[str, Any] = {"framework": "lm",
+                            "format_version": FORMAT_VERSION, "config": d}
+    if cfg.quant == "int8":
+        meta["quant"] = {"weights": "int8",
+                         "scheme": "per_channel_symmetric"}
     with open(os.path.join(directory, CONFIG_FILE), "w") as f:
         json.dump(meta, f)
     with open(os.path.join(directory, PARAMS_FILE), "wb") as f:
@@ -111,14 +127,11 @@ def export_lm(directory: str, cfg: TransformerConfig, params,
 def load_lm(directory: str):
     """Load an LM export -> (TransformerConfig, param tree). v1 exports
     (no ``format_version``, no quant knobs) load with the config's
-    defaults; an int8 export is refused before its params are read."""
+    defaults; an int8 export's config keeps ``quant="int8"``, so the
+    model expects its int8 kernels and scales."""
     with open(os.path.join(directory, CONFIG_FILE)) as f:
         meta = json.load(f)
     d = dict(meta["config"])
-    if meta.get("quant") or d.get("quant"):
-        raise NotImplementedError(
-            f"{directory} is an int8 (quant) LM export; serving int8 "
-            f"weights is not ported yet ({_ENGINE})")
     d.setdefault("dtype", "bfloat16")
     d.setdefault("param_dtype", "float32")
     cfg = TransformerConfig(**d)
@@ -136,13 +149,6 @@ def _refuse_engine_knobs() -> None:
     env = os.environ.get
     off = ("", "0")
     knobs = [
-        ("KFX_CHAOS", bool(env("KFX_CHAOS", "")), "chaos points", "5b.4"),
-        ("KFX_LM_QUANT", env("KFX_LM_QUANT", "") not in off,
-         "int8 weights/KV", "5b.5"),
-        ("KFX_LM_KV_QUANT", env("KFX_LM_KV_QUANT", "") not in off,
-         "int8 weights/KV", "5b.5"),
-        ("KFX_LM_QUANT_DRAFT", env("KFX_LM_QUANT_DRAFT", "") not in off,
-         "int8 weights/KV (the draft's)", "5b.5"),
         ("KFX_LM_ADAPTERS", env("KFX_LM_ADAPTERS", "") not in ("", "{}"),
          "LoRA adapters", "5b.6"),
         ("KFX_LM_QOS_DEFAULT",
@@ -241,6 +247,19 @@ class LMPredictor(Predictor):
         self.spec_layers = int(env("KFX_LM_SPEC_LAYERS", "0"))
         self.spec_tokens = int(env("KFX_LM_SPEC_TOKENS", "4"))
         self.spec_pages = int(env("KFX_LM_SPEC_PAGES", "0"))
+        # Quantization: KFX_LM_QUANT "" follows the export, "int8"
+        # quantizes a full-precision export at load, "0" dequantizes an
+        # int8 export; KFX_LM_KV_QUANT / KFX_LM_QUANT_DRAFT "int8" (engine
+        # only) store the paged KV as int8 / quantize the draft.
+        self.quant = env("KFX_LM_QUANT", "")
+        self.kv_quant = env("KFX_LM_KV_QUANT", "")
+        self.draft_quant = env("KFX_LM_QUANT_DRAFT", "")
+        for name, value in (("KFX_LM_QUANT", self.quant),
+                            ("KFX_LM_KV_QUANT", self.kv_quant),
+                            ("KFX_LM_QUANT_DRAFT", self.draft_quant)):
+            if value not in ("", "0", "int8"):
+                raise ValueError(
+                    f"{name}={value!r}: expected '', '0' or 'int8'")
         self.warm_buckets = list(warm_buckets) if warm_buckets else None
         self._gen = None
         self._engine = None
@@ -259,6 +278,12 @@ class LMPredictor(Predictor):
 
     def load(self) -> None:
         cfg, params = load_lm(self.model_dir)
+        if self.quant == "int8" and cfg.quant != "int8":
+            params = quantize_params_int8(params)
+            cfg = dataclasses.replace(cfg, quant="int8")
+        elif self.quant == "0" and cfg.quant == "int8":
+            params = dequantize_params_int8(params)
+            cfg = dataclasses.replace(cfg, quant="")
         self.vocab_size = cfg.vocab_size
         if self.use_engine:
             # Draft depth: KFX_LM_SPEC_LAYERS, else a quarter of the
@@ -282,6 +307,8 @@ class LMPredictor(Predictor):
                 draft_layers=draft,
                 propose_tokens=max(1, self.spec_tokens),
                 draft_kv_pages=self.spec_pages or None,
+                kv_quant="int8" if self.kv_quant == "int8" else "",
+                draft_quant="int8" if self.draft_quant == "int8" else "",
                 device=self.device)
             self._attach_usage()
             buckets = self.warm_buckets or self._engine.prompt_buckets

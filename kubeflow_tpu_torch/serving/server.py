@@ -20,6 +20,8 @@ behind the ``MicroBatcher``).
                                            "probabilities" when asked);
                                            400 on a bad body, 500 on a
                                            predictor error (an LM's too)
+                                           or an injected
+                                           ``serving.predict`` fault
     POST /drain[?wait_s=S]              -> {"draining": true, "drained": b}
 
 /drain is the operator's pre-kill hook: readiness flips false, new
@@ -31,10 +33,12 @@ they finished within ``wait_s``). An engine's bounded-queue overflow
 header, and each ``/healthz`` writes the newest flight snapshot to
 ``$KFX_WORKDIR/flight/<KFX_COMPONENT>-<pid>.json`` (atomically, at most
 once every ``KFX_FLIGHT_SNAP_S`` seconds, default 1, "0" off). The
-reference's weight-pool and KV-transfer routes (``:kvimport``,
-``:migrate``, ``:kvpeers``, ``:evict``) and its chaos points are not
-ported yet (ROADMAP.md Queue A 5b), nor are its PyTorch, TensorFlow and
-scikit-learn predictors (Queue A 9).
+``serving.predict`` chaos point answers 500 ``chaos[serving.predict]:
+<model>`` on ``:predict`` (the reference's site) and on ``:generate``,
+and ``/metrics`` carries ``kfx_chaos_injected_total``. The reference's
+weight-pool and KV-transfer routes (``:kvimport``, ``:migrate``,
+``:kvpeers``, ``:evict``) are not ported yet (ROADMAP.md Queue A 5b.8),
+nor are its PyTorch, TensorFlow and scikit-learn predictors (Queue A 9).
 
     python -m kubeflow_tpu_torch.serving.server --model-dir EXPORT \\
         [--device cpu] [--batcher-max-latency-ms 5]
@@ -58,11 +62,12 @@ from urllib.parse import parse_qs, urlsplit
 import numpy as np
 import torch
 
+from .. import chaos
 from ..obs import trace as obs_trace
 from ..obs.metrics import MetricsRegistry
 from ..obs.trace import SPAN_HEADER, TRACE_HEADER
 from ..utils.prom import PROM_CTYPE
-from .engine import EngineOverloaded
+from .engine import EngineOverloaded, quant_mode_string
 
 request_log = logging.getLogger("kfx.serving")
 
@@ -432,6 +437,9 @@ class ModelServer:
         reg.gauge("kfx_serving_models_ready",
                   "Models ready to serve.").set(
                       sum(1 for p in self.predictors.values() if p.ready))
+        # This process's chaos injections and span-log writes, on the
+        # /metrics a scraper already reads.
+        chaos.collect(reg)
         obs_trace.collect(reg)
 
     def _latency_summary(self) -> Dict[str, Dict[str, Optional[float]]]:
@@ -469,10 +477,12 @@ class ModelServer:
                                "spec_accept_rate")):
             for labels, value in self.metrics.gauge(family).samples():
                 out.setdefault(labels.get("model", ""), {})[field] = value
-        # The reference's `kfx top` Q-column string; the port serves
-        # unquantized weights and KV only.
+        # The quantization info gauge's labels as the `kfx top` Q-column
+        # string ("w8", "kv8", "w8+kv8", "d8" or "f32").
         for labels, _ in self.metrics.gauge("kfx_lm_quant_mode").samples():
-            out.setdefault(labels.get("model", ""), {})["quant"] = "f32"
+            out.setdefault(labels.get("model", ""), {})["quant"] = \
+                quant_mode_string(labels.get("weights", "f32"),
+                                  labels.get("kv", "f32"))
         return out
 
     def _finish_request(self, h, name: str, verb: str, t0: float) -> None:
@@ -671,9 +681,12 @@ class ModelServer:
             return
         if self._unavailable(h, name, p):
             return
+        length = int(h.headers.get("Content-Length", 0))
+        raw = h.rfile.read(length)
+        if self._chaos_predict(h, name):
+            return
         try:
-            length = int(h.headers.get("Content-Length", 0))
-            body = json.loads(h.rfile.read(length) or b"{}")
+            body = json.loads(raw or b"{}")
             instances = np.asarray(body["instances"], np.float32)
             want_probs = bool(body.get("probabilities", False))
         except (ValueError, KeyError, TypeError) as e:
@@ -687,6 +700,21 @@ class ModelServer:
             h._send(500, {"error": str(e)})
             return
         h._send(200, result)
+
+    @staticmethod
+    def _chaos_predict(h, name: str) -> bool:
+        """Fault point ``serving.predict``: an in-server failure (500) or
+        latency, the flapping backend a router's passive health must
+        eject around. Returns whether the request was answered."""
+        inj = chaos.draw("serving.predict", target=name)
+        if inj is None:
+            return False
+        if inj.delay > 0:
+            time.sleep(inj.delay)
+        if inj.mode == "delay":
+            return False
+        h._send(500, {"error": f"chaos[serving.predict]: {name}"})
+        return True
 
     def _handle_generate(self, h, name: str) -> None:
         """LM generation (serving/lm_server.py): token ids in, generated
@@ -702,7 +730,7 @@ class ModelServer:
         if self._unavailable(h, name, p):
             return
         body = self._read_json(h)
-        if body is None:
+        if body is None or self._chaos_predict(h, name):
             return
         try:
             if body.get("stream"):

@@ -13,9 +13,9 @@ The reference's failure policy carries over: keep-rotation of the newest
 ``keep`` steps; an unreadable newest step is quarantined (renamed aside,
 its bytes kept) and an older one restored; a structural mismatch on every
 step means a fresh start (``None``, with the reason printed); an I/O
-failure with no readable step raises. The ``checkpoint.save`` /
-``checkpoint.restore`` chaos points are not ported yet (ROADMAP.md Queue
-A 5b.4): a set ``KFX_CHAOS`` raises.
+failure with no readable step raises. Its chaos points carry over too
+(``chaos``): ``checkpoint.save`` (``mode=corrupt``) tears a save after it
+has committed, ``checkpoint.restore`` fails a restore with ``OSError``.
 """
 
 from __future__ import annotations
@@ -26,6 +26,8 @@ import threading
 from typing import Any, List, Optional, Tuple
 
 import torch
+
+from .. import chaos
 
 QUARANTINE_PREFIX = "quarantine-"
 STATE_FILE = "state.pt"
@@ -109,14 +111,6 @@ def _placed_like(got: Any, want: Any) -> Any:
     return got
 
 
-def _refuse_chaos() -> None:
-    if os.environ.get("KFX_CHAOS"):
-        raise NotImplementedError(
-            f"KFX_CHAOS={os.environ['KFX_CHAOS']!r}: the checkpoint.save / "
-            "checkpoint.restore / runner.crash chaos points are not ported "
-            "yet (ROADMAP.md Queue A 5b.4); unset it")
-
-
 class Checkpointer:
     """Saves every ``save_every`` steps (plus on demand), keeps the newest
     ``keep`` steps, and restores the newest readable one on resume.
@@ -130,7 +124,6 @@ class Checkpointer:
 
     def __init__(self, directory: str, save_every: int = 100, keep: int = 2,
                  async_save: bool = True):
-        _refuse_chaos()
         self.directory = os.path.abspath(directory)
         self.save_every = save_every
         self.keep = keep
@@ -169,6 +162,15 @@ class Checkpointer:
             self._writer.start()
         else:
             self._write(step, snapshot)
+        # Fault point: corrupt THIS save after it commits (a torn write
+        # that still looks finalized). Join the writer first: damaging a
+        # write still in flight would race it, not model a crash after
+        # commit.
+        if chaos.draw("checkpoint.save", target=f"step-{step}") is not None:
+            self.wait()
+            n = corrupt_step_dir(self.directory, step)
+            print(f"chaos_corrupt_checkpoint step={step} files={n}",
+                  flush=True)
         return True
 
     def _write_guarded(self, step: int, snapshot: Any) -> None:
@@ -235,8 +237,9 @@ class Checkpointer:
             retraining from step 0 on a recoverable storage error would
             let the keep-rotation delete good checkpoints.
         """
-        _refuse_chaos()
         self.wait()
+        chaos.fail_or_delay("checkpoint.restore", OSError,
+                            f"restore from {self.directory}")
         want = target.state_tree() if hasattr(target, "state_tree") \
             else target
         steps = sorted(self.all_steps(), reverse=True)

@@ -541,3 +541,87 @@ def test_jax_predictor_on_cuda(cuda_classifier, tmp_path):
     agree = np.mean(np.asarray(got["auto"]["predictions"])
                     == np.asarray(got["cpu"]["predictions"]))
     assert agree >= 0.95
+
+
+@pytest.fixture
+def cuda_quant():
+    if not torch.cuda.is_available():
+        pytest.skip("int8 serving on the card (QuantDense, the int8 paged "
+                    "pool's quantize-on-write) needs an NVIDIA GPU; "
+                    "torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def test_quant_dense_on_cuda_matches_cpu(cuda_quant):
+    """QuantDense (int8 kernel, f32 scale on the product) at the base
+    preset's mlp.wi shape for 8 tokens, f32, TF32 off: the card's output
+    within 1e-5 of the CPU's, relative to its max."""
+    from kubeflow_tpu_torch.models import transformer as T
+
+    cfg = T.preset_config("base", dtype="float32", quant="int8")
+    w = np.random.default_rng(0).normal(size=(1024, 8192)).astype(
+        np.float32) * 0.02
+    q, scale = T.quantize_leaf_int8(w, 1)
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(8, 1, 1024)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda_quant):
+        layer = T.QuantDense((1024,), (8192,), cfg).to(dev)
+        layer.kernel.data = torch.from_numpy(q).to(dev)
+        layer.scale.data = torch.from_numpy(scale).to(dev)
+        with torch.no_grad():
+            out[str(dev)] = layer(x.to(dev)).cpu()
+    assert _rel(out["cuda"], out["cpu"]) < 1e-5
+
+
+def _int8_write(device, seed):
+    """One int8 paged write through ``_paged_attend`` on ``device``: 3 rows
+    of 24 tokens into 16-token pages, row 1's second block unallocated and
+    row 2 right-padded, so writes drop to the sink. Returns the cache."""
+    from kubeflow_tpu_torch.models import transformer as T
+
+    cfg = T.TransformerConfig(vocab_size=64, d_model=32, n_heads=2,
+                              head_dim=16, n_layers=1, d_ff=64,
+                              max_seq_len=64, dtype="float32", decode=True,
+                              kv_page_size=16, kv_pages=6, kv_quant="int8")
+    rng = np.random.default_rng(seed)
+    k = torch.from_numpy(rng.normal(size=(3, 24, 2, 16)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(3, 24, 2, 16)).astype(np.float32))
+    pos = np.tile(np.arange(24, dtype=np.int32), (3, 1))
+    pos[2, 20:] = -1
+    tables = np.array([[0, 1, -1, -1], [2, -1, -1, -1], [3, 4, -1, -1]],
+                      np.int32)
+    cache = T.PagedKVCache.allocate(cfg, device)
+    with torch.no_grad():
+        T.Attention(cfg)._paged_attend(
+            torch.zeros_like(k).to(device), k.to(device), v.to(device),
+            torch.from_numpy(pos).to(device), cache.layers[0],
+            torch.from_numpy(tables).to(device), None)
+    return cache
+
+
+def test_int8_paged_write_on_cuda_equals_cpu(cuda_quant):
+    """The int8 quantize-on-write on the card: the same codes and scales
+    as on the CPU, byte for byte, on every real page."""
+    got, want = _int8_write(cuda_quant, 0), _int8_write("cpu", 0)
+    for name in ("key", "value", "key_scale", "value_scale", "pos"):
+        a = getattr(got, name)[:, :6].cpu().numpy()
+        b = getattr(want, name)[:, :6].numpy()
+        assert a.tobytes() == b.tobytes(), name
+
+
+def test_int8_sink_page_absorbs_dropped_writes_on_cuda(cuda_quant):
+    """Every dropped write (row 1's unallocated block, row 2's pads) lands
+    on the sink page (page 6), scales included; the free page 5 stays
+    untouched."""
+    cache = _int8_write(cuda_quant, 1)
+    torch.cuda.synchronize()
+    assert int((cache.key_scale[0, 6] > 0).sum()) > 0
+    assert int((cache.value_scale[0, 6] > 0).sum()) > 0
+    assert int(cache.key_scale[0, 5].abs().sum()) == 0
+    assert int(cache.key[0, 5].abs().sum()) == 0
+    assert bool((cache.pos[0, 5] == -1).all())
+    # Real pages: row 0 fills pages 0 and 1 (24 tokens), row 1 page 2.
+    assert int((cache.pos[0, 2] >= 0).sum()) == 16
+    assert int((cache.pos[0, 1] >= 0).sum()) == 8

@@ -57,10 +57,14 @@ def test_every_module_imports_with_jax_blocked():
                          env=env)
     assert res.returncode == 0, res.stderr
     assert f"imported {len(_modules())}" in res.stdout
-    assert len(_modules()) >= 36
+    assert len(_modules()) >= 39
     # The serving engine, its prefix keying, its usage ledger and its
-    # flight recorder are on the list, and the classifier / JAXJob path.
-    assert {"kubeflow_tpu_torch.serving.engine",
+    # flight recorder are on the list, the classifier / JAXJob path, and
+    # the chaos points with the runner's startup hook.
+    assert {"kubeflow_tpu_torch.chaos",
+            "kubeflow_tpu_torch.runtime",
+            "kubeflow_tpu_torch.runtime.rendezvous",
+            "kubeflow_tpu_torch.serving.engine",
             "kubeflow_tpu_torch.serving.prefix",
             "kubeflow_tpu_torch.serving.metering",
             "kubeflow_tpu_torch.obs.flightrec",

@@ -126,6 +126,9 @@ def test_port_export_loads_bitwise_in_reference(tiny_export, tmp_path,
 
 
 def test_v1_export_loads_and_int8_export_is_refused(tiny_export, tmp_path):
+    """A v1 export (no format_version, no quant knobs) loads with the
+    defaults; an int8 export, refused before the port served int8, now
+    loads as quant="int8" and serves :generate."""
     d, cfg, params = tiny_export
     v1 = str(tmp_path / "v1")
     ref_lm.export_lm(v1, cfg, params)
@@ -138,11 +141,23 @@ def test_v1_export_loads_and_int8_export_is_refused(tiny_export, tmp_path):
     assert cfg_p.dtype == torch.bfloat16 and cfg_p.quant == ""
     q8 = str(tmp_path / "q8")
     ref_lm.export_lm(q8, cfg, params, quantize="int8")
-    with pytest.raises(NotImplementedError, match="Queue A 5"):
-        lm_server.load_lm(q8)
-    with pytest.raises(NotImplementedError, match="Queue A 5"):
-        lm_server.export_lm(str(tmp_path / "x"), cfg_p, params,
-                            quantize="int8")
+    cfg_q, qp = lm_server.load_lm(q8)
+    assert cfg_q.quant == "int8"
+    assert np.asarray(qp["lm_head"]["kernel"]).dtype == np.int8
+    p = lm_server.LMPredictor(q8, name="q8", device="cpu",
+                              warm_buckets=[8])
+    p.load()
+    try:
+        assert p.engine.cfg.quant == "int8"
+        out = p.generate({"prompt_tokens": [[5, 9, 11]],
+                          "max_new_tokens": 4})["generated_tokens"]
+        assert len(out[0]) == 4
+    finally:
+        p.close()
+    lm_server.export_lm(str(tmp_path / "x"), cfg_p, params,
+                        quantize="int8")
+    assert json.load(open(str(tmp_path / "x" / "lm_config.json")))[
+        "quant"] == {"weights": "int8", "scheme": "per_channel_symmetric"}
 
 
 def test_remat_and_loss_chunk_exports_load(tiny_export, tmp_path):
@@ -489,12 +504,10 @@ def test_http_greedy_equals_reference_oneshot_server(tiny_export,
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("KFX_CHAOS", "engine.admit:count=1"),
     ("KFX_LM_ADAPTERS", '{"a": "file:///x"}'),
-    ("KFX_LM_MODELS", '{"m": "/x"}'), ("KFX_LM_QUANT", "int8"),
-    ("KFX_LM_KV_QUANT", "int8"), ("KFX_LM_ROLE", "prefill"),
+    ("KFX_LM_MODELS", '{"m": "/x"}'), ("KFX_LM_ROLE", "prefill"),
     ("KFX_LM_KV_PEERS", '["http://127.0.0.1:1"]'),
-    ("KFX_LM_QUANT_DRAFT", "int8"), ("KFX_LM_KV_OFFLOAD_PAGES", "4"),
+    ("KFX_LM_KV_OFFLOAD_PAGES", "4"),
     ("KFX_LM_QOS_DEFAULT", "batch"), ("KFX_LM_DEADLINE_MS", "500"),
     ("KFX_LM_RATE_LIMITS", '{"": 10}')])
 def test_engine_knobs_are_refused(tiny_export, monkeypatch, knob, value):
@@ -507,6 +520,47 @@ def test_engine_knobs_are_refused(tiny_export, monkeypatch, knob, value):
         monkeypatch.setenv("KFX_LM_ENGINE", engine)
         with pytest.raises(NotImplementedError, match="Queue A 5b"):
             lm_server.LMPredictor(tiny_export[0], device="cpu")
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("KFX_CHAOS", "engine.admit:count=1"), ("KFX_LM_QUANT", "int8"),
+    ("KFX_LM_KV_QUANT", "int8"), ("KFX_LM_QUANT_DRAFT", "int8")])
+def test_ported_engine_knobs_take_effect(tiny_export, monkeypatch, knob,
+                                         value):
+    """The knobs of ported extensions (Queue A 5b.4, 5b.5) load and take
+    effect, with the engine on and, where the reference reads them there
+    (KFX_CHAOS, KFX_LM_QUANT), off: the chaos plan is installed from the
+    environment, the quant knobs change the engine's quant_mode (the
+    one-shot path has no paged pool and no draft, so KV and draft quant
+    leave it full precision, as in the reference)."""
+    from kubeflow_tpu_torch import chaos
+
+    assert knob in ENGINE_KNOBS
+    monkeypatch.setenv(knob, value)
+    want = {"KFX_CHAOS": "f32", "KFX_LM_QUANT": "w8",
+            "KFX_LM_KV_QUANT": "kv8", "KFX_LM_QUANT_DRAFT": "d8"}[knob]
+    chaos.reset()
+    try:
+        for engine in ("1", "0"):
+            monkeypatch.setenv("KFX_LM_ENGINE", engine)
+            p = lm_server.LMPredictor(tiny_export[0], device="cpu",
+                                      warm_buckets=[8])
+            p.load()
+            try:
+                if engine == "1":
+                    assert p.engine.quant_mode == want
+                    model = p.engine.model
+                else:
+                    model = p._gen.model
+                quant = knob == "KFX_LM_QUANT"
+                assert (model.lm_head.kernel.dtype == torch.int8) == quant
+                if knob == "KFX_CHAOS":
+                    plan = chaos.active_plan()
+                    assert set(plan.rules) == {"engine.admit"}
+            finally:
+                p.close()
+    finally:
+        chaos.reset()
 
 
 def test_oneshot_knob_values_are_accepted(tiny_export, monkeypatch):

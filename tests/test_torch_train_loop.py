@@ -252,10 +252,21 @@ def test_keep_rotation_and_unported_knobs(tmp_path, monkeypatch):
     for step in range(1, 8):
         ckpt.maybe_save(step, {"x": torch.full((2,), float(step))})
     assert ckpt.all_steps() == [4, 6]
-    monkeypatch.setenv("KFX_CHAOS", "checkpoint.save:count=1")
-    with pytest.raises(NotImplementedError, match="5b.4"):
-        Checkpointer(str(tmp_path / "ck2"))
-    monkeypatch.delenv("KFX_CHAOS")
+    # A KFX_CHAOS plan reaches the Checkpointer: its save point fires on
+    # the first save (corrupting it after the commit).
+    from kubeflow_tpu_torch import chaos
+
+    chaos.reset()
+    monkeypatch.setenv("KFX_CHAOS", "checkpoint.save:mode=corrupt,count=1")
+    try:
+        ck2 = Checkpointer(str(tmp_path / "ck2"), async_save=False)
+        ck2.maybe_save(1, {"x": torch.ones(4)}, force=True)
+        assert chaos.injected_counts() == {"checkpoint.save": 1}
+        with pytest.raises(RuntimeError, match="refusing to restart"):
+            ck2.restore_latest({"x": torch.zeros(4)})
+    finally:
+        monkeypatch.delenv("KFX_CHAOS")
+        chaos.reset()
     monkeypatch.setenv("KFX_NUM_PROCESSES", "2")
     with pytest.raises(NotImplementedError, match="Queue A 6"):
         _mlp_loop()

@@ -135,7 +135,7 @@ def test_config_validation_matches_reference(kw):
 
 
 UNPORTED = [
-    dict(cp=2), dict(sp=True), dict(quant="int8"), dict(lora_rank=4),
+    dict(cp=2), dict(sp=True), dict(lora_rank=4),
 ]
 # Refused by earlier slices, ported since: each constructs as in the
 # reference, and a training loop takes it.
@@ -146,6 +146,10 @@ PAGED = [
     dict(kv_page_size=16, kv_pages=4),
     pytest.param(dict(decode=True, kv_page_size=16, kv_pages=4),
                  id="decode"),
+    # int8 weights and the int8 paged pool (serving).
+    dict(quant="int8"),
+    pytest.param(dict(kv_page_size=16, kv_pages=4, kv_quant="int8"),
+                 id="kv_quant"),
 ]
 
 
