@@ -104,7 +104,8 @@ Phases, in order; any failure raises and the process exits non-zero:
    the int8 path's largest logit change at that decision, the rows under
    it counted), then the bf16 export behind ModelServer with
    KFX_LM_QUANT=int8 and KFX_LM_KV_QUANT=int8 set as a user sets them:
-   one :generate of (a)'s 8 prompts at full length, repeats identical,
+   one :generate of (a)'s 8 prompts at full length, two repeats of 16
+   tokens identical,
    quant "w8+kv8" and the int8 kv_bytes_per_token in the JSON engine
    block; (j2) an int8-KV engine in f32 with a small pool and the prefix
    cache (a prefix hit, preemption) gives (j1)'s int8-KV tokens (a pool
@@ -115,8 +116,8 @@ Phases, in order; any failure raises and the process exits non-zero:
    tokens, the accept rate, and KFX_LM_QUANT_DRAFT=int8 on the bf16
    export (mode "d8", one request); (j5) the
    decode chunk at 8 slots under bf16 compute with f32 weights, w8, kv8
-   and w8+kv8, with pool bytes, weight bytes, peak memory and load
-   seconds, and one QuantDense call against the Dense call and a bf16
+   and w8+kv8 (not profiled), with pool bytes, weight bytes, peak
+   memory and load seconds, and one QuantDense call against the Dense call and a bf16
    matmul at the mlp.wi shape for 8 tokens. No gain is claimed;
    (k) the chaos points, through KFX_CHAOS where a user sets it: (k1)
    engine.admit:count=1 answers 500 "chaos[engine.admit]: lm", the next
@@ -134,10 +135,35 @@ Phases, in order; any failure raises and the process exits non-zero:
    subprocesses under runner.crash and checkpoint.save corruption with a
    state file: exit 137 at step 20, then quarantine, resume from step
    10, train_done 40;
+   (l) multi-tenant LoRA at the base preset's full width: (l0)
+   LoRAFineTuner (rank 8, alpha 16) on the main path's trained weights,
+   b4, S = 2048, 4 steps, counters set to 0 just before and read just
+   after: flash launches exactly L a step for each kernel, the step-0
+   loss equal to the base model's, the base tensors bit-unchanged; step
+   time, tokens/s, peak memory and busy share against the main path's
+   base step; the adapter exported; then 8 more adapters as bench.py
+   makes them (random_lora_flat, seeds 101-108); (l1) on (b)'s wide-gap
+   f32 weights, 8 adapters over 8 slots in one batch (every slot its own
+   adapter, (a)'s prompts, 32 greedy tokens): each row equal to its
+   adapter's merged-weights LMGenerator (the smallest gap held against
+   the measured logit disagreement of the gather and merged paths, as in
+   (f1)), and base-only rows equal to (f1)'s adapterless tokens; (l2) 8
+   adapters over 4 slots: tokens unchanged, loads and evictions in LRU
+   order, no pinned slot left; (l3) the 6-layer draft wearing the
+   adapters: greedy unchanged; (l5) engine.adapter_load:count=1 with
+   fallback "base" serves the base's tokens, counts one fallback, then
+   heals; (l4) the bf16 export behind ModelServer with KFX_LM_ADAPTERS
+   (9 artifacts over 8 slots, KFX_LM_SPEC=0): 8 concurrent :generate
+   requests each with its own adapter against the same on a base-only
+   server (aggregate tokens/s), hbm_bytes() of both and their ratio, the
+   kfx_lm_adapter_* families on /metrics, the chunk at 8 slots with and
+   without adapters (ms, kernels, host enqueue, busy share), and with
+   fallback "error" the ninth adapter's failed load answers 503 with
+   Retry-After, then serves; flash launches 0/0/0 in (l1)-(l5);
 7. one JSON line per kernel set, the serving line, the engine line, the
    spec line, the training line, the classifier line, the int8 line, the
-   chaos line, the card's name and power limit, and the last line
-   {"ok": true, "device": {...}}.
+   chaos line, the lora line, the card's name and power limit, and the
+   last line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or without the port's package beside it, it exits non-zero
@@ -251,6 +277,24 @@ ADMIT_SLOTS = 16
 ADMIT_PROMPT = 256
 ADMIT_NEW = 16
 INT8_ADMIT_RATIO = 1.8
+# Depth cut to keep the script inside its time (PR 10): (j1)'s two warm
+# repeats generate 16 tokens (the cold wave keeps 64), and (j5) times
+# each mode's chunk without profiling it (PR 9's profiles stand in
+# PERF.md).
+INT8_WARM_NEW = 16
+
+# LoRA phase (l): the reference's multi-tenant leg (bench.py
+# _bench_lm_adapters: 8 adapters in one engine, rank 8, random_lora_flat
+# seeds 100 + i) at the base preset's full width; (l0) the fine-tuner at
+# rank 8, alpha 16, batch 4, S 2048 on the main path's trained weights.
+LORA_RANK = 8
+LORA_ALPHA = 16.0
+LORA_STEPS = 4
+LORA_BATCH = 4
+LORA_ADAPTERS = 8
+LORA_NEW = 32          # greedy tokens a row in (l1)-(l3)
+LORA_PAGED_SLOTS = 4   # (l2): 8 adapters over 4 slots
+LORA_PAGED_NEW = 8
 
 
 def log(msg: str) -> None:
@@ -534,7 +578,7 @@ def main_path_phase(torch, fa, export_dir):
         f"tokens_per_s={tps:.0f} mfu={mfu:.4f} "
         f"peak_memory_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
         f"launches={json.dumps(launches)}")
-    return launches
+    return launches, step_time
 
 
 def _grads(torch, model, tokens):
@@ -1944,17 +1988,20 @@ def _agreement(got, want):
     return first, sum(rows) / len(rows)
 
 
-def chunk_by_hand(torch, eng, prompts):
+def chunk_by_hand(torch, eng, prompts, adapters=None, profile=True):
     """The decode chunk at 8 active slots on a stopped engine (as (f3)):
-    the prompts admitted whole with a budget of a quarter of the cache,
-    then the chunk's CUDA-event time (median of 3), its host enqueue
-    (median of 3) and a profile of one chunk (step_profile)."""
+    the prompts admitted whole with a budget of a quarter of the cache
+    (slot i wearing ``adapters[i]`` when given), then the chunk's
+    CUDA-event time (median of 3), its host enqueue (median of 3) and,
+    with ``profile``, a profile of one chunk (step_profile; else {})."""
     with torch.inference_mode():
         eng._cache.pos.fill_(-1)
         eng.prefill_chunk_tokens = 0
         budget = eng.cfg.max_seq_len // 4
         for slot, p in enumerate(prompts[:ENGINE_SLOTS]):
-            eng._admit(eng._make_request(p, budget, 0.0, 0, 0, None), slot)
+            eng._admit(eng._make_request(
+                p, budget, 0.0, 0, 0, None,
+                adapter=adapters[slot] if adapters else None), slot)
 
         def chunk():
             eng._ensure_chunk_pages()
@@ -1971,7 +2018,7 @@ def chunk_by_hand(torch, eng, prompts):
             packed = eng._chunk_launch()
             enq.append((time.perf_counter() - t0) * 1e3)
             eng._chunk_collect(packed)
-        prof = step_profile(torch, chunk, 1)
+        prof = step_profile(torch, chunk, 1) if profile else {}
     return chunk_ms, sorted(enq)[1], prof
 
 
@@ -2121,7 +2168,8 @@ def int8_phase(torch, fa, export_dir, gap_cfg, prompts, f1, dev):
 
     # (j1) the user's path: the bf16 export behind ModelServer with
     # KFX_LM_QUANT=int8 and KFX_LM_KV_QUANT=int8 (speculation on, the
-    # default), one :generate of (a)'s 8 prompts, then twice more warm.
+    # default), one :generate of (a)'s 8 prompts, then twice more warm
+    # (INT8_WARM_NEW tokens each).
     env = {"KFX_LM_QUANT": "int8", "KFX_LM_KV_QUANT": "int8"}
     os.environ.update(env)
     try:
@@ -2144,7 +2192,9 @@ def int8_phase(torch, fa, export_dir, gap_cfg, prompts, f1, dev):
     t0 = time.perf_counter()
     cold = http_json(gen_url, body)["generated_tokens"]
     rec["w8kv8_http_seconds"] = time.perf_counter() - t0
-    warm = [http_json(gen_url, body)["generated_tokens"] for _ in range(2)]
+    warm_body = dict(body, max_new_tokens=INT8_WARM_NEW)
+    warm = [http_json(gen_url, warm_body)["generated_tokens"]
+            for _ in range(2)]
     blk = http_json(f"{url}/metrics?format=json")["engine"]["lm"]
     check(all(len(r) == SERVE_NEW for r in cold),
           f"(j1) answers {[len(r) for r in cold]}")
@@ -2156,7 +2206,8 @@ def int8_phase(torch, fa, export_dir, gap_cfg, prompts, f1, dev):
     rec["served"] = {"quant": blk["quant"],
                      "kv_bytes_per_token": blk["kv_bytes_per_token"],
                      "rows_equal_cold_warm": sum(
-                         a == b for a, b in zip(cold, warm[0])),
+                         a[:INT8_WARM_NEW] == b
+                         for a, b in zip(cold, warm[0])),
                      "pool_bytes": eng.pool_bytes,
                      "spec_accept_rate": blk.get("spec_accept_rate")}
     log(f"int8 (j1) bf16 export served w8+kv8 (KFX_LM_QUANT=int8 "
@@ -2305,7 +2356,8 @@ def int8_phase(torch, fa, export_dir, gap_cfg, prompts, f1, dev):
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
         eng.close()
-        chunk_ms, enq, prof = chunk_by_hand(torch, eng, prompts)
+        chunk_ms, enq, prof = chunk_by_hand(torch, eng, prompts,
+                                            profile=False)
         busy = prof.get("kernel_ms")
         costs[mode] = {
             "chunk_ms": chunk_ms, "step_ms": chunk_ms / ENGINE_CHUNK,
@@ -2599,6 +2651,450 @@ def chaos_predict_check(export_dir):
           f"(k6) next {code2}, metric {n}")
     rec = {"status": code, "next": code2, "metric": n}
     log(f"chaos (k6) serving.predict:count=1 on :predict -> {rec}")
+    return rec
+
+
+# -- (l) multi-tenant LoRA at full width -------------------------------------
+
+def stacked_tree(torch, sd):
+    """A port state_dict as the reference's layout, on its device: the
+    layer leaves stacked (``merge_lora_params`` merges device kernels on
+    the device)."""
+    L = 1 + max(int(k.split(".")[1]) for k in sd if k.startswith("layers."))
+    tree = {}
+    for key, t in sd.items():
+        if key.startswith("layers."):
+            if not key.startswith("layers.0."):
+                continue
+            path = ["layers"] + key.split(".")[2:]
+            t = torch.stack([sd[f"layers.{i}." + ".".join(path[1:])]
+                             for i in range(L)])
+        else:
+            path = key.split(".")
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = t
+    return tree
+
+
+def lru_replay(ops, n_slots):
+    """A plain LRU model of the adapter pool: replay ("pin" | "unpin",
+    name) events over ``n_slots`` slots, evicting the least recently
+    pinned adapter no request wears when a new one needs a slot. Returns
+    (loads, evictions, sorted resident names)."""
+    from collections import OrderedDict
+
+    lru, ref, loads, evictions = OrderedDict(), {}, 0, 0
+    for op, name in ops:
+        if op == "unpin":
+            ref[name] -= 1
+            continue
+        if name in lru:
+            lru.move_to_end(name)
+        else:
+            if len(lru) == n_slots:
+                del lru[next(n for n in lru if ref[n] == 0)]
+                evictions += 1
+            lru[name] = True
+            loads += 1
+        ref[name] = ref.get(name, 0) + 1
+    return loads, evictions, sorted(lru)
+
+
+def lora_finetune(torch, fa, export_dir, out_dir, dev, base_step):
+    """(l0): the fine-tuner on the main path's trained weights; see the
+    module docstring. Returns (record, the tuned adapter's flat tree)."""
+    from kubeflow_tpu_torch.models.transformer import TransformerLM
+    from kubeflow_tpu_torch.serving.lm_server import load_lm
+    from kubeflow_tpu_torch.training.lora import LoRAFineTuner
+
+    cfg, params = load_lm(export_dir)
+    torch.cuda.empty_cache()
+    tuner = LoRAFineTuner(cfg, params, rank=LORA_RANK, alpha=LORA_ALPHA,
+                          device=dev)
+    del params
+    g = torch.Generator(device=dev).manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (LORA_BATCH, 2049),
+                           device=dev, generator=g)
+    # The base model's loss on the same batch: a model without factors on
+    # the tuner's own base tensors.
+    plain = TransformerLM(cfg, device="meta")
+    plain.load_state_dict(dict(tuner.base), assign=True)
+    with torch.no_grad():
+        logits = plain(tokens[:, :-1])
+        base_loss = float(torch.nn.functional.cross_entropy(
+            logits.reshape(-1, cfg.vocab_size), tokens[:, 1:].reshape(-1)))
+    del plain, logits
+    before = {k: v.clone() for k, v in tuner.base.items()}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # What the process already holds (earlier phases' tensors, the base
+    # and its copy): the steps' own peak is counted above it.
+    held = torch.cuda.memory_allocated()
+    fa.reset_launches()
+    losses, times = [], []
+    for _ in range(LORA_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(tuner.train_step(tokens))   # syncs (float(loss))
+        times.append(time.perf_counter() - t0)
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.n_layers
+    want = {k: L * LORA_STEPS for k in ("flash_fwd", "flash_dq",
+                                        "flash_dkv")}
+    check(launches == want, f"(l0) launches {launches} != {want}")
+    check(losses[0] == base_loss,
+          f"(l0) step-0 loss {losses[0]!r} != the base's {base_loss!r}")
+    check(all(math.isfinite(x) for x in losses), f"(l0) losses {losses}")
+    unchanged = all(torch.equal(before[k], v) for k, v in tuner.base.items())
+    check(unchanged, "(l0) the base moved")
+    del before
+    prof = step_profile(torch, lambda: tuner.train_step(tokens), 1)
+    step = sorted(times[1:])[len(times[1:]) // 2]
+    busy = prof.get("kernel_ms")
+    n_lora = sum(p.numel() for p in tuner.lora.values())
+    rec = {"rank": LORA_RANK, "alpha": LORA_ALPHA, "batch": LORA_BATCH,
+           "seq": 2048, "losses": losses, "base_loss": base_loss,
+           "step_s": step, "step_times": times,
+           "tokens_per_s": LORA_BATCH * 2048 / step,
+           "base_step_s": base_step,
+           "ratio_to_base_step": step / base_step if base_step else None,
+           "peak_memory_gb": peak / 1e9,
+           "peak_over_held_gb": (peak - held) / 1e9, "launches": launches,
+           "busy_share": busy / (step * 1e3) if busy else None,
+           "lora_params": n_lora, "base_bit_unchanged": unchanged,
+           "profile": prof}
+    flat = tuner.lora_flat()
+    tuner.export(os.path.join(out_dir, "tuned"), "tuned")
+    log(f"lora (l0) base d={cfg.d_model} L={L} rank {LORA_RANK} b="
+        f"{LORA_BATCH} S=2048: step {step:.4f} s ({rec['tokens_per_s']:.0f}"
+        f" tokens/s; the main path's base step {base_step}), step-0 loss "
+        f"{losses[0]:.6f} == base {base_loss:.6f}, losses {losses}, base "
+        f"bit-unchanged, peak {rec['peak_memory_gb']:.2f} GB "
+        f"({rec['peak_over_held_gb']:.2f} GB over what was held), busy "
+        f"{rec['busy_share']}, launches {launches}, {n_lora} factor params")
+    del tuner
+    torch.cuda.empty_cache()
+    return rec, flat
+
+
+def lora_phase(torch, fa, export_dir, gap_cfg, prompts, f1, dev, base_step):
+    """(l) multi-tenant LoRA at the base preset's full width; see the
+    module docstring. ``f1`` holds phase (f1)'s LMGenerator tokens on the
+    wide-gap f32 base weights. Returns the {"lora": ...} record."""
+    from kubeflow_tpu_torch import chaos
+    from kubeflow_tpu_torch.models.generate import LMGenerator
+    from kubeflow_tpu_torch.models.transformer import TransformerLM
+    from kubeflow_tpu_torch.serving.adapters import (
+        merge_lora_params, random_lora_flat)
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+    from kubeflow_tpu_torch.serving.export import export_adapter
+    from kubeflow_tpu_torch.serving.lm_server import LMPredictor
+    from kubeflow_tpu_torch.serving.server import ModelServer
+
+    out_dir = os.path.join(os.path.dirname(export_dir), "lora")
+    rec = {"seconds": {}}
+    t_sub = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        rec["seconds"][name] = now - t_sub[0]
+        t_sub[0] = now
+
+    # (l0) the fine-tune, then 7 more adapters as bench.py makes them
+    rec["finetune"], tuned = lora_finetune(torch, fa, export_dir, out_dir,
+                                           dev, base_step)
+    lap("l0")
+    flats = {"tuned": tuned}
+    for i in range(1, LORA_ADAPTERS + 1):   # the last one serves (l5)
+        flats[f"r{100 + i}"] = random_lora_flat(gap_cfg, LORA_RANK,
+                                                seed=100 + i)
+    sources = {n: export_adapter(os.path.join(out_dir, n), n, gap_cfg, fl,
+                                 LORA_RANK, LORA_ALPHA)
+               for n, fl in flats.items()}
+    names = list(sources)[:LORA_ADAPTERS]
+    spare = list(sources)[LORA_ADAPTERS]
+    eight = {n: sources[n] for n in names}
+    fa.reset_launches()
+
+    # (l1) greedy parity on the wide-gap f32 weights: each adapter's
+    # merged-weights LMGenerator on its own prompt, the smallest gap held
+    # against the two paths' measured logit disagreement.
+    g = torch.Generator(device=dev).manual_seed(0)
+    model = TransformerLM(gap_cfg, device=dev, generator=g)
+    wide_gap_(torch, model)
+    sd = model.state_dict()
+    tree = stacked_tree(torch, sd)
+    want, gaps, ref_logits = [], [], []
+    for i, n in enumerate(names):
+        gen = LMGenerator(gap_cfg, merge_lora_params(
+            tree, flats[n], LORA_RANK, LORA_ALPHA), device=dev)
+        w, gap, lg = greedy_with_gap(gen, [prompts[i]], LORA_NEW,
+                                     ENGINE_PROBE_STEP)
+        want.append(w[0])
+        gaps.append(gap)
+        ref_logits.append(lg)
+        del gen
+    del tree
+    torch.cuda.empty_cache()
+    kw = dict(n_slots=ENGINE_SLOTS, chunk_tokens=ENGINE_CHUNK,
+              kv_page_size=ENGINE_PAGE,
+              prefill_chunk_tokens=ENGINE_PREFILL_CHUNK, device=dev,
+              adapters=eight, adapter_rank=LORA_RANK)
+    probe = DecodeEngine(gap_cfg, sd, name="lora-probe", prefix_cache=False,
+                         adapter_slots=LORA_ADAPTERS, **kw)
+    try:
+        reqs = [probe.submit(p, ENGINE_PROBE_STEP, adapter=n)
+                for p, n in zip(prompts, names)]
+        for r in reqs:
+            r.result(600)
+        diff = max(max_abs(probe._logbuf[i:i + 1], ref_logits[i])
+                   for i in range(LORA_ADAPTERS))
+    finally:
+        probe.close()
+    gap = min(gaps)
+    rec["min_gap"], rec["logits_max_abs_diff"] = gap, diff
+    check(gap > GAP_MARGIN * diff,
+          f"(l1) argmax gap {gap:.3g} too small against the gather and "
+          f"merged paths' logit disagreement {diff:.3g}")
+    eng = DecodeEngine(gap_cfg, sd, name="lora",
+                       adapter_slots=LORA_ADAPTERS, **kw)
+    try:
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, LORA_NEW, adapter=n)
+                for p, n in zip(prompts, names)]
+        got = [r.result(600) for r in reqs]
+        rec["mixed_wave_seconds"] = time.perf_counter() - t0
+        bad = [n for n, a, b in zip(names, got, want) if a != b]
+        check(not bad, f"(l1) adapters {bad}: greedy tokens differ from "
+                       "their merged-weights LMGenerator")
+        base = eng.generate(prompts, LORA_NEW, adapter="")
+        check(base == [w[:LORA_NEW] for w in f1["want"]],
+              "(l1) base-only rows differ from the adapterless engine")
+        st = eng.adapter_stats()
+        pages = eng.page_stats()
+        check(st["loads"] == LORA_ADAPTERS and st["free"] == st["slots"],
+              f"(l1) adapter stats {st}")
+        check(pages["free"] + pages["cached"] == pages["pages"],
+              f"(l1) page leak: {pages}")
+        rec["adapter_bytes"] = eng._apool.nbytes()
+    finally:
+        eng.close()
+    lap("l1")
+    log(f"lora (l1) f32 d={gap_cfg.d_model} L={gap_cfg.n_layers}: "
+        f"{LORA_ADAPTERS} adapters over {LORA_ADAPTERS} slots, one batch "
+        f"(every slot its own adapter) x {LORA_NEW}: greedy == each "
+        f"adapter's merged LMGenerator (smallest gap {gap:.4g}, logits "
+        f"within {diff:.3g}); base-only rows == (f1); stacks "
+        f"{rec['adapter_bytes'] / 1e6:.2f} MB")
+
+    # (l2) paging: 8 adapters over 4 slots. The pool's pins and unpins
+    # are logged and replayed through a plain LRU model, which must give
+    # the pool's loads, evictions and resident set.
+    eng = DecodeEngine(gap_cfg, sd, name="lora-paged",
+                       adapter_slots=LORA_PAGED_SLOTS, **kw)
+    pool, ops = eng._apool, []
+    real_acquire, real_release = pool.acquire, pool.release
+
+    def acquire(name):
+        slot = real_acquire(name)
+        ops.append(("pin", name))
+        return slot
+
+    def release(slot):
+        ops.append(("unpin", pool._names[slot]))
+        real_release(slot)
+
+    pool.acquire, pool.release = acquire, release
+    try:
+        reqs = [eng.submit(p, LORA_PAGED_NEW, adapter=n)
+                for p, n in zip(prompts, names)]
+        got = [r.result(600) for r in reqs]
+        check(got == [w[:LORA_PAGED_NEW] for w in want],
+              "(l2) tokens changed under adapter paging")
+        st = eng.adapter_stats()
+        model_lru = lru_replay(ops, LORA_PAGED_SLOTS)
+        check(st["loads"] == LORA_ADAPTERS
+              and st["evictions"] == LORA_ADAPTERS - LORA_PAGED_SLOTS
+              and model_lru == (st["loads"], st["evictions"],
+                                pool.loaded()),
+              f"(l2) {st}, resident {pool.loaded()}, LRU model "
+              f"{model_lru}")
+        again = eng.generate([prompts[0]], LORA_PAGED_NEW, adapter=names[0])
+        st2 = eng.adapter_stats()
+        model_lru = lru_replay(ops, LORA_PAGED_SLOTS)
+        check(again[0] == want[0][:LORA_PAGED_NEW]
+              and model_lru == (st2["loads"], st2["evictions"],
+                                pool.loaded()),
+              f"(l2) reload {st2}, resident {pool.loaded()}, LRU model "
+              f"{model_lru}")
+        check(not pool.ref.any() and st2["free"] == LORA_PAGED_SLOTS,
+              f"(l2) pinned slots left: {pool.ref}")
+        rec["paging"] = {"slots": LORA_PAGED_SLOTS, "after_wave": st,
+                         "after_reload": st2, "pins": len(ops) // 2}
+    finally:
+        eng.close()
+    lap("l2")
+    log(f"lora (l2) {LORA_ADAPTERS} adapters over {LORA_PAGED_SLOTS} "
+        f"slots: tokens unchanged, {rec['paging']}")
+
+    # (l3) speculation: the 6-layer draft wears the adapters
+    draft = max(1, gap_cfg.n_layers // 4)
+    eng = DecodeEngine(gap_cfg, sd, name="lora-spec",
+                       adapter_slots=LORA_ADAPTERS, draft_layers=draft,
+                       propose_tokens=SPEC_TOKENS, **kw)
+    try:
+        reqs = [eng.submit(p, LORA_NEW, adapter=n)
+                for p, n in zip(prompts, names)]
+        got = [r.result(600) for r in reqs]
+        sst = eng.spec_stats()
+        check(got == want, "(l3) speculating adapter engine's greedy "
+                           "tokens differ")
+        check(sst["proposed"] > 0, f"(l3) spec stats {sst}")
+        rec["spec"] = dict(sst, accept_rate=sst["accepted"] / sst["proposed"],
+                           draft_layers=draft,
+                           adapter_bytes=eng._apool.nbytes())
+    finally:
+        eng.close()
+    lap("l3")
+    log(f"lora (l3) draft {draft} layers wearing the adapters: greedy "
+        f"unchanged, {rec['spec']}")
+
+    # (l5a) engine.adapter_load with fallback "base": the base's tokens,
+    # one fallback counted, then the adapter heals.
+    chaos.install(chaos.ChaosPlan(
+        [chaos.Rule("engine.adapter_load", p=1.0, count=1)], seed=1))
+    eng = DecodeEngine(gap_cfg, sd, name="lora-fb", adapter_slots=1,
+                       adapter_fallback="base", **kw)
+    try:
+        out = eng.generate([prompts[0]], LORA_PAGED_NEW, adapter=names[0])
+        fb = eng._reg().counter("kfx_lm_adapter_fallbacks_total")
+        n_fb = sum(v for lb, v in fb.samples() if lb["model"] == "lora-fb")
+        check(out[0] == f1["want"][0][:LORA_PAGED_NEW] and n_fb == 1,
+              f"(l5) fallback base: {n_fb} fallbacks")
+        out = eng.generate([prompts[0]], LORA_PAGED_NEW, adapter=names[0])
+        check(out[0] == want[0][:LORA_PAGED_NEW],
+              "(l5) the adapter did not heal")
+    finally:
+        eng.close()
+        chaos.install(None)
+    del model, sd
+    torch.cuda.empty_cache()
+    launches = dict(fa.LAUNCHES)
+    check(all(v == 0 for v in launches.values()),
+          f"(l1)-(l3) flash launches {launches}")
+    lap("l5a")
+
+    # (l4) the bf16 export behind the server with KFX_LM_ADAPTERS (the
+    # eight, plus a ninth over 8 slots for (l5b)), then base-only.
+    fa.reset_launches()
+    one = lambda p, n=None: dict(
+        {"prompt_tokens": [p], "max_new_tokens": SERVE_NEW},
+        **({} if n is None else {"adapter": n}))
+    served = {}
+    for tag, env in (
+            ("adapters", {
+                "KFX_LM_ADAPTERS": json.dumps(
+                    {n: "file://" + d for n, d in sources.items()}),
+                "KFX_LM_ADAPTER_SLOTS": str(LORA_ADAPTERS),
+                "KFX_LM_ADAPTER_FALLBACK": "error", "KFX_LM_SPEC": "0"}),
+            ("base", {"KFX_LM_SPEC": "0"})):
+        os.environ.update(env)
+        try:
+            pred = LMPredictor(export_dir, name="lm", device=dev.type)
+            pred.load()
+        finally:
+            for k in env:
+                del os.environ[k]
+        pred._warm_thread.join(600)
+        server = ModelServer(port=0)
+        server.register(pred)
+        server.start()
+        url = f"http://127.0.0.1:{server.port}"
+        gen_url = f"{url}/v1/models/lm:generate"
+        mine = names if tag == "adapters" else [None] * len(names)
+        try:
+            # Page every adapter in (a one-token prompt, no prefix shared
+            # with the wave) so the timed wave is decode, as on the base.
+            run_threads(lambda n: http_json(gen_url, {
+                "prompt_tokens": [[1]], "max_new_tokens": 1,
+                **({} if n is None else {"adapter": n})}), mine)
+            t0 = time.perf_counter()
+            bodies = run_threads(lambda a: http_json(gen_url, one(*a)),
+                                 list(zip(prompts, mine)))
+            wall = time.perf_counter() - t0
+            toks = [b["generated_tokens"][0] for b in bodies]
+            check(all(len(t) == SERVE_NEW for t in toks),
+                  f"(l4) {tag} answers {[len(t) for t in toks]}")
+            blk = http_json(f"{url}/metrics?format=json")["engine"]["lm"]
+            text = http_json(f"{url}/metrics")
+            has = all(f in text for f in (
+                "kfx_lm_adapter_slots", "kfx_lm_adapter_slots_free",
+                "kfx_lm_adapter_loads_total",
+                "kfx_lm_adapter_evictions_total",
+                "kfx_lm_adapter_fallbacks_total",
+                "kfx_lm_adapter_requests_total"))
+            check(has == (tag == "adapters"),
+                  f"(l4) {tag}: adapter families present: {has}")
+            if tag == "adapters":
+                check(blk.get("adapter_slots") == LORA_ADAPTERS,
+                      f"(l4) engine block {blk}")
+                # (l5b) fallback "error": the ninth adapter's load fails
+                # once -> 503 + Retry-After, then it serves.
+                chaos.install(chaos.ChaosPlan(
+                    [chaos.Rule("engine.adapter_load", p=1.0, count=1)],
+                    seed=1))
+                try:
+                    code, _, hdr = post_status(gen_url,
+                                               one(prompts[0], spare))
+                finally:
+                    chaos.install(None)
+                check(code == 503 and hdr.get("Retry-After") is not None,
+                      f"(l5) fallback error answered {code} {dict(hdr)}")
+                ok = http_json(gen_url, one(prompts[0], spare))
+                check(len(ok["generated_tokens"][0]) == SERVE_NEW,
+                      "(l5) the ninth adapter did not heal")
+                rec["chaos"] = {"fallback_base": "base tokens, 1 counted, "
+                                "healed", "fallback_error": code}
+        finally:
+            server.stop()
+        eng = pred.engine
+        eng.close()
+        chunk_ms, enq, prof = chunk_by_hand(
+            torch, eng, prompts, names if tag == "adapters" else None)
+        busy = prof.get("kernel_ms")
+        served[tag] = {
+            "tokens_per_s": len(prompts) * SERVE_NEW / wall,
+            "wave_seconds": wall, "hbm_bytes": eng.hbm_bytes(),
+            "chunk_ms": chunk_ms, "host_enqueue_ms": enq,
+            "kernels": prof.get("kernels"), "kernel_ms": busy,
+            "busy_share": busy / chunk_ms if busy else None,
+            "top_kernels_ms": prof.get("top_kernels_ms")}
+        del pred, eng, server
+        torch.cuda.empty_cache()
+    a, b = served["adapters"], served["base"]
+    rec["served"] = served
+    rec["hbm_ratio"] = a["hbm_bytes"]["total"] / b["hbm_bytes"]["total"]
+    rec["chunk_ratio"] = a["chunk_ms"] / b["chunk_ms"]
+    rec["tokens_per_s_ratio"] = a["tokens_per_s"] / b["tokens_per_s"]
+    rec["flash_launches"] = dict(fa.LAUNCHES)
+    check(all(v == 0 for v in rec["flash_launches"].values()),
+          f"(l4)/(l5) flash launches {rec['flash_launches']}")
+    lap("l4_l5b")
+    log(f"lora (l4) bf16 export, {LORA_ADAPTERS} concurrent :generate x "
+        f"{SERVE_NEW}, each its own adapter: {a['tokens_per_s']:.1f} "
+        f"tokens/s against base-only {b['tokens_per_s']:.1f}; HBM "
+        f"{a['hbm_bytes']['total'] / 1e9:.3f} GB vs "
+        f"{b['hbm_bytes']['total'] / 1e9:.3f} GB (ratio "
+        f"{rec['hbm_ratio']:.4f}); chunk at {ENGINE_SLOTS} slots "
+        f"{a['chunk_ms']:.2f} ms ({a['kernels']} kernels, enqueue "
+        f"{a['host_enqueue_ms']:.2f} ms, busy {a['busy_share']}) vs "
+        f"{b['chunk_ms']:.2f} ms ({b['kernels']} kernels, enqueue "
+        f"{b['host_enqueue_ms']:.2f} ms, busy {b['busy_share']}); (l5) "
+        f"{rec['chaos']}; flash launches {rec['flash_launches']}; "
+        f"seconds {json.dumps(rec['seconds'])}")
     return rec
 
 
@@ -3002,7 +3498,7 @@ def main() -> int:
 
     # 5. main path
     export_dir = os.path.join(repo, "build", "serve_export")
-    launches = main_path_phase(torch, fa, export_dir)
+    launches, base_step = main_path_phase(torch, fa, export_dir)
     torch.cuda.empty_cache()
 
     # 5b. training options: remat policies, chunked CE, MoE
@@ -3033,6 +3529,12 @@ def main() -> int:
     chaos_rec["flash_launches"] = dict(fa.LAUNCHES)
     check(all(v == 0 for v in chaos_rec["flash_launches"].values()),
           f"(k) flash launches {chaos_rec['flash_launches']}")
+    torch.cuda.empty_cache()
+
+    # 6l. multi-tenant LoRA: the fine-tune through the flash kernels, then
+    # the adapter pool in the engine and the server
+    lora = lora_phase(torch, fa, export_dir, gap_cfg, prompts, f1, dev,
+                      base_step)
     torch.cuda.empty_cache()
 
     # 6i. the classifier / JAXJob path
@@ -3074,6 +3576,7 @@ def main() -> int:
     log(json.dumps({"classifier": classifier}))
     log(json.dumps({"int8": int8}))
     log(json.dumps({"chaos": chaos_rec}))
+    log(json.dumps({"lora": lora}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,11 @@ The reference's ``TransformerLM`` params (under ``nn.scan``) are::
     ln_f/scale                            [d]
     lm_head/kernel                        [d, V]
 
+A LoRA fine-tune's tree (``lora_rank > 0``) also holds the factors
+``layers/attn/{query,key,value,out}_lora_{a,b}`` and
+``layers/mlp/{wi,wo}_lora_{a,b}`` ([L, d_in, r] and [L, r, d_out]), the
+port's ``layers.{i}.attn.query_lora_a`` ...
+
 An int8 tree (``quant="int8"``, ``transformer.quantize_params_int8``)
 holds ``{kernel: int8, scale: f32}`` beside each quantized kernel
 (q/k/v scales ``[L, H, D]``, the others ``[L, out]``); the scales convert
@@ -74,9 +79,19 @@ def _with_scales(leaves: Dict[tuple, str]) -> Dict[tuple, str]:
     return out
 
 
-def _layer_leaves(moe: bool, quant: bool = False) -> Dict[tuple, str]:
+# The LoRA factor leaves of a fine-tune's tree (dense FFN only).
+_LORA = {(mod, f"{name}_lora_{ab}"): f"{mod}.{name}_lora_{ab}"
+         for mod, names in (("attn", ("query", "key", "value", "out")),
+                            ("mlp", ("wi", "wo")))
+         for name in names for ab in "ab"}
+
+
+def _layer_leaves(moe: bool, quant: bool = False,
+                  lora: bool = False) -> Dict[tuple, str]:
     leaves = {**_LAYER, **(_MOE_FFN if moe else _DENSE_FFN)}
-    return _with_scales(leaves) if quant else leaves
+    if quant:
+        leaves = _with_scales(leaves)
+    return {**leaves, **_LORA} if lora else leaves
 
 
 def _top_leaves(quant: bool) -> Dict[tuple, str]:
@@ -115,7 +130,8 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         tree = tree["params"]
     flat = _flatten(tree)
     quant = ("lm_head", "scale") in flat
-    layer = _layer_leaves(("layers", "moe", "wi") in flat, quant)
+    layer = _layer_leaves(("layers", "moe", "wi") in flat, quant,
+                          ("layers", "attn", "query_lora_a") in flat)
     top = _top_leaves(quant)
     want = set(top) | {("layers",) + p for p in layer}
     missing = sorted("/".join(p) for p in want - set(flat))
@@ -134,6 +150,22 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+def lora_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A LoRA leaf tree in the reference's layout (``layers/attn/
+    query_lora_a`` ... stacked over the layers; the lora side of
+    ``serving/adapters.split_lora_tree``) -> the factor entries of a
+    ``state_dict``. Raises ``KeyError`` on a missing factor."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    flat = _flatten(tree)
+    out = {}
+    for path, suffix in _LORA.items():
+        stacked = flat[("layers",) + path]
+        for i in range(stacked.shape[0]):
+            out[f"layers.{i}.{suffix}"] = _tensor(stacked[i])
+    return out
+
+
 def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
     """Inverse of ``params_from_jax``: nested dicts of numpy arrays with
     the layer leaves stacked on a leading axis. Raises ``KeyError`` on a
@@ -144,7 +176,7 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
         depth += 1
     quant = "lm_head.scale" in sd
     layer = _layer_leaves(f"layers.0.{_MOE_FFN[('moe', 'wi')]}" in sd,
-                          quant)
+                          quant, "layers.0.attn.query_lora_a" in sd)
     top = _top_leaves(quant)
     want = set(top.values()) | {f"layers.{i}.{s}" for i in range(depth)
                                 for s in layer.values()}

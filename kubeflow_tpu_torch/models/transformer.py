@@ -24,6 +24,16 @@ from a full-precision reference-layout tree. ``cfg.kv_quant == "int8"``
 stores the paged pool's K/V as int8 with a per-token f32 scale plane
 beside each (quantize on write, dequantize after the gather).
 
+LoRA (``cfg.lora_rank > 0``, the fine-tuner's model): the attention
+q/k/v/out and dense-FFN wi/wo projections carry train-time factors
+``<name>_lora_a`` [d_in, r] (normal, std 0.02) and ``<name>_lora_b`` [r,
+d_out] (zero, so step 0 is the base) and add ``(x @ A) @ B * alpha / r``
+to the projection's output. Serving many adapters over one base goes
+through the ``lora`` / ``adapter_ids`` arguments of ``forward`` instead:
+per-layer stacks of every adapter slot's factors, gathered per batch row
+(``lora_gather_delta``; id -1 = the base). With neither, the forward is
+the pre-LoRA one.
+
 Layers are an ``nn.ModuleList`` (eager PyTorch has no use for a scan).
 ``cfg.remat`` runs each layer under ``torch.utils.checkpoint`` (the
 reference's ``nn.remat``) with the reference's save policies
@@ -66,7 +76,6 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _NOT_IN_SLICE = (
     ("cp", lambda c: c.cp > 1, "Queue A 6, multi-GPU"),
     ("sp", lambda c: c.sp, "Queue A 6, multi-GPU"),
-    ("lora_rank", lambda c: c.lora_rank > 0, "Queue A 5, the engine (LoRA)"),
 )
 
 
@@ -631,7 +640,91 @@ class RMSNorm(nn.Module):
         return (y * self.scale).to(self.dtype)
 
 
-class Attention(nn.Module):
+# ---------------------------------------------------------------------------
+# LoRA: train-time factors and the serving-time batched gather
+# ---------------------------------------------------------------------------
+
+# One layer's serving stacks: {"attn": {"query": {"a": [n_slots, d_in, r],
+# "b": [n_slots, r, d_out]}, ...}, "mlp": {...}} (serving/adapters.py).
+LoraTree = Dict[str, Dict[str, Dict[str, torch.Tensor]]]
+
+
+def lora_gather_delta(x: torch.Tensor, entry: Dict[str, torch.Tensor],
+                      adapter_ids: torch.Tensor,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """Batched-gather LoRA (the reference's ``lora_gather_delta``): one
+    projection's low-rank correction for a batch in which every row may
+    wear a different adapter. ``entry`` is the projection's serving stack
+    ``{"a": [n_slots, d_in, r], "b": [n_slots, r, d_out]}`` (alpha/rank
+    already folded into ``b``) and ``adapter_ids`` [B] picks each row's
+    slot, -1 for the base: that row's delta is exactly 0. x is the
+    projection INPUT [B, S, d_in]; returns [B, S, d_out] in ``dtype``."""
+    ids = adapter_ids.long()
+    safe = ids.clamp_min(0)
+    a = entry["a"].index_select(0, safe).to(dtype)     # [B, d_in, r]
+    b = entry["b"].index_select(0, safe).to(dtype)     # [B, r, d_out]
+    d = torch.bmm(torch.bmm(x.to(dtype), a), b)
+    return torch.where((ids >= 0)[:, None, None], d, 0.0)
+
+
+def lora_layers(tree: Dict[str, Any], n_layers: int) -> List[LoraTree]:
+    """Per-layer views of serving stacks whose leaves carry a leading
+    layers axis ([L, n_slots, ...]): the form ``TransformerLM.forward``
+    takes. The views share the stacks' storage, so a slot written in
+    place is seen."""
+    return [{mod: {name: {k: v[i] for k, v in pair.items()}
+                   for name, pair in node.items()}
+             for mod, node in tree.items()} for i in range(n_layers)]
+
+
+class _LoraFactors:
+    """Mixin for a module whose projections ``names`` take train-time LoRA
+    factors when ``cfg.lora_rank > 0``."""
+
+    def _add_lora(self, cfg: TransformerConfig,
+                  dims: Dict[str, Tuple[int, int]]) -> None:
+        self._lora_names = tuple(dims) if cfg.lora_rank > 0 else ()
+        for name in self._lora_names:
+            d_in, d_out = dims[name]
+            setattr(self, f"{name}_lora_a", nn.Parameter(torch.empty(
+                d_in, cfg.lora_rank, dtype=torch.float32)))
+            setattr(self, f"{name}_lora_b", nn.Parameter(torch.zeros(
+                cfg.lora_rank, d_out, dtype=torch.float32)))
+
+    def reset_parameters(self, generator=None) -> None:
+        with torch.no_grad():
+            for name in self._lora_names:
+                nn.init.normal_(getattr(self, f"{name}_lora_a"), 0.0, 0.02,
+                                generator=generator)
+                # B starts at zero: step 0 of a fine-tune IS the base.
+                getattr(self, f"{name}_lora_b").zero_()
+
+    def _lora(self, name: str, y: torch.Tensor, inp: torch.Tensor,
+              lora: Optional[Dict[str, Dict[str, torch.Tensor]]],
+              adapter_ids: Optional[torch.Tensor]) -> torch.Tensor:
+        """``y`` (projection ``name``'s output, any trailing feature
+        shape) plus every configured correction: the train-time factors
+        and the serving stack ``lora[name]``. With neither, ``y``."""
+        cfg = self.cfg
+        entry = (lora or {}).get(name)
+        if name not in self._lora_names and entry is None:
+            return y
+        B, S = y.shape[:2]
+        flat = inp.reshape(B, S, -1)
+        delta = None
+        if name in self._lora_names:
+            a = getattr(self, f"{name}_lora_a")
+            b = getattr(self, f"{name}_lora_b")
+            h = torch.matmul(flat.to(cfg.dtype), a.to(cfg.dtype))
+            delta = torch.matmul(h, b.to(cfg.dtype)) \
+                * (cfg.lora_alpha / cfg.lora_rank)
+        if entry is not None:
+            g = lora_gather_delta(flat, entry, adapter_ids, cfg.dtype)
+            delta = g if delta is None else delta + g
+        return y + delta.reshape(y.shape).to(y.dtype)
+
+
+class Attention(_LoraFactors, nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.cfg = cfg
@@ -641,6 +734,9 @@ class Attention(nn.Module):
         self.key = proj((cfg.d_model,), heads, cfg)
         self.value = proj((cfg.d_model,), heads, cfg)
         self.out = proj(heads, (cfg.d_model,), cfg)
+        d, q = cfg.d_model, cfg.qkv_features
+        self._add_lora(cfg, {"query": (d, q), "key": (d, q),
+                             "value": (d, q), "out": (q, d)})
 
     def _use_flash(self, seq_len: int, device: torch.device) -> bool:
         cfg = self.cfg
@@ -663,17 +759,23 @@ class Attention(nn.Module):
                 kv: Optional[LayerKV] = None,
                 cursor: Optional[torch.Tensor] = None,
                 block_tables: Optional[torch.Tensor] = None,
-                write_locations: Optional[torch.Tensor] = None
+                write_locations: Optional[torch.Tensor] = None,
+                lora=None, adapter_ids: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         cfg = self.cfg
         B, S, _ = x.shape
         tag = _tagger(cfg)
+        # LoRA corrections land at the projection OUTPUT, before rope and
+        # the head scaling: where a merged kernel W + scale A B puts them.
         with tag("attn_q"):
             q = self.query(x)
+        q = self._lora("query", q, x, lora, adapter_ids)
         with tag("attn_k"):
             k = self.key(x)
+        k = self._lora("key", k, x, lora, adapter_ids)
         with tag("attn_v"):
             v = self.value(x)
+        v = self._lora("value", v, x, lora, adapter_ids)
         pos = torch.clamp(positions, min=0)
         q = rope(q, pos)
         k = rope(k, pos)
@@ -700,7 +802,8 @@ class Attention(nn.Module):
             probs = torch.softmax(scores.to(torch.float32), -1)
             out = torch.einsum("bhqk,bkhd->bqhd", probs.to(cfg.dtype), v)
         with tag("attn_out"):
-            return self.out(out)
+            y = self.out(out)
+        return self._lora("out", y, out, lora, adapter_ids)
 
     def _decode_attend(self, q, k, v, positions, kv: LayerKV,
                        cursor: torch.Tensor) -> torch.Tensor:
@@ -799,21 +902,27 @@ def _no_scope(*names: str):
     return contextlib.nullcontext()
 
 
-class DenseFFN(nn.Module):
+class DenseFFN(_LoraFactors, nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.cfg = cfg
         proj = _dense(cfg)
         self.wi = proj((cfg.d_model,), (2 * cfg.d_ff,), cfg)
         self.wo = proj((cfg.d_ff,), (cfg.d_model,), cfg)
+        self._add_lora(cfg, {"wi": (cfg.d_model, 2 * cfg.d_ff),
+                             "wo": (cfg.d_ff, cfg.d_model)})
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lora=None,
+                adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         tag = _tagger(self.cfg)
         with tag("mlp_wi"):
             h = self.wi(x)
+        h = self._lora("wi", h, x, lora, adapter_ids)
         gate, up = torch.chunk(h, 2, dim=-1)
+        act = F.silu(gate) * up  # SwiGLU
         with tag("mlp_wo"):
-            return self.wo(F.silu(gate) * up)  # SwiGLU
+            y = self.wo(act)
+        return self._lora("wo", y, act, lora, adapter_ids)
 
 
 class MoEFFN(nn.Module):
@@ -927,17 +1036,22 @@ class Block(nn.Module):
                 cursor: Optional[torch.Tensor] = None,
                 block_tables: Optional[torch.Tensor] = None,
                 write_locations: Optional[torch.Tensor] = None,
-                aux_out: Optional[List[torch.Tensor]] = None
+                aux_out: Optional[List[torch.Tensor]] = None,
+                lora: Optional[LoraTree] = None,
+                adapter_ids: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
+        """``lora`` is this layer's serving stacks (``lora_layers``) and
+        ``adapter_ids`` [B] each row's slot in them."""
+        lora = lora or {}
         x = x + self.attn(self.ln1(x), positions, kv, cursor, block_tables,
-                          write_locations)
+                          write_locations, lora.get("attn"), adapter_ids)
         h = self.ln2(x)
         if hasattr(self, "moe"):
             y, aux = self.moe(h)
             if aux_out is not None:
                 aux_out.append(aux)
             return x + y
-        return x + self.mlp(h)
+        return x + self.mlp(h, lora.get("mlp"), adapter_ids)
 
 
 def _layer_with_aux(layer: Block, x: torch.Tensor, positions: torch.Tensor
@@ -1010,7 +1124,8 @@ class TransformerLM(nn.Module):
                 block_tables: Optional[torch.Tensor] = None,
                 write_locations: Optional[torch.Tensor] = None,
                 return_hidden: bool = False,
-                aux_out: Optional[List[torch.Tensor]] = None
+                aux_out: Optional[List[torch.Tensor]] = None,
+                lora=None, adapter_ids: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         """``cache`` is required with ``cfg.decode`` and refused without
         it: a decode model always reads and extends its cache, as the
@@ -1023,7 +1138,12 @@ class TransformerLM(nn.Module):
         ``lm_head`` (chunked cross-entropy applies the head per chunk).
         ``aux_out``, a list, receives each MoE layer's aux loss. Without a
         cache, with ``cfg.remat`` and grad enabled, each layer runs under
-        ``torch.utils.checkpoint`` with the ``remat_policy``."""
+        ``torch.utils.checkpoint`` with the ``remat_policy``.
+
+        ``lora`` is the multi-tenant serving stacks (serving/adapters.py),
+        one tree a layer (``lora_layers``); ``adapter_ids`` [B] picks each
+        row's adapter slot (-1, the default, is the base). Without
+        ``lora`` the forward is the pre-LoRA one."""
         cfg = self.cfg
         if cfg.decode != (cache is not None):
             raise ValueError("a KVCache is passed exactly when cfg.decode "
@@ -1047,9 +1167,17 @@ class TransformerLM(nn.Module):
             positions = torch.arange(S, device=tokens.device,
                                      dtype=torch.int32).expand(tokens.shape)
         layers_kv = cache.layers if cache is not None else None
+        if lora and adapter_ids is None:
+            adapter_ids = torch.full((tokens.shape[0],), -1,
+                                     dtype=torch.int64, device=tokens.device)
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            if cache is None:
+            if lora:
+                x = layer(x, positions, layers_kv[i] if cache is not None
+                          else None, getattr(cache, "cursor", None),
+                          block_tables, write_locations, aux_out,
+                          lora[i], adapter_ids)
+            elif cache is None:
                 if remat:
                     # No randomness in a layer: no RNG state to keep.
                     x, aux = _ckpt.checkpoint(

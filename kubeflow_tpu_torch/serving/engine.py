@@ -106,8 +106,22 @@ default 30) after recording the in-flight iteration to the flight ring;
 exact); ``engine.kv_quant`` zeroes both int8 pools' scale planes and
 drops the prefix cache.
 
-Not in this slice (ROADMAP.md Queue A 5b): LoRA adapters,
-QoS/deadlines/rate limits, KV transfer/offload/roles, the weight pool.
+Multi-tenant LoRA adapters (``adapters``, serving/adapters.py): an
+``AdapterPool`` of ``[n_layers, adapter_slots, ...]`` A/B stacks with LRU
+paging from the artifact store; each slot's adapter id ([n_slots] ints, -1
+= the base) rides every prefill, decode chunk and verify window, where
+``models/transformer.lora_gather_delta`` gathers each row's factors, so
+one launch sequence serves a batch in which every slot wears a different
+adapter and a base row is exactly the adapterless engine's. The draft
+wears the same adapter through the pool's truncated stacks. The prefix
+cache chains from the resolved adapter's name (cached pages hold adapter
+KV), admission is fair per adapter tenant (``FairQueue``), and a failed
+adapter load (the ``engine.adapter_load`` chaos point included) follows
+``adapter_fallback``: "base" serves the base model and counts it,
+"error" fails the request with ``AdapterLoadError`` (503 + Retry-After).
+
+Not in this slice (ROADMAP.md Queue A 5b): QoS/deadlines/rate limits, KV
+transfer/offload/roles, the weight pool.
 """
 
 from __future__ import annotations
@@ -171,10 +185,9 @@ def _draft_params(params, n_layers: int):
     return {k: cut(v) if k == "layers" else v for k, v in tree.items()}
 
 
-# The ledger's qos and adapter labels: the port serves one QoS class and
-# the base model only (ROADMAP.md Queue A 5b.6, 5b.7).
+# The ledger's qos label: the port serves one QoS class (ROADMAP.md Queue
+# A 5b.7).
 METER_QOS = "interactive"
-METER_ADAPTER = "base"
 
 
 class EngineOverloaded(RuntimeError):
@@ -193,6 +206,20 @@ class PageAllocError(EngineOverloaded):
     unblock (the 503 + Retry-After shed contract)."""
 
 
+class AdapterSlotError(PageAllocError):
+    """Every adapter slot is pinned by an in-flight request: pool pressure
+    like KV-page exhaustion (admission requeues behind in-flight work; a
+    lone unplaceable request sheds with 503 + Retry-After), handled on
+    the same code path."""
+
+
+class AdapterLoadError(EngineOverloaded):
+    """An adapter artifact failed to page in (unknown name, unreadable or
+    mismatched artifact, or the ``engine.adapter_load`` chaos point). The
+    engine's ``adapter_fallback`` serves the base instead ("base") or
+    fails the request with this error ("error": 503 + Retry-After)."""
+
+
 class Request:
     """One in-flight generation: token budget, sampling knobs, and a
     completion event the submitting thread waits on. ``tokens`` doubles
@@ -206,13 +233,14 @@ class Request:
                  "t_first", "t_done", "counted", "trace_id", "span_id",
                  "rid", "preempts", "on_token", "tenant", "meter_skip",
                  "events", "stall_s", "spec_prop", "spec_acc", "_flight",
-                 "_usage", "_event")
+                 "_usage", "_event", "adapter")
 
     _rid_counter = itertools.count(1)
 
     def __init__(self, prompt: List[int], max_new: int, temperature: float,
-                 top_k: int, seed: int, stop: int):
+                 top_k: int, seed: int, stop: int, adapter: str = ""):
         self.prompt = prompt
+        self.adapter = adapter        # "" = the base model (tenant key)
         self.max_new = max_new
         self.temperature = temperature
         self.top_k = top_k
@@ -247,11 +275,11 @@ class Request:
         self.spec_acc = 0             # ...and accepted
         self._flight: Optional[flightrec.FlightRecorder] = None
         # Usage metering (serving/metering.py): the billable tenant (the
-        # base tenant unless the client named one), the ledger to bill
+        # adapter's tenant unless the client named one), the ledger to bill
         # (None = metering off), and how many leading generated tokens a
         # recovery re-dispatch regenerated (``stream_skip``): billed once
         # fleet-wide, by the replica that streamed them.
-        self.tenant = "base"
+        self.tenant = adapter or "base"
         self.meter_skip = 0
         self._usage: Optional[TenantLedger] = None
         self._event = threading.Event()
@@ -278,7 +306,8 @@ class Request:
         # only grows, and only an ADMITTED request billed its prompt (a
         # request shed before admission leaves no ledger row).
         if self._usage is not None and self.counted:
-            self._usage.retire(self.tenant, METER_QOS, METER_ADAPTER,
+            self._usage.retire(self.tenant, METER_QOS,
+                               self.adapter or "base",
                                len(self.tokens) - self.meter_skip)
         if self._flight is not None:
             self._flight.event(self, "retire",
@@ -554,9 +583,9 @@ class _WRRBand:
 class FairQueue:
     """Per-tenant FIFO queues with weighted round-robin pop, split into
     QoS class bands — the port's copy of ``kubeflow_tpu/serving/
-    adapters.py`` ``FairQueue``. The tenant key is the request's
-    ``adapter`` attribute ("" = base traffic, the only tenant until the
-    LoRA slice); the band is its ``qos`` attribute (interactive unless
+    adapters.py`` ``FairQueue`` (``serving/adapters.py`` re-exports it).
+    The tenant key is the request's ``adapter`` attribute ("" = base
+    traffic); the band is its ``qos`` attribute (interactive unless
     set). Pop order: the ``push_front`` recompute-continuation lane
     (preempt requeues, absolute priority), then the ``interactive``
     band's rotation, then ``batch``. Not thread-safe: the engine
@@ -739,7 +768,12 @@ class DecodeEngine:
                  draft_kv_pages: Optional[int] = None,
                  kv_quant: str = "",
                  draft_quant: str = "",
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 adapters: Optional[Dict[str, str]] = None,
+                 adapter_slots: int = 8,
+                 adapter_rank: int = 0,
+                 adapter_default: str = "",
+                 adapter_fallback: str = "base"):
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
         if chunk_tokens < 1:
@@ -756,6 +790,10 @@ class DecodeEngine:
             raise ValueError(
                 f"unknown draft_quant {draft_quant!r} "
                 "(expected '' or 'int8')")
+        if adapter_fallback not in ("base", "error"):
+            raise ValueError(
+                f"unknown adapter_fallback {adapter_fallback!r} "
+                "(expected 'base' or 'error')")
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # The loop thread selects the device itself; pin the index of
@@ -852,6 +890,26 @@ class DecodeEngine:
             self._draft_cache = PagedKVCache.allocate(self.draft_model.cfg,
                                                       self.device)
             self._draft_mgr = BlockManager(self.draft_n_pages, ps)
+        # -- multi-tenant LoRA adapters (serving/adapters.py): the slot
+        # pool's stacks ride every hot launch as the model's ``lora``
+        # argument, with the per-slot adapter ids; enabled iff
+        # ``adapters`` (name -> artifact URI) is non-empty.
+        self.adapter_fallback = adapter_fallback
+        self.adapter_default = adapter_default or ""
+        self._apool = None
+        if adapters:
+            from .adapters import AdapterPool
+
+            self._apool = AdapterPool(
+                self.cfg, n_slots=adapter_slots, sources=adapters,
+                rank=adapter_rank, draft_layers=draft_layers, name=name,
+                registry=self._reg, device=self.device)
+        if self.adapter_default and (
+                self._apool is None
+                or not self._apool.known(self.adapter_default)):
+            raise ValueError(
+                f"adapter_default {self.adapter_default!r} is not a "
+                "configured adapter")
         # Cumulative spec counters (host truth; the registry counters
         # mirror them) and the trailing accept-rate window (read from
         # server threads, appended by the loop: locked).
@@ -887,6 +945,9 @@ class DecodeEngine:
         self._draft_slot_pages: List[List[int]] = [[] for _ in range(B)]
         self._spec_ok = np.zeros((B,), np.bool_)
         self._pending = np.full((B,), -1, np.int64)
+        # Per-slot adapter ids (-1 = the base), uploaded with the slot
+        # state; a slot holds one AdapterPool pin per id >= 0.
+        self._aids = np.full((B,), -1, np.int64)
         # Chunked-prefill cursors: slot -> {"req", "full", "n", "next"
         # (absolute index of the next chunk's first token), "key"/
         # "reg_block" (incremental prefix registration), "bucket",
@@ -1002,6 +1063,41 @@ class DecodeEngine:
             acc = sum(a for _, _, a in self._spec_window)
         return acc / prop if prop else 0.0
 
+    def adapter_stats(self) -> Dict[str, int]:
+        """Cumulative adapter-pool counters (zeros without a pool):
+        artifact loads, LRU evictions, slot capacity and free slots."""
+        if self._apool is None:
+            return {"loads": 0, "evictions": 0, "slots": 0, "free": 0}
+        return {"loads": self._apool.loads,
+                "evictions": self._apool.evictions,
+                "slots": self._apool.n_slots,
+                "free": self._apool.n_free}
+
+    def hbm_bytes(self) -> Dict[str, int]:
+        """Device bytes by owner, counted from the tensors: the target's
+        weights, the KV pool (entries, scale planes, position ids), the
+        logits buffer, the draft (its pool, and its weights where it has
+        its own: an int8 draft; a truncated draft shares the target's),
+        and the adapter stacks. ``total`` over a base-only engine's is
+        the multi-tenant HBM ratio."""
+        def weights(model):
+            return sum(t.numel() * t.element_size()
+                       for t in model.state_dict().values())
+
+        draft = 0
+        if self.spec:
+            draft = self._draft_cache.nbytes
+            if self.draft_model.layers[0] is not self.model.layers[0]:
+                draft += weights(self.draft_model)
+        out = {"params": weights(self.model),
+               "kv_pool": self._cache.nbytes,
+               "logits": self._logbuf.numel() * self._logbuf.element_size(),
+               "draft": draft,
+               "adapters": self._apool.nbytes()
+               if self._apool is not None else 0}
+        out["total"] = sum(out.values())
+        return out
+
     def prefix_stats(self) -> Dict[str, int]:
         """Cumulative prefix-cache counters (zeros while the cache is
         off): cache hits, prompt tokens admitted and tokens served from
@@ -1096,6 +1192,29 @@ class DecodeEngine:
                       "window (0 when idle).").set(
                           round(self._spec_accept_rate(), 4),
                           model=self.name)
+        # Adapter families, seeded iff the engine HAS an adapter pool (their
+        # absence marks a base-only engine, as with the spec families).
+        if self._apool is not None:
+            reg.gauge("kfx_lm_adapter_slots",
+                      "HBM adapter slots (stacked LoRA A/B capacity)."
+                      ).set(self._apool.n_slots, model=self.name)
+            reg.gauge("kfx_lm_adapter_slots_free",
+                      "Adapter slots not pinned by in-flight requests "
+                      "(free + loaded-but-idle LRU candidates).").set(
+                          self._apool.n_free, model=self.name)
+            reg.counter("kfx_lm_adapter_loads_total",
+                        "Adapters paged into HBM slots from the "
+                        "artifact store.").inc(0, model=self.name)
+            reg.counter("kfx_lm_adapter_evictions_total",
+                        "Adapters evicted from HBM slots (LRU paging)."
+                        ).inc(0, model=self.name)
+            reg.counter("kfx_lm_adapter_fallbacks_total",
+                        "Requests degraded to base-only after an "
+                        "adapter load failure (adapters.fallback="
+                        "base).").inc(0, model=self.name)
+            reg.counter("kfx_lm_adapter_requests_total",
+                        "Admitted client requests by adapter tenant."
+                        ).inc(0, model=self.name, adapter="base")
         if self.flight is not None:
             reg.gauge("kfx_lm_flight_ring_records",
                       "Iteration records currently held in the flight "
@@ -1203,15 +1322,27 @@ class DecodeEngine:
             self._prefix.drop_all()
 
     # -- device operations (loop thread, except warm) -----------------------
+    def _lora(self, draft: bool = False):
+        """The adapter stacks' per-layer views every launch takes as the
+        model's ``lora`` argument (the draft's truncated ones with
+        ``draft``); None without a pool, so an adapterless engine runs
+        the pre-adapter forward."""
+        if self._apool is None:
+            return None
+        return self._apool.draft_layers_views if draft \
+            else self._apool.layers
+
     def _prefill(self, tokens: Sequence[int], start: int,
-                 table: np.ndarray, draft: bool = False) -> torch.Tensor:
+                 table: np.ndarray, draft: bool = False,
+                 aid: int = -1) -> torch.Tensor:
         """Run the prompt tail ``tokens`` (absolute positions from
         ``start``; earlier positions are read from the pages ``table``
         maps) right-padded to its power-of-two bucket, writing its K/V
         straight into the pool through ``table`` [L/P] (the draft's pool
-        with ``draft``). Pads carry position -1: their writes go to the
-        sink and they are masked out of every attention. Returns the last
-        real token's logits [V]."""
+        with ``draft``), wearing adapter slot ``aid`` (-1 = the base:
+        prompt KV is adapter KV). Pads carry position -1: their writes go
+        to the sink and they are masked out of every attention. Returns
+        the last real token's logits [V]."""
         n = len(tokens)
         P = pow2_bucket(n, self.cfg.max_seq_len)
         tok = np.zeros((1, P), np.int64)
@@ -1221,9 +1352,13 @@ class DecodeEngine:
         dev = self.device
         model, cache = (self.draft_model, self._draft_cache) if draft \
             else (self.model, self._cache)
+        lora = self._lora(draft)
+        aids = torch.full((1,), aid, dtype=torch.int64, device=dev) \
+            if lora else None
         logits = model(torch.from_numpy(tok).to(dev),
                        torch.from_numpy(pos).to(dev), cache,
-                       torch.from_numpy(table[None]).to(dev))
+                       torch.from_numpy(table[None]).to(dev),
+                       lora=lora, adapter_ids=aids)
         return logits[0, n - 1]
 
     def warm(self, buckets: Optional[Sequence[int]] = None) -> None:
@@ -1243,12 +1378,12 @@ class DecodeEngine:
         with torch.inference_mode():
             self.model(torch.zeros(B, S, dtype=torch.int64, device=dev),
                        torch.zeros(B, S, dtype=torch.int32, device=dev),
-                       self._cache, tables)
+                       self._cache, tables, lora=self._lora())
             if self.spec:
                 self.draft_model(
                     torch.zeros(B, 1, dtype=torch.int64, device=dev),
                     torch.zeros(B, 1, dtype=torch.int32, device=dev),
-                    self._draft_cache, tables)
+                    self._draft_cache, tables, lora=self._lora(True))
             for b in buckets if buckets is not None else self.prompt_buckets:
                 self._prefill([0] * int(b), 0, empty)
                 if self.spec:
@@ -1298,8 +1433,9 @@ class DecodeEngine:
         state = torch.from_numpy(np.stack([
             self._pos, self._loc, self._active.astype(np.int64),
             self._produced, self._topk, self._stop, self._max_new,
-            self._seeds])).to(dev)
-        pos, loc, active, produced, topk, stop, max_new, seeds = state
+            self._seeds, self._aids])).to(dev)
+        pos, loc, active, produced, topk, stop, max_new, seeds, aids = state
+        lora = self._lora()
         active = active.bool()
         temp = torch.from_numpy(self._temp).to(dev)
         tables = torch.from_numpy(self._tables).to(dev)
@@ -1317,7 +1453,8 @@ class DecodeEngine:
             eff_pos = torch.where(active, pos, -1).int()
             eff_loc = torch.where(active, loc, -1).int()
             out = self.model(feed[:, None], eff_pos[:, None], self._cache,
-                             tables, eff_loc[:, None])[:, 0]
+                             tables, eff_loc[:, None], lora=lora,
+                             adapter_ids=aids)[:, 0]
             logits = torch.where(active[:, None], out, logits)
             pos = torch.where(active, pos + 1, pos)
             loc = torch.where(active, loc + 1, loc)
@@ -1343,7 +1480,8 @@ class DecodeEngine:
     def _make_request(self, prompt: Sequence[int], max_new_tokens: int,
                       temperature: float, top_k: int, seed: int,
                       stop_token: Optional[int],
-                      tenant: Optional[str] = None) -> Request:
+                      tenant: Optional[str] = None,
+                      adapter: Optional[str] = None) -> Request:
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("prompt must be non-empty")
@@ -1359,10 +1497,20 @@ class DecodeEngine:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new_tokens "
                 f"({max_new_tokens}) exceeds the cache capacity {L}")
+        # Adapter selection: the named adapter, else the engine's default;
+        # "" is the base. An unknown name is a client mistake (ValueError
+        # -> 400), never a 503.
+        name = str((adapter if adapter is not None
+                    else self.adapter_default) or "")
+        if name and (self._apool is None or not self._apool.known(name)):
+            raise ValueError(
+                f"unknown adapter {name!r} (configured: "
+                f"{sorted(self._apool.sources) if self._apool else []})")
         req = Request(prompt, int(max_new_tokens), float(temperature),
                       int(top_k), int(seed),
-                      -1 if stop_token is None else int(stop_token))
-        # Billable tenant: the client's explicit key, else the base
+                      -1 if stop_token is None else int(stop_token),
+                      adapter=name)
+        # Billable tenant: the client's explicit key, else the adapter's
         # tenant ("" counts as absent).
         if tenant:
             req.tenant = str(tenant)
@@ -1401,17 +1549,19 @@ class DecodeEngine:
                temperature: float = 0.0, top_k: int = 0, seed: int = 0,
                stop_token: Optional[int] = None,
                on_token: Optional[Callable[[Optional[int]], None]] = None,
-               tenant: Optional[str] = None, meter_skip: int = 0
-               ) -> Request:
+               tenant: Optional[str] = None, meter_skip: int = 0,
+               adapter: Optional[str] = None) -> Request:
         """Enqueue one prompt; returns the request handle (wait with
         ``.result(timeout)``). ``on_token`` is the streaming sink, called
         on the loop thread with each token id as it lands, then None at
-        retirement; ``tenant`` is the billable tenant (None = base) and
-        ``meter_skip`` the leading tokens a recovery re-dispatch
-        regenerates, billed by the replica that streamed them. Raises
-        EngineOverloaded when the bounded admission queue is full."""
+        retirement; ``tenant`` is the billable tenant (None = the
+        adapter's) and ``meter_skip`` the leading tokens a recovery
+        re-dispatch regenerates, billed by the replica that streamed
+        them; ``adapter`` names a configured LoRA adapter (None = the
+        engine's default, "" = the base). Raises EngineOverloaded when
+        the bounded admission queue is full."""
         req = self._make_request(prompt, max_new_tokens, temperature,
-                                 top_k, seed, stop_token, tenant)
+                                 top_k, seed, stop_token, tenant, adapter)
         # Set before enqueue: even an instant retirement bills it right.
         req.meter_skip = max(int(meter_skip), 0)
         req.on_token = on_token
@@ -1422,12 +1572,13 @@ class DecodeEngine:
                  max_new_tokens: int = 32, temperature: float = 0.0,
                  top_k: int = 0, seed: int = 0,
                  stop_token: Optional[int] = None,
-                 tenant: Optional[str] = None) -> List[List[int]]:
+                 tenant: Optional[str] = None,
+                 adapter: Optional[str] = None) -> List[List[int]]:
         """Blocking convenience mirroring LMGenerator.generate: one
         request per prompt (seeded seed+i), results in prompt order; one
         ``request_timeout_s`` deadline covers the whole batch."""
         reqs = self.submit_batch(prompts, max_new_tokens, temperature,
-                                 top_k, seed, stop_token, tenant)
+                                 top_k, seed, stop_token, tenant, adapter)
         deadline = time.monotonic() + self.request_timeout_s
         return [r.result(max(0.001, deadline - time.monotonic()))
                 for r in reqs]
@@ -1436,11 +1587,12 @@ class DecodeEngine:
                      max_new_tokens: int = 32, temperature: float = 0.0,
                      top_k: int = 0, seed: int = 0,
                      stop_token: Optional[int] = None,
-                     tenant: Optional[str] = None) -> List[Request]:
+                     tenant: Optional[str] = None,
+                     adapter: Optional[str] = None) -> List[Request]:
         """``generate`` minus the blocking wait: one request per prompt
         (seeded seed+i), enqueued atomically, handles returned."""
         reqs = [self._make_request(p, max_new_tokens, temperature, top_k,
-                                   seed + i, stop_token, tenant)
+                                   seed + i, stop_token, tenant, adapter)
                 for i, p in enumerate(prompts)]
         self._enqueue(reqs)
         return reqs
@@ -1478,6 +1630,12 @@ class DecodeEngine:
         self._active[slot] = False
         self._release_draft(slot)
         self._pending[slot] = -1
+        aid = int(self._aids[slot])
+        if aid >= 0 and self._apool is not None:
+            # Unpin the slot's adapter; its factors stay resident (LRU
+            # pages out only under slot pressure).
+            self._apool.release(aid)
+        self._aids[slot] = -1
 
     def _release_draft(self, slot: int) -> None:
         """Return a slot's draft pages (slot-private: they free whole)
@@ -1615,6 +1773,51 @@ class DecodeEngine:
             if inj.mode != "delay":
                 req._finish(RuntimeError(f"chaos[engine.admit]: {self.name}"))
                 return
+        # The adapter resolves BEFORE any page work (prompt KV is adapter
+        # KV). AdapterLoadError under fallback "error" fails this request
+        # through _admit_ready; AdapterSlotError requeues like page
+        # pressure. An admission that does not place the request releases
+        # the pin (unless _fail_inflight already dropped every pin).
+        aid = self._resolve_adapter(req)
+        try:
+            self._admit_resolved(req, slot, aid)
+        finally:
+            if aid >= 0 and self._slots[slot] is not req \
+                    and self._apool.ref[aid] > 0:
+                self._apool.release(aid)
+
+    def _resolve_adapter(self, req: Request) -> int:
+        """The request's adapter slot for this admission: acquire (paging
+        the artifact in if needed) and pin it. A LOAD failure follows
+        ``adapter_fallback``: "base" serves the base (-1) and counts
+        ``kfx_lm_adapter_fallbacks_total``; "error" re-raises
+        AdapterLoadError. AdapterSlotError (every slot pinned) always
+        propagates: pool pressure, handled like KV-page exhaustion."""
+        if self._apool is None or not req.adapter:
+            return -1
+        try:
+            return self._apool.acquire(req.adapter)
+        except AdapterSlotError:
+            raise
+        except AdapterLoadError:
+            if self.adapter_fallback == "error":
+                raise
+            self._reg().counter(
+                "kfx_lm_adapter_fallbacks_total",
+                "Requests degraded to base-only after an adapter "
+                "load failure (adapters.fallback=base).").inc(
+                    1, model=self.name)
+            return -1
+
+    @staticmethod
+    def _root_for(req: Request, aid: int) -> bytes:
+        """The prefix-cache chain root of an admission: the RESOLVED
+        adapter's name (cached pages hold adapter KV, so the same tokens
+        under two adapters never share a page), "" for the base, a
+        request that fell back to the base included."""
+        return req.adapter.encode() if (req.adapter and aid >= 0) else b""
+
+    def _admit_resolved(self, req: Request, slot: int, aid: int) -> None:
         L, ps = self.cfg.max_seq_len, self.page_size
         # Recompute continuation: a preempted request re-prefills prompt +
         # already-generated (the same values incremental decode wrote) and
@@ -1630,17 +1833,20 @@ class DecodeEngine:
         bucket = pow2_bucket(n, L - remaining)
         # Shared-prefix reuse, capped at n-1: the last prompt token must
         # run through the model for the next-token logits.
+        root = self._root_for(req, aid)
         shared: List[int] = []
         cow = None
         matched = 0
-        key = b""
+        key = root
         if self._prefix is not None:
-            shared, cow, matched, key = self._prefix.match(full, n - 1)
+            shared, cow, matched, key = self._prefix.match(full, n - 1,
+                                                           root=root)
         tail = full[matched:]
         if self.prefill_chunk_tokens and \
                 len(tail) > self.prefill_chunk_tokens:
             return self._admit_chunked(req, slot, full, n, remaining,
-                                       bucket, shared, cow, matched, key)
+                                       bucket, shared, cow, matched, key,
+                                       aid, root)
         first_own = len(shared)  # COW lands in the first owned block
         # The matched pages (and the COW source) are pinned FIRST:
         # _alloc_pages reclaims LRU cache pages, and an unpinned
@@ -1673,7 +1879,8 @@ class DecodeEngine:
             try:
                 if cow is not None:
                     self._copy_page(int(row[first_own]), cow[0], cow[1])
-                self._logbuf[slot] = self._prefill(tail, matched, row)
+                self._logbuf[slot] = self._prefill(tail, matched, row,
+                                                   aid=aid)
             except Exception:
                 self._mgr.decref(pinned + pages)
                 raise
@@ -1692,10 +1899,12 @@ class DecodeEngine:
             h = key
             for b in range(len(shared), n // ps):
                 h = self._prefix.insert_full(
-                    h, full[b * ps:(b + 1) * ps], int(row[b]))
+                    h, full[b * ps:(b + 1) * ps], int(row[b]), root=root)
             if n % ps and row[n // ps] >= 0:
                 self._prefix.insert_partial(
-                    h, full[(n // ps) * ps:n], int(row[n // ps]))
+                    h, full[(n // ps) * ps:n], int(row[n // ps]),
+                    root=root)
+        self._aids[slot] = aid    # the slot owns the adapter pin now
         self._slots[slot] = req
         self._activate(slot, req, full, bucket, remaining)
 
@@ -1738,7 +1947,8 @@ class DecodeEngine:
         self._draft_tables[slot, :len(pages)] = pages
         self._draft_slot_pages[slot] = pages
         self._spec_ok[slot] = True
-        self._prefill(full, 0, self._draft_tables[slot], draft=True)
+        self._prefill(full, 0, self._draft_tables[slot], draft=True,
+                      aid=int(self._aids[slot]))
 
     def _count_admission(self, req: Request, matched: int, n: int) -> bool:
         """First-admission stats, counted once per CLIENT request: the
@@ -1755,10 +1965,16 @@ class DecodeEngine:
             "Decode-engine admission wait (enqueue to slot prefill).",
             buckets=QUEUE_WAIT_BUCKETS).observe(
                 req.t_admitted - req.t_enqueue, model=self.name)
+        if self._apool is not None:
+            # Per-tenant traffic ("" counts as the base tenant).
+            self._reg().counter(
+                "kfx_lm_adapter_requests_total",
+                "Admitted client requests by adapter tenant.").inc(
+                    1, model=self.name, adapter=req.adapter or "base")
         if req._usage is not None:
             # Admission billing, under the same ``counted`` latch: a
             # preempted request's recompute never bills twice.
-            req._usage.admit(req.tenant, METER_QOS, METER_ADAPTER,
+            req._usage.admit(req.tenant, METER_QOS, req.adapter or "base",
                              len(req.prompt))
         if self._prefix is not None:
             if matched:
@@ -1795,7 +2011,8 @@ class DecodeEngine:
     def _admit_chunked(self, req: Request, slot: int, full: List[int],
                        n: int, remaining: int, bucket: int,
                        shared: List[int], cow, matched: int,
-                       key: bytes) -> None:
+                       key: bytes, aid: int = -1,
+                       root: bytes = b"") -> None:
         """Chunked admission: place the request in the slot WITHOUT a
         prompt dispatch — pin the matched prefix pages (and clone the COW
         boundary page), count the admission as the monolithic path does,
@@ -1823,10 +2040,11 @@ class DecodeEngine:
         self._tables[slot] = row
         self._slot_pages[slot] = shared + own
         self._active[slot] = False
+        self._aids[slot] = aid    # the slot owns the adapter pin now
         self._slots[slot] = req
         self._prefilling[slot] = {
             "req": req, "full": full, "n": n, "next": matched,
-            "key": key, "reg_block": len(shared),
+            "key": key, "reg_block": len(shared), "root": root,
             "bucket": bucket, "remaining": remaining,
             # Whether THIS admission counted as a client admission: the
             # late re-match's hit accounting follows the same verdict.
@@ -1886,7 +2104,7 @@ class DecodeEngine:
             try:
                 self._logbuf[slot] = self._prefill(
                     cur["full"][start:start + length], start,
-                    self._tables[slot])
+                    self._tables[slot], aid=int(self._aids[slot]))
             except Exception as e:
                 self._abort_prefill(slot, e)
                 return
@@ -1910,8 +2128,8 @@ class DecodeEngine:
         an empty match: pin the matched full pages, clone the COW boundary
         page, and fast-forward the cursor. A failed COW allocation
         abandons the match; plain chunked prefill continues."""
-        shared, cow, matched, key = self._prefix.match(cur["full"],
-                                                       cur["n"] - 1)
+        shared, cow, matched, key = self._prefix.match(
+            cur["full"], cur["n"] - 1, root=cur["root"])
         if not matched:
             return
         pinned = shared + ([cow[0]] if cow is not None else [])
@@ -1950,12 +2168,14 @@ class DecodeEngine:
         b = cur["reg_block"]
         while b < covered:
             h = self._prefix.insert_full(
-                h, full[b * ps:(b + 1) * ps], int(self._tables[slot, b]))
+                h, full[b * ps:(b + 1) * ps], int(self._tables[slot, b]),
+                root=cur["root"])
             b += 1
         cur["key"], cur["reg_block"] = h, b
         if final and n % ps and self._tables[slot, n // ps] >= 0:
             self._prefix.insert_partial(
-                h, full[(n // ps) * ps:n], int(self._tables[slot, n // ps]))
+                h, full[(n // ps) * ps:n], int(self._tables[slot, n // ps]),
+                root=cur["root"])
 
     def _abort_prefill(self, slot: int, error: BaseException) -> None:
         """Tear a prefill cursor down, releasing the slot's pages whole,
@@ -2160,9 +2380,11 @@ class DecodeEngine:
             self._pending, self._pos, self._loc, self._max_loc,
             spec_on.astype(np.int64), draft_live.astype(np.int64),
             self._active.astype(np.int64), fresh.astype(np.int64),
-            self._produced, self._topk, self._seeds])).to(dev)
+            self._produced, self._topk, self._seeds, self._aids])).to(dev)
         (pending, pos, loc, max_loc, spec_on, draft_live, active, fresh,
-         produced, topk, seeds) = state
+         produced, topk, seeds, aids) = state
+        # The draft wears each slot's adapter through the truncated stacks.
+        lora, dlora = self._lora(), self._lora(draft=True)
         spec_on, draft_live = spec_on.bool(), draft_live.bool()
         active, fresh = active.bool(), fresh.bool()
         temp = torch.from_numpy(self._temp).to(dev)
@@ -2186,7 +2408,8 @@ class DecodeEngine:
                 torch.where(active, tok, 0)[:, None],
                 torch.where(on, pos + i, -1).int()[:, None],
                 self._draft_cache, dtables,
-                torch.where(on, loc + i, -1).int()[:, None])[:, 0]
+                torch.where(on, loc + i, -1).int()[:, None], lora=dlora,
+                adapter_ids=aids)[:, 0]
             tok = sample_slots(lg, temp, topk, seeds, t0 + i,
                                stream=STREAM_DRAFT, **draw)
             props.append(tok)
@@ -2203,7 +2426,8 @@ class DecodeEngine:
             torch.where(active[:, None], win, 0),
             torch.where(writable, pos[:, None] + steps, -1).int(),
             self._cache, tables,
-            torch.where(writable, wloc, -1).int())         # [B, k+1, V]
+            torch.where(writable, wloc, -1).int(), lora=lora,
+            adapter_ids=aids)                              # [B, k+1, V]
 
         # 4. accept
         within = wloc[:, 1:] <= max_loc[:, None]
@@ -2254,7 +2478,8 @@ class DecodeEngine:
         self.draft_model(
             torch.where(active, win.gather(1, a[:, None])[:, 0], 0)[:, None],
             torch.where(on, pos + a, -1).int()[:, None], self._draft_cache,
-            dtables, torch.where(on, loc + a, -1).int()[:, None])
+            dtables, torch.where(on, loc + a, -1).int()[:, None],
+            lora=dlora, adapter_ids=aids)
         return torch.cat([pending[:, None], D, a[:, None], bonus[:, None]],
                          1)
 
@@ -2372,6 +2597,12 @@ class DecodeEngine:
                 self._slots[slot] = None
                 req._finish(e)
         self._prefilling.clear()
+        if self._apool is not None:
+            # Every wearer just failed; loaded adapters stay resident (the
+            # stacks are written only by loads, so a dead launch cannot
+            # have corrupted them).
+            self._apool.release_all()
+        self._aids[:] = -1
         self._active[:] = False
         self._tables[:, :] = -1
         self._slot_pages = [[] for _ in range(self.n_slots)]

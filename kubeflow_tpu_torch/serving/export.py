@@ -14,7 +14,13 @@ so the reference's ``JaxPredictor`` serves a port export and the port's
 serves a reference export. ``quantize="int8"`` stores every kernel as
 per-output-channel symmetric int8 with an f32 scale per output channel
 (the ``{"q", "scale"}`` pair); ``load_exported`` dequantizes on load.
-LoRA adapter artifacts are not ported (ROADMAP.md Queue A 5b.6).
+
+LoRA adapter artifacts (``export_adapter`` / ``load_adapter``): a
+directory with ``adapter_config.json`` (format version, name, rank,
+alpha, targets and the base dims) and ``params.msgpack`` holding the flat
+target tree ``{"attn.query": {"a": [L, d_in, r], "b": [L, r, d_out]},
+...}``, unscaled. The same flat tree gives the reference's bytes, and each
+package reads the other's artifacts.
 """
 
 from __future__ import annotations
@@ -34,6 +40,75 @@ from . import _msgpack
 FORMAT_VERSION = 2
 CONFIG_FILE = "config.json"
 PARAMS_FILE = "params.msgpack"
+
+# LoRA adapter artifacts: a format of their own beside the model export
+# (an adapter is a rank-r correction to a model, not a model).
+ADAPTER_CONFIG_FILE = "adapter_config.json"
+ADAPTER_FORMAT_VERSION = 1
+
+
+def _np_leaf(x) -> np.ndarray:
+    """A numpy copy of an array or a (device) tensor."""
+    if hasattr(x, "detach"):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def export_adapter(directory: str, name: str, cfg, lora_flat,
+                   rank: int, alpha: float) -> str:
+    """Write one versioned LoRA adapter artifact from the flat target tree
+    (``serving/adapters.extract_lora`` makes one from a fine-tune's
+    tree). The factors are stored unscaled; alpha/rank is metadata,
+    folded in when the serving pool loads the adapter."""
+    if rank < 1:
+        raise ValueError("adapter rank must be >= 1")
+    if not lora_flat:
+        raise ValueError("lora_flat is empty — nothing to export "
+                         "(did the fine-tune config set lora_rank?)")
+    os.makedirs(directory, exist_ok=True)
+    config = {
+        "format_version": ADAPTER_FORMAT_VERSION,
+        "kind": "lora_adapter",
+        "name": str(name),
+        "rank": int(rank),
+        "alpha": float(alpha),
+        "targets": sorted(lora_flat),
+        "base": {
+            "d_model": cfg.d_model, "n_layers": cfg.n_layers,
+            "n_heads": cfg.n_heads, "head_dim": cfg.head_dim,
+            "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size,
+        },
+    }
+    with open(os.path.join(directory, ADAPTER_CONFIG_FILE), "w") as f:
+        json.dump(config, f)
+    payload = {k: {kk: _np_leaf(vv) for kk, vv in v.items()}
+               for k, v in lora_flat.items()}
+    with open(os.path.join(directory, PARAMS_FILE), "wb") as f:
+        _msgpack.dump(payload, f)
+    return directory
+
+
+def _adapter_path(uri: str) -> str:
+    return uri[len("file://"):] if uri.startswith("file://") else uri
+
+
+def load_adapter(uri: str) -> Tuple[Dict[str, Any], Any]:
+    """Load an adapter artifact (a path or a file:// URI) -> (config,
+    flat A/B tree of numpy arrays). A directory that is not an adapter
+    artifact (a model export, say) raises."""
+    path = _adapter_path(uri)
+    with open(os.path.join(path, ADAPTER_CONFIG_FILE)) as f:
+        config = json.load(f)
+    if config.get("kind") != "lora_adapter":
+        raise ValueError(f"{uri} is not a LoRA adapter artifact")
+    return config, _msgpack.load(os.path.join(path, PARAMS_FILE))
+
+
+def peek_adapter_rank(uri: str) -> int:
+    """The declared rank from an artifact's config alone (no tensor IO):
+    the pool's auto-rank reads every configured source once."""
+    with open(os.path.join(_adapter_path(uri), ADAPTER_CONFIG_FILE)) as f:
+        return int(json.load(f).get("rank", 0))
 
 
 def quantize_tree_int8(tree: Any) -> Any:

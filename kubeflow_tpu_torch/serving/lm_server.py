@@ -54,13 +54,22 @@ the engine's paged KV as int8 (the one-shot path keeps its dense
 full-precision cache); ``KFX_LM_QUANT_DRAFT=int8`` quantizes only the
 speculative draft. ``KFX_CHAOS`` activates the chaos points (``chaos``).
 
+Multi-tenant LoRA, as in the reference: ``KFX_LM_ADAPTERS`` is a JSON
+object ``{name: artifact URI}`` (serving/export.py ``export_adapter``)
+served over the base export by the engine's adapter pool, sized by
+``KFX_LM_ADAPTER_SLOTS`` (8) and ``KFX_LM_ADAPTER_RANK`` (0 = the largest
+rank the artifacts declare); ``KFX_LM_ADAPTER_DEFAULT`` applies when a
+body names none and ``KFX_LM_ADAPTER_FALLBACK`` ("base" or "error") is
+the load-failure policy. The body field ``adapter`` selects one: absent
+means the default, "" the base; an unknown name or a non-string is a
+400, and so is any ``adapter`` on the one-shot path.
+
 Every knob of an engine extension that is not ported raises
 ``NotImplementedError`` naming its Queue A 5b item rather than being
-ignored: ``KFX_LM_ADAPTERS`` (5b.6), ``KFX_LM_QOS_DEFAULT`` other than
-interactive, ``KFX_LM_DEADLINE_MS``, ``KFX_LM_RATE_LIMITS`` (5b.7), a
-``KFX_LM_ROLE`` other than mixed, ``KFX_LM_KV_PEERS``,
-``KFX_LM_KV_OFFLOAD_PAGES`` and ``KFX_LM_MODELS`` (5b.8). The body
-fields ``adapter`` and ``model`` are a 400.
+ignored: ``KFX_LM_QOS_DEFAULT`` other than interactive,
+``KFX_LM_DEADLINE_MS``, ``KFX_LM_RATE_LIMITS`` (5b.7), a ``KFX_LM_ROLE``
+other than mixed, ``KFX_LM_KV_PEERS``, ``KFX_LM_KV_OFFLOAD_PAGES`` and
+``KFX_LM_MODELS`` (5b.8). The body field ``model`` is a 400.
 
 Tokenization is caller-side.
 """
@@ -83,7 +92,7 @@ from ..models.transformer import (TransformerConfig, dequantize_params_int8,
                                   quantize_params_int8)
 from ..obs.metrics import default_registry
 from . import _msgpack
-from .engine import METER_ADAPTER, METER_QOS, DecodeEngine, EngineOverloaded
+from .engine import METER_QOS, DecodeEngine, EngineOverloaded
 from .export import FORMAT_VERSION, _sorted
 from .server import Predictor
 
@@ -149,8 +158,6 @@ def _refuse_engine_knobs() -> None:
     env = os.environ.get
     off = ("", "0")
     knobs = [
-        ("KFX_LM_ADAPTERS", env("KFX_LM_ADAPTERS", "") not in ("", "{}"),
-         "LoRA adapters", "5b.6"),
         ("KFX_LM_QOS_DEFAULT",
          env("KFX_LM_QOS_DEFAULT", "") not in ("", "interactive"),
          "QoS, deadlines and rate limits", "5b.7"),
@@ -254,6 +261,18 @@ class LMPredictor(Predictor):
         self.quant = env("KFX_LM_QUANT", "")
         self.kv_quant = env("KFX_LM_KV_QUANT", "")
         self.draft_quant = env("KFX_LM_QUANT_DRAFT", "")
+        # Multi-tenant LoRA: {name: artifact URI}; the default adapter of
+        # a body that names none; the pool's slots; its stack rank (0 =
+        # the largest the artifacts declare); the load-failure policy.
+        try:
+            self.adapters = json.loads(env("KFX_LM_ADAPTERS", "") or "{}")
+        except ValueError as e:
+            raise ValueError(
+                f"KFX_LM_ADAPTERS is not valid JSON: {e}") from e
+        self.adapter_default = env("KFX_LM_ADAPTER_DEFAULT", "")
+        self.adapter_slots = int(env("KFX_LM_ADAPTER_SLOTS", "8"))
+        self.adapter_rank = int(env("KFX_LM_ADAPTER_RANK", "0"))
+        self.adapter_fallback = env("KFX_LM_ADAPTER_FALLBACK", "base")
         for name, value in (("KFX_LM_QUANT", self.quant),
                             ("KFX_LM_KV_QUANT", self.kv_quant),
                             ("KFX_LM_QUANT_DRAFT", self.draft_quant)):
@@ -309,7 +328,12 @@ class LMPredictor(Predictor):
                 draft_kv_pages=self.spec_pages or None,
                 kv_quant="int8" if self.kv_quant == "int8" else "",
                 draft_quant="int8" if self.draft_quant == "int8" else "",
-                device=self.device)
+                device=self.device,
+                adapters=self.adapters or None,
+                adapter_slots=self.adapter_slots,
+                adapter_rank=self.adapter_rank,
+                adapter_default=self.adapter_default,
+                adapter_fallback=self.adapter_fallback)
             self._attach_usage()
             buckets = self.warm_buckets or self._engine.prompt_buckets
             # The first bucket and a decode step warm synchronously
@@ -369,12 +393,14 @@ class LMPredictor(Predictor):
     def _attach_usage(self) -> None:
         """Project the engine's tenant ledger into the CURRENT registry (a
         collector: the ledger owns the truth), seeding the default
-        tenant's zero row so a scrape before any traffic already shows
-        both ``kfx_tenant_*`` families."""
+        tenant's zero row (the default adapter's, else the base's) so a
+        scrape before any traffic already shows both ``kfx_tenant_*``
+        families."""
         if self._engine is None or self._engine.usage is None:
             return
         ledger = self._engine.usage
-        ledger.seed(METER_ADAPTER, METER_QOS, METER_ADAPTER)
+        tenant = self.adapter_default or "base"
+        ledger.seed(tenant, METER_QOS, tenant)
         self.metrics.add_collector(ledger.collect)
 
     def engine_heartbeat(self) -> Optional[Dict[str, Any]]:
@@ -448,18 +474,19 @@ class LMPredictor(Predictor):
                 # The reference's one-shot path answers 400.
                 raise ValueError("stop_token requires the engine path "
                                  "(KFX_LM_ENGINE=1)")
-        for field, what, item in (
-                ("adapter", "adapter name", "LoRA adapters"),
-                ("model", "model name", "the weight pool")):
+        # Per-request adapter: absent = the default adapter, "" = the
+        # base; the engine answers an unknown name with a 400.
+        for field, what in (("adapter", "adapter name"),
+                            ("model", "model name")):
             v = body.get(field)
             if v is not None and not isinstance(v, str):
                 raise ValueError(f"{field} must be a string {what}")
             if v is not None and self._engine is None:
                 raise ValueError(f"{field} selection requires the engine "
                                  "path (KFX_LM_ENGINE=1)")
-            if v is not None:
-                raise ValueError(f"{field} selection needs {item}, not "
-                                 f"ported yet ({_ENGINE})")
+        if body.get("model") is not None:
+            raise ValueError("model selection needs the weight pool, not "
+                             f"ported yet ({_ENGINE})")
         qos = body.get("qos")
         if qos is not None and not isinstance(qos, str):
             raise ValueError("qos must be a string class name")
@@ -477,6 +504,7 @@ class LMPredictor(Predictor):
             "prompts": [list(map(int, p)) for p in prompts],
             "stop": stop,
             "tenant": tenant or None,
+            "adapter": body.get("adapter"),
             "kw": dict(
                 max_new_tokens=int(body.get("max_new_tokens", 32)),
                 temperature=float(body.get("temperature", 0.0)),
@@ -511,7 +539,8 @@ class LMPredictor(Predictor):
         if self._engine is not None:
             reqs = self._engine.submit_batch(p["prompts"],
                                              stop_token=p["stop"],
-                                             tenant=p["tenant"], **p["kw"])
+                                             tenant=p["tenant"],
+                                             adapter=p["adapter"], **p["kw"])
             deadline = time.monotonic() + self._engine.request_timeout_s
             out = [r.result(max(0.001, deadline - time.monotonic()))
                    for r in reqs]
@@ -563,7 +592,8 @@ class LMPredictor(Predictor):
         q: "_queue.Queue[Optional[int]]" = _queue.Queue()
         req = self._engine.submit(p["prompts"][0], stop_token=p["stop"],
                                   on_token=q.put, tenant=p["tenant"],
-                                  meter_skip=skip, **p["kw"])
+                                  meter_skip=skip, adapter=p["adapter"],
+                                  **p["kw"])
         return self._stream_events(req, q, skip,
                                    self._engine.request_timeout_s)
 

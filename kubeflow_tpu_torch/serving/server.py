@@ -473,6 +473,9 @@ class ModelServer:
                                "prefix_tokens_reused"),
                               ("kfx_lm_prompt_tokens_admitted",
                                "prompt_tokens_admitted"),
+                              ("kfx_lm_adapter_slots", "adapter_slots"),
+                              ("kfx_lm_adapter_slots_free",
+                               "adapter_slots_free"),
                               ("kfx_lm_spec_accept_rate",
                                "spec_accept_rate")):
             for labels, value in self.metrics.gauge(family).samples():
@@ -646,6 +649,7 @@ class ModelServer:
             name, trace_id=h.headers.get(TRACE_HEADER, ""),
             parent_id=h.headers.get(SPAN_HEADER, ""), model=model)
         h._span_id = sp.span_id  # echoed back by _send_text
+        h._cur_span = sp
         return sp
 
     @staticmethod
@@ -654,6 +658,7 @@ class ModelServer:
         obs_trace.finish_span(
             sp, status="ok" if 200 <= code < 400 else "error")
         h._span_id = ""
+        h._cur_span = None
 
     def _unavailable(self, h, name: str, p: Predictor) -> bool:
         """Answer 503 (Retry-After while draining) unless ``p`` serves."""
@@ -732,6 +737,18 @@ class ModelServer:
         body = self._read_json(h)
         if body is None or self._chaos_predict(h, name):
             return
+        # The tenant on the serving.generate span, resolved as the engine
+        # resolves it: the explicit tenant, else the adapter's ("" or
+        # absent: the default adapter, the base when there is none).
+        sp = getattr(h, "_cur_span", None)
+        if sp is not None and isinstance(body, dict):
+            tenant = body.get("tenant")
+            if not isinstance(tenant, str) or not tenant:
+                adapter = body.get("adapter")
+                if adapter is None:
+                    adapter = getattr(p, "adapter_default", "")
+                tenant = str(adapter or "") or "base"
+            sp.attrs["tenant"] = tenant
         try:
             if body.get("stream"):
                 events = p.generate_stream(body)

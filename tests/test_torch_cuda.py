@@ -625,3 +625,96 @@ def test_int8_sink_page_absorbs_dropped_writes_on_cuda(cuda_quant):
     # Real pages: row 0 fills pages 0 and 1 (24 tokens), row 1 page 2.
     assert int((cache.pos[0, 2] >= 0).sum()) == 16
     assert int((cache.pos[0, 1] >= 0).sum()) == 8
+
+
+# -- multi-tenant LoRA on the card -------------------------------------------
+
+@pytest.fixture
+def cuda_lora():
+    if not torch.cuda.is_available():
+        pytest.skip("the LoRA fine-tune launches the flash_fwd/flash_dq/"
+                    "flash_dkv CUDA kernels and the adapter pool lives in "
+                    "device memory; torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def test_lora_gather_delta_on_cuda_matches_cpu(cuda_lora):
+    """The batched gather on the card against its CPU result (f32, TF32
+    off): each row its own slot, -1 rows exactly zero."""
+    from kubeflow_tpu_torch.models.transformer import lora_gather_delta
+
+    g = torch.Generator().manual_seed(0)
+    entry = {"a": torch.randn(4, 1024, 8, generator=g) * 0.02,
+             "b": torch.randn(4, 8, 4096, generator=g) * 0.02}
+    x = torch.randn(8, 5, 1024, generator=g)
+    ids = torch.tensor([3, -1, 0, 1, 2, -1, 3, 0])
+    want = lora_gather_delta(x, entry, ids, torch.float32)
+    got = lora_gather_delta(x.to(cuda_lora),
+                            {k: v.to(cuda_lora) for k, v in entry.items()},
+                            ids.to(cuda_lora), torch.float32).cpu()
+    assert _rel(got, want) <= 1e-5
+    assert not got[ids < 0].any()
+
+
+def test_lora_finetune_step_launches_flash_on_cuda(cuda_lora):
+    """A fine-tune step at S 2048 on a 2-layer base: the forward, dQ and
+    dK/dV kernels launch once a layer (the factors on q/k/v need dQ and
+    dK/dV), the loss at step 0 is the base model's, and the base tensors
+    are bit-unchanged after the steps."""
+    from kubeflow_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM)
+    from kubeflow_tpu_torch.training.lora import LoRAFineTuner
+
+    cfg = TransformerConfig(vocab_size=512, d_model=128, n_heads=2,
+                            head_dim=64, n_layers=2, d_ff=256,
+                            max_seq_len=2048)
+    base = TransformerLM(cfg, device=cuda_lora,
+                         generator=torch.Generator(cuda_lora).manual_seed(0))
+    sd = {k: v.detach().clone() for k, v in base.state_dict().items()}
+    tuner = LoRAFineTuner(cfg, sd, rank=8, alpha=16.0, device=cuda_lora)
+    tokens = torch.randint(0, 512, (1, 2049), device=cuda_lora,
+                           generator=torch.Generator(cuda_lora).manual_seed(1))
+    with torch.no_grad():
+        logits = base(tokens[:, :-1])
+        want = torch.nn.functional.cross_entropy(
+            logits.reshape(-1, 512), tokens[:, 1:].reshape(-1))
+    fa.reset_launches()
+    losses = [tuner.train_step(tokens) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_fwd": 4, "flash_dq": 4, "flash_dkv": 4}
+    assert losses[0] == float(want)
+    assert all(torch.equal(tuner.base[k], v) for k, v in sd.items())
+    assert any(float(p.detach().abs().max()) > 0
+               for n, p in tuner.lora.items()
+               if n.endswith("_lora_b"))
+
+
+def test_adapter_pool_writes_slots_in_place_on_cuda(cuda_lora, tmp_path):
+    """Paging an adapter into a slot writes the device stacks in place:
+    every stack keeps its data_ptr (the launches' per-layer views stay
+    valid) and the slot holds alpha/rank * B."""
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.serving.adapters import (
+        AdapterPool, random_lora_flat)
+    from kubeflow_tpu_torch.serving.export import export_adapter
+
+    cfg = TransformerConfig(vocab_size=64, d_model=32, n_heads=2,
+                            head_dim=16, n_layers=2, d_ff=64, max_seq_len=64)
+    flat = random_lora_flat(cfg, 4, seed=3)
+    src = {f"t{i}": export_adapter(str(tmp_path / f"t{i}"), f"t{i}", cfg,
+                                   flat, 4, 8.0) for i in range(3)}
+    pool = AdapterPool(cfg, 2, src, draft_layers=1, device=cuda_lora)
+    ptrs = {(m, n, k): t.data_ptr() for tree in (pool.tree, pool.draft_tree)
+            for m, node in tree.items() for n, pair in node.items()
+            for k, t in pair.items()}
+    for name in ("t0", "t1", "t0", "t2"):
+        pool.release(pool.acquire(name))
+    assert pool.evictions == 1 and pool.loads == 3
+    after = {(m, n, k): t.data_ptr() for tree in (pool.tree, pool.draft_tree)
+             for m, node in tree.items() for n, pair in node.items()
+             for k, t in pair.items()}
+    assert after == ptrs
+    slot = pool._by_name["t2"]
+    b = pool.tree["mlp"]["wi"]["b"][:, slot].cpu().numpy()
+    np.testing.assert_allclose(b, flat["mlp.wi"]["b"] * 2.0, rtol=1e-6)

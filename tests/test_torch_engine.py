@@ -376,11 +376,11 @@ class TestEngineDecode:
         real = DecodeEngine._prefill
         calls = {"n": 0}
 
-        def poisoned(self_, *a):
+        def poisoned(self_, *a, **kw):
             calls["n"] += 1
             if calls["n"] == 1:
                 raise ValueError("poisoned prefill")
-            return real(self_, *a)
+            return real(self_, *a, **kw)
 
         monkeypatch.setattr(DecodeEngine, "_prefill", poisoned)
         bad = engine.submit([1, 2, 3], max_new_tokens=4)
@@ -589,9 +589,9 @@ class TestChunkedPrefill:
                       name="lm-ckdr")
         real = DecodeEngine._prefill
 
-        def slow(self_, *a):
+        def slow(self_, *a, **kw):
             time.sleep(0.2)   # a wide mid-prefill window
-            return real(self_, *a)
+            return real(self_, *a, **kw)
 
         monkeypatch.setattr(DecodeEngine, "_prefill", slow)
         try:

@@ -504,7 +504,6 @@ def test_http_greedy_equals_reference_oneshot_server(tiny_export,
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("KFX_LM_ADAPTERS", '{"a": "file:///x"}'),
     ("KFX_LM_MODELS", '{"m": "/x"}'), ("KFX_LM_ROLE", "prefill"),
     ("KFX_LM_KV_PEERS", '["http://127.0.0.1:1"]'),
     ("KFX_LM_KV_OFFLOAD_PAGES", "4"),
@@ -524,21 +523,31 @@ def test_engine_knobs_are_refused(tiny_export, monkeypatch, knob, value):
 
 @pytest.mark.parametrize("knob,value", [
     ("KFX_CHAOS", "engine.admit:count=1"), ("KFX_LM_QUANT", "int8"),
-    ("KFX_LM_KV_QUANT", "int8"), ("KFX_LM_QUANT_DRAFT", "int8")])
+    ("KFX_LM_KV_QUANT", "int8"), ("KFX_LM_QUANT_DRAFT", "int8"),
+    ("KFX_LM_ADAPTERS", '{"a": "file://{artifact}"}')])
 def test_ported_engine_knobs_take_effect(tiny_export, monkeypatch, knob,
-                                         value):
-    """The knobs of ported extensions (Queue A 5b.4, 5b.5) load and take
-    effect, with the engine on and, where the reference reads them there
-    (KFX_CHAOS, KFX_LM_QUANT), off: the chaos plan is installed from the
-    environment, the quant knobs change the engine's quant_mode (the
+                                         value, tmp_path):
+    """The knobs of ported extensions (Queue A 5b.4, 5b.5, 5b.6) load and
+    take effect, with the engine on and, where the reference reads them
+    there (KFX_CHAOS, KFX_LM_QUANT), off: the chaos plan is installed from
+    the environment, the quant knobs change the engine's quant_mode (the
     one-shot path has no paged pool and no draft, so KV and draft quant
-    leave it full precision, as in the reference)."""
+    leave it full precision, as in the reference), and KFX_LM_ADAPTERS
+    (an artifact exported here) gives the engine its adapter pool."""
     from kubeflow_tpu_torch import chaos
+    from kubeflow_tpu_torch.serving.adapters import random_lora_flat
+    from kubeflow_tpu_torch.serving.export import export_adapter
 
     assert knob in ENGINE_KNOBS
+    if knob == "KFX_LM_ADAPTERS":
+        cfg = lm_server.load_lm(tiny_export[0])[0]
+        value = value.replace("{artifact}", export_adapter(
+            str(tmp_path / "a"), "a", cfg, random_lora_flat(cfg, 2), 2,
+            4.0))
     monkeypatch.setenv(knob, value)
     want = {"KFX_CHAOS": "f32", "KFX_LM_QUANT": "w8",
-            "KFX_LM_KV_QUANT": "kv8", "KFX_LM_QUANT_DRAFT": "d8"}[knob]
+            "KFX_LM_KV_QUANT": "kv8", "KFX_LM_QUANT_DRAFT": "d8",
+            "KFX_LM_ADAPTERS": "f32"}[knob]
     chaos.reset()
     try:
         for engine in ("1", "0"):
@@ -554,6 +563,9 @@ def test_ported_engine_knobs_take_effect(tiny_export, monkeypatch, knob,
                     model = p._gen.model
                 quant = knob == "KFX_LM_QUANT"
                 assert (model.lm_head.kernel.dtype == torch.int8) == quant
+                if engine == "1":
+                    pooled = knob == "KFX_LM_ADAPTERS"
+                    assert (p.engine.adapter_stats()["slots"] == 8) == pooled
                 if knob == "KFX_CHAOS":
                     plan = chaos.active_plan()
                     assert set(plan.rules) == {"engine.admit"}

@@ -398,10 +398,10 @@ class TestSpecGreedy:
         eng = _engine(gapped, name="lm-df")
         real = DecodeEngine._prefill
 
-        def broken(self_, tokens, start, table, draft=False):
+        def broken(self_, tokens, start, table, draft=False, **kw):
             if draft:
                 raise RuntimeError("draft dispatch failed")
-            return real(self_, tokens, start, table, draft)
+            return real(self_, tokens, start, table, draft, **kw)
 
         try:
             monkeypatch.setattr(DecodeEngine, "_prefill", broken)

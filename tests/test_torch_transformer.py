@@ -135,11 +135,12 @@ def test_config_validation_matches_reference(kw):
 
 
 UNPORTED = [
-    dict(cp=2), dict(sp=True), dict(lora_rank=4),
+    dict(cp=2), dict(sp=True),
 ]
 # Refused by earlier slices, ported since: each constructs as in the
 # reference, and a training loop takes it.
-NOW_ACCEPTED = [dict(n_experts=2), dict(remat=True), dict(loss_chunk=128)]
+NOW_ACCEPTED = [dict(n_experts=2), dict(remat=True), dict(loss_chunk=128),
+                dict(lora_rank=4)]
 # The paged cache is ported (the engine's pool): these construct, with
 # the reference's field values.
 PAGED = [
