@@ -160,10 +160,33 @@ Phases, in order; any failure raises and the process exits non-zero:
    without adapters (ms, kernels, host enqueue, busy share), and with
    fallback "error" the ninth adapter's failed load answers 503 with
    Retry-After, then serves; flash launches 0/0/0 in (l1)-(l5);
+   (m) the request plane and the KV transfer plane: (m0) one-slot engines
+   on the bf16 export's weights at max_seq_len 512: a deadline that
+   expires in the queue sheds before prefill, an infeasible deadline
+   sheds at submit under a warm queue-wait estimate, an interactive
+   arrival sheds the newest queued batch request, and with four slots
+   over a 16-page pool the batch slots are the preemption victims
+   (kfx_lm_deadline_shed_total read back); a tenant over its
+   KFX_LM_RATE_LIMITS budget answered 503 with Retry-After over HTTP
+   (kfx_lm_rate_limited_total on /metrics); (m1) two engines on (b)'s
+   wide-gap f32 weights: (a)'s 8 prompts migrated after 16 tokens, their
+   greedy tokens equal to the unmigrated run and the first 64 to (f1)'s
+   LMGenerator, one seeded sampled stream equal to its unmigrated one,
+   and one request of 1984 + 64 tokens on the bf16 export (its pages of
+   98400 bytes a token) equal to its unmigrated run; each leg's export and
+   import ms, bytes, pages and GB/s printed, free pages balanced on both
+   engines; (m3) kv.transfer:count=1 loses nothing and a corrupt frame is
+   refused with no page leaked; (m2) a KFX_LM_ROLE=prefill server with
+   KFX_LM_KV_PEERS at a decode server over loopback HTTP: 503 +
+   X-Kfx-Migrated, the re-dispatched body claims the adopted generation,
+   tokens (buffered and streamed) equal the decode server's own, TTFT of
+   both paths; (m4) the host tier on the wide-gap f32 weights: a page
+   demoted at eviction promotes back byte for byte, tokens unchanged, the
+   prefix hit counted; flash launches 0/0/0;
 7. one JSON line per kernel set, the serving line, the engine line, the
    spec line, the training line, the classifier line, the int8 line, the
-   chaos line, the lora line, the card's name and power limit, and the
-   last line {"ok": true, "device": {...}}.
+   chaos line, the lora line, the kv line, the card's name and power
+   limit, and the last line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or without the port's package beside it, it exits non-zero
@@ -295,6 +318,28 @@ LORA_ADAPTERS = 8
 LORA_NEW = 32          # greedy tokens a row in (l1)-(l3)
 LORA_PAGED_SLOTS = 4   # (l2): 8 adapters over 4 slots
 LORA_PAGED_NEW = 8
+
+# KV transfer and request plane phase (m). (m0) engines run the bf16
+# export's weights at max_seq_len RP_SEQ (16 pages of 32 tokens), so four
+# requests of RP_NEW new tokens outgrow one engine's pool; (m1) migrates the
+# 8 prompts of (a) after KV_MIGRATE_AFTER tokens with KV_MIGRATE_NEW new
+# tokens each (the donor detaches one request an iteration boundary, so a
+# longer run keeps all 8 decoding until their acknowledgements; the first
+# SERVE_NEW are (f1)'s LMGenerator tokens), and one request of
+# KV_LONG_PROMPT + SERVE_NEW tokens on the bf16 export; (m3)'s requests
+# generate CHAOS_NEW tokens; (m2) hands HANDOFF_ROWS prompts from a prefill
+# server to a decode server; (m4) pushes one prompt of OFFLOAD_PROMPT tokens
+# to the host tier and back. Cut to hold the phase in 150 s: (m2) one
+# prompt, (m3) 32 tokens.
+RP_SEQ = 512
+RP_NEW = 150
+KV_MIGRATE_AFTER = 16
+KV_MIGRATE_NEW = 192
+KV_LONG_PROMPT = 1984
+HANDOFF_ROWS = 1
+CHAOS_NEW = 32
+OFFLOAD_PROMPT = 1024
+OFFLOAD_NEW = 16
 
 
 def log(msg: str) -> None:
@@ -3098,6 +3143,602 @@ def lora_phase(torch, fa, export_dir, gap_cfg, prompts, f1, dev, base_step):
     return rec
 
 
+# -- (m) the request plane and the KV transfer plane ---------------------------
+
+def counter_value(eng, family, **labels):
+    """The engine's sample of ``family`` with its model label and
+    ``labels`` (0 when absent)."""
+    want = dict(model=eng.name, **labels)
+    return sum(v for lab, v in eng._reg().counter(family).samples()
+               if lab == want)
+
+
+def expect_raise(exc_type, fn, what):
+    """Call ``fn``; fail unless it raises ``exc_type``. Returns the
+    exception."""
+    try:
+        fn()
+    except exc_type as e:
+        return e
+    raise AssertionError(f"{what}: no {exc_type.__name__}")
+
+
+def request_plane_checks(torch, cfg, params, dev):
+    """(m0) on the bf16 export's weights at max_seq_len RP_SEQ: the
+    expired-deadline and infeasible-deadline sheds, batch shedding for an
+    interactive arrival and the batch victim first under pool pressure."""
+    import dataclasses
+
+    from kubeflow_tpu_torch import chaos
+    from kubeflow_tpu_torch.serving.engine import (
+        DeadlineInfeasible, DecodeEngine, EngineOverloaded)
+
+    rp_cfg = dataclasses.replace(cfg, max_seq_len=RP_SEQ)
+    kw = dict(chunk_tokens=ENGINE_CHUNK, kv_page_size=ENGINE_PAGE,
+              device=dev)
+    out = {}
+    eng = DecodeEngine(rp_cfg, params, n_slots=1, name="rp", **kw)
+
+    def stall(delay):
+        chaos.install(chaos.parse_spec(
+            f"engine.admit:mode=delay,delay={delay},count=1"))
+
+    try:
+        eng.warm([8])
+        # A request whose deadline lapses in the queue sheds before its
+        # prefill: no token, no admission stamp, the stream's sentinel.
+        stall(0.4)
+        holder = eng.submit([1, 2, 3], max_new_tokens=8)
+        sink = []
+        doomed = eng.submit([4, 5], max_new_tokens=4, deadline_s=0.05,
+                            on_token=sink.append)
+        expect_raise(DeadlineInfeasible, lambda: doomed.result(60),
+                     "expired deadline")
+        chaos.install(None)
+        holder.result(120)
+        check(doomed.tokens == [] and doomed.t_admitted == 0.0
+              and sink == [None], "the expired request was prefilled")
+        # A warm queue-wait estimate refuses an infeasible deadline at
+        # submit.
+        stall(0.25)
+        a = eng.submit([1, 2], max_new_tokens=2)
+        b = eng.submit([3, 4], max_new_tokens=2)
+        b.result(120)
+        a.result(120)
+        ewma = eng._qwait_ewma
+        check(ewma > 0.01, f"queue-wait estimate {ewma}")
+        stall(0.5)
+        c = eng.submit([1, 2], max_new_tokens=32)
+        d = eng.submit([3, 4], max_new_tokens=2)
+        e = expect_raise(DeadlineInfeasible, lambda: eng.submit(
+            [5, 6], max_new_tokens=2, deadline_s=0.001), "infeasible")
+        check(e.retry_after_s == 1.0, f"Retry-After {e.retry_after_s}")
+        d.result(120)
+        c.result(120)
+        chaos.install(None)
+        # Queue pressure: an interactive arrival sheds the newest queued
+        # batch request; a batch arrival is refused.
+        eng.max_queue = 2
+        stall(1.0)
+        busy = eng.submit([1, 2, 3], max_new_tokens=8)
+        t_end = time.monotonic() + 30
+        while eng.queue_depth and time.monotonic() < t_end:
+            time.sleep(0.001)
+        b1 = eng.submit([4, 5], max_new_tokens=2, qos="batch")
+        b2 = eng.submit([6, 7], max_new_tokens=2, qos="batch")
+        expect_raise(EngineOverloaded, lambda: eng.submit(
+            [10, 11], max_new_tokens=2, qos="batch"), "batch overflow")
+        keep = eng.submit([8, 9], max_new_tokens=2)
+        e = expect_raise(EngineOverloaded, lambda: b2.result(60),
+                         "batch shed")
+        check("shed for interactive" in str(e), str(e))
+        check(len(keep.result(120)) == 2 and len(b1.result(120)) == 2
+              and len(busy.result(120)) == 8, "queue-pressure requests")
+        chaos.install(None)
+        out["deadline_shed"] = counter_value(
+            eng, "kfx_lm_deadline_shed_total")
+        check(out["deadline_shed"] == 2,
+              f"kfx_lm_deadline_shed_total {out['deadline_shed']}")
+        out["qwait_ewma_s"] = ewma
+    finally:
+        chaos.install(None)
+        eng.close()
+    # Pool pressure with both classes in flight: the batch slots are the
+    # victims (batch submitted first, so the class outranks age).
+    eng = DecodeEngine(rp_cfg, params, n_slots=4, name="rp-qos",
+                       kv_pages=RP_SEQ // ENGINE_PAGE, prefix_cache=False,
+                       **kw)
+    try:
+        batch = [eng.submit([i + 1, i + 2, i + 3], max_new_tokens=RP_NEW,
+                            qos="batch") for i in range(2)]
+        inter = [eng.submit([i + 11, i + 12, i + 13],
+                            max_new_tokens=RP_NEW) for i in range(2)]
+        check(all(len(r.result(300)) == RP_NEW for r in batch + inter),
+              "pool-pressure requests did not finish")
+        pages = eng.page_stats()
+        out["preempted"] = {"batch": [r.preempts for r in batch],
+                            "interactive": [r.preempts for r in inter]}
+        check(sum(out["preempted"]["batch"]) >= 1
+              and out["preempted"]["interactive"] == [0, 0],
+              f"preemption victims {out['preempted']}")
+        check(pages["free"] == pages["pages"], f"page leak {pages}")
+    finally:
+        eng.close()
+    return out
+
+
+def rate_limit_check(export_dir, dev):
+    """(m0) over HTTP: a tenant over its token budget is answered 503 with
+    the deficit's Retry-After, on the bf16 export behind ModelServer."""
+    from kubeflow_tpu_torch.serving.lm_server import LMPredictor
+    from kubeflow_tpu_torch.serving.server import ModelServer
+
+    env = {"KFX_LM_SPEC": "0", "KFX_LM_RATE_LIMITS": json.dumps({"": 4}),
+           "KFX_LM_RATE_BURST_S": "10"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        pred = LMPredictor(export_dir, name="lm", device=dev.type,
+                           warm_buckets=[8])
+        pred.load()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    server = ModelServer(port=0)
+    server.register(pred)
+    server.start()
+    try:
+        url = f"http://127.0.0.1:{server.port}"
+        gen = f"{url}/v1/models/lm:generate"
+        # 8 + 64 = 72 tokens against a 40-token budget: admitted (the
+        # budget was positive), overdrawn by 32 at 4 tokens/s, which the
+        # first request's own decode time cannot refill.
+        body = {"prompt_tokens": [list(range(1, 9))], "max_new_tokens": 64}
+        check(len(http_json(gen, body)["generated_tokens"][0]) == 64,
+              "rate-limited tenant's first request")
+        code, ans, headers = post_status(gen, body)
+        retry = float(headers.get("Retry-After", "0"))
+        check(code == 503 and "budget" in ans.get("error", "")
+              and retry >= 1.0,
+              f"over-budget request answered {code} {ans} Retry-After "
+              f"{retry}")
+        metrics = http_json(f"{url}/metrics")
+        m = re.search(r'kfx_lm_rate_limited_total\{model="lm"\} (\S+)',
+                      metrics)
+        check(m is not None and float(m.group(1)) == 1,
+              "kfx_lm_rate_limited_total")
+        return {"code": code, "retry_after": retry,
+                "rate_limited": float(m.group(1))}
+    finally:
+        server.stop()
+        pred.close()
+
+
+def pace(seconds):
+    """An on_token sink that holds the loop ``seconds`` a token: a single
+    request keeps decoding on the donor until its migration's
+    acknowledgement, so the transfer is timed against a live request."""
+    return lambda tok: time.sleep(seconds) if tok is not None else None
+
+
+def migrate_timed(donor, recv, reqs, n_after):
+    """Wait until every request in ``reqs`` holds ``n_after`` tokens, then
+    migrate them all ``donor`` -> ``recv``, timing each leg: the export
+    (page gather, host copy and encode on the donor's loop) and the import
+    (chain verify, page scatter and install). Returns (stats, legs,
+    adopted requests in ``reqs`` order)."""
+    t_end = time.monotonic() + 300
+    while min(len(r.tokens) for r in reqs) < n_after:
+        check(time.monotonic() < t_end, "requests never reached the "
+                                        "migration point")
+        time.sleep(0.001)
+    legs, by_rid = [], {}
+    export = donor._export_slot
+
+    def timed_export(slot):
+        t0 = time.perf_counter()
+        req, payload, npages = export(slot)
+        legs.append({"rid": req.rid, "pages": npages,
+                     "bytes": len(payload),
+                     "export_ms": (time.perf_counter() - t0) * 1e3})
+        return req, payload, npages
+
+    def send(payload):
+        t0 = time.perf_counter()
+        adopted = recv.kv_import(payload)
+        leg = next(g for g in legs if "import_ms" not in g)
+        leg["import_ms"] = (time.perf_counter() - t0) * 1e3
+        by_rid[leg["rid"]] = adopted
+        return recv.name
+
+    donor._export_slot = timed_export
+    try:
+        stats = donor.migrate_out(reason="rebalance", send=send)
+    finally:
+        del donor._export_slot
+    for g in legs:
+        g["export_gb_s"] = g["bytes"] / g["export_ms"] / 1e6
+        g["import_gb_s"] = g["bytes"] / g["import_ms"] / 1e6
+    return stats, legs, [by_rid.get(r.rid) for r in reqs]
+
+
+def balanced(eng):
+    st = eng.page_stats()
+    return st["free"] + st["cached"] == st["pages"], st
+
+
+def kv_phase(torch, fa, export_dir, gap_cfg, prompts, f1, dev):
+    """(m) the request plane and the KV transfer plane on the card; see
+    the module docstring. ``f1["want"]`` holds phase (f1)'s LMGenerator
+    tokens of ``prompts`` on the wide-gap f32 weights. Returns the
+    {"kv": ...} record."""
+    import numpy as np
+
+    from kubeflow_tpu_torch import chaos
+    from kubeflow_tpu_torch.models.transformer import TransformerLM
+    from kubeflow_tpu_torch.serving import kvtransfer
+    from kubeflow_tpu_torch.serving.engine import (DecodeEngine,
+                                                   RequestMigrated)
+    from kubeflow_tpu_torch.serving.lm_server import load_lm
+
+    rec = {"seconds": {}}
+    t_sub = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        rec["seconds"][name] = now - t_sub[0]
+        t_sub[0] = now
+
+    fa.reset_launches()
+    cfg, params = load_lm(export_dir)
+    kw = dict(n_slots=ENGINE_SLOTS, chunk_tokens=ENGINE_CHUNK,
+              kv_page_size=ENGINE_PAGE,
+              prefill_chunk_tokens=ENGINE_PREFILL_CHUNK, device=dev)
+
+    # (m0) the request plane
+    rec["m0"] = request_plane_checks(torch, cfg, params, dev)
+    rec["m0"]["rate_limit"] = rate_limit_check(export_dir, dev)
+    log(f"kv (m0) request plane: deadline sheds "
+        f"{rec['m0']['deadline_shed']} (queue-wait EWMA "
+        f"{rec['m0']['qwait_ewma_s']:.3f} s), batch shed for an "
+        f"interactive arrival, over-budget tenant "
+        f"{rec['m0']['rate_limit']}, victims under pool pressure "
+        f"{rec['m0']['preempted']}")
+    lap("m0")
+
+    # (m1) live migration of the 8 prompts, greedy, on the wide-gap f32
+    # weights: the adopted tokens equal (f1)'s LMGenerator and the
+    # unmigrated run; then one seeded sampled stream.
+    g = torch.Generator(device=dev).manual_seed(0)
+    model = TransformerLM(gap_cfg, device=dev, generator=g)
+    wide_gap_(torch, model)
+    sd = model.state_dict()
+    # The donors run without a prefix cache: a repeated prompt then takes
+    # the same prefill as its unmigrated run, so tokens compare exactly.
+    donor = DecodeEngine(gap_cfg, sd, name="kv-donor", prefix_cache=False,
+                         **kw)
+    recv = DecodeEngine(gap_cfg, sd, name="kv-recv", **kw)
+    del model
+    try:
+        before = {"donor": donor.page_stats(), "recv": recv.page_stats()}
+        # KV_MIGRATE_NEW tokens, so that every request is still decoding
+        # on the donor when its acknowledgement comes: the donor detaches
+        # one request per iteration boundary.
+        longer = donor.generate(prompts, KV_MIGRATE_NEW)
+        check([t[:SERVE_NEW] for t in longer] == f1["want"],
+              "the unmigrated run's first tokens differ from (f1)")
+        reqs = donor.submit_batch(prompts, KV_MIGRATE_NEW)
+        stats, legs, adopted = migrate_timed(donor, recv, reqs,
+                                             KV_MIGRATE_AFTER)
+        check(stats["moved"] == len(prompts), f"migration stats {stats}")
+        for r in reqs:
+            expect_raise(RequestMigrated, lambda: r.result(60),
+                         "migrated request")
+        got = [a.result(300) for a in adopted]
+        bad = [i for i, (x, y) in enumerate(zip(got, longer)) if x != y]
+        check(not bad, f"migrated greedy tokens differ in rows {bad}")
+        kwargs = dict(temperature=0.8, top_k=40, seed=7)
+        want_s = donor.generate([prompts[0]], SERVE_NEW, **kwargs)[0]
+        sreq = donor.submit(prompts[0], SERVE_NEW, on_token=pace(0.03),
+                            **kwargs)
+        s_stats, _, s_adopted = migrate_timed(donor, recv, [sreq],
+                                              KV_MIGRATE_AFTER)
+        check(s_stats["moved"] == 1, f"seeded migration {s_stats}")
+        check(s_adopted[0].result(300) == want_s,
+              "migrated seeded stream differs from the unmigrated one")
+        after = {"donor": donor.page_stats(), "recv": recv.page_stats()}
+        for e in (donor, recv):
+            ok, st = balanced(e)
+            check(ok, f"{e.name} pages do not balance: {st}")
+    finally:
+        donor.close()
+        recv.close()
+    del sd
+    torch.cuda.empty_cache()
+    rec["m1"] = {"moved": stats["moved"], "pages": stats["pages"],
+                 "legs": legs, "pages_before": before,
+                 "pages_after": after, "tokens_at_export": [
+                     a.meter_skip for a in adopted]}
+    log(f"kv (m1) f32 wide-gap: {stats['moved']} requests migrated after "
+        f">= {KV_MIGRATE_AFTER} tokens ({stats['pages']} pages), greedy "
+        f"== unmigrated ({KV_MIGRATE_NEW} tokens; the first {SERVE_NEW} "
+        f"== LMGenerator); seeded stream == unmigrated; "
+        f"free pages before {before}, after {after}")
+    for g_ in legs:
+        log(f"kv (m1) leg rid={g_['rid']} pages={g_['pages']} "
+            f"bytes={g_['bytes']} export {g_['export_ms']:.2f} ms "
+            f"({g_['export_gb_s']:.3f} GB/s) import {g_['import_ms']:.2f} "
+            f"ms ({g_['import_gb_s']:.3f} GB/s)")
+    lap("m1_f32")
+
+    # (m1) the long request and (m3) chaos, on the bf16 export
+    rng = np.random.default_rng(11)
+    long_prompt = rng.integers(0, cfg.vocab_size, KV_LONG_PROMPT).tolist()
+    donor = DecodeEngine(cfg, params, name="kv-bf16-donor",
+                         prefix_cache=False, **kw)
+    recv = DecodeEngine(cfg, params, name="kv-bf16-recv", **kw)
+    try:
+        want = donor.generate([long_prompt], SERVE_NEW)[0]
+        req = donor.submit(long_prompt, SERVE_NEW, on_token=pace(0.03))
+        stats, legs, adopted = migrate_timed(donor, recv, [req],
+                                             KV_MIGRATE_AFTER)
+        check(stats["moved"] == 1, f"long migration {stats}")
+        check(adopted[0].result(300) == want,
+              "the long request's migrated tokens differ from its "
+              "unmigrated run")
+        rec["m1"]["long"] = dict(legs[0], prompt=KV_LONG_PROMPT,
+                                 new=SERVE_NEW,
+                                 kv_bytes_per_token=donor.kv_bytes_per_token,
+                                 page_bytes=donor.page_bytes)
+        log(f"kv (m1) bf16 {KV_LONG_PROMPT}+{SERVE_NEW} tokens: "
+            f"{legs[0]['pages']} pages, {legs[0]['bytes']} bytes, export "
+            f"{legs[0]['export_ms']:.2f} ms ({legs[0]['export_gb_s']:.3f} "
+            f"GB/s), import {legs[0]['import_ms']:.2f} ms "
+            f"({legs[0]['import_gb_s']:.3f} GB/s); tokens == unmigrated")
+        lap("m1_long")
+        # (m3) a severed transfer loses nothing
+        short = prompts[0]
+        want = donor.generate([short], CHAOS_NEW)[0]
+        req = donor.submit(short, CHAOS_NEW)
+        t_end = time.monotonic() + 120
+        while len(req.tokens) < KV_MIGRATE_AFTER:
+            check(time.monotonic() < t_end, "no tokens")
+            time.sleep(0.001)
+        def unreachable(payload):
+            raise AssertionError("chaos must sever before the send")
+
+        chaos.install(chaos.parse_spec("kv.transfer:count=1"))
+        try:
+            severed = donor.migrate_out(send=unreachable)
+        finally:
+            chaos.install(None)
+        check(severed == {"moved": 0, "failed": 1, "pages": 0},
+              f"severed transfer {severed}")
+        check(req.result(300) == want, "the severed request lost tokens")
+        # (m3) a corrupt frame is discarded whole, no page leaked
+        grabbed = []
+
+        def capture(payload):
+            grabbed.append(payload)
+            raise kvtransfer.TransferError("captured")
+
+        req = donor.submit(short, CHAOS_NEW)
+        while len(req.tokens) < KV_MIGRATE_AFTER:
+            time.sleep(0.001)
+        donor.migrate_out(send=capture)
+        check(req.result(300) == want, "the donor lost its copy")
+        free = recv.page_stats()["free"]
+        bad = bytearray(grabbed[0])
+        bad[-40] ^= 1
+        expect_raise(kvtransfer.TransferCorrupt,
+                     lambda: recv.kv_import(bytes(bad)), "corrupt frame")
+        check(recv.page_stats()["free"] == free, "corrupt import leaked")
+        check(recv.kv_import(grabbed[0]).result(300) == want,
+              "the pristine payload did not resume")
+        for e in (donor, recv):
+            ok, st = balanced(e)
+            check(ok, f"{e.name} pages do not balance: {st}")
+        rec["m3"] = {"severed": severed, "corrupt_refused": True,
+                     "recv_free_pages": free}
+        log(f"kv (m3) kv.transfer:count=1 -> {severed}, tokens intact; "
+            f"corrupt frame refused, receiver free pages {free} "
+            f"unchanged; pristine payload resumed")
+    finally:
+        donor.close()
+        recv.close()
+    torch.cuda.empty_cache()
+    lap("m3")
+
+    # (m2) prefill/decode hand-off over loopback HTTP
+    rec["m2"] = handoff_check(export_dir, prompts, dev)
+    lap("m2")
+
+    # (m4) the host offload tier on the wide-gap f32 weights
+    rec["m4"] = offload_check(torch, gap_cfg, dev)
+    lap("m4")
+    rec["flash_launches"] = dict(fa.LAUNCHES)
+    check(all(v == 0 for v in rec["flash_launches"].values()),
+          f"(m) flash launches {rec['flash_launches']}")
+    rec["phase_seconds"] = sum(rec["seconds"].values())
+    log(f"kv (m) seconds {json.dumps(rec['seconds'])}; flash launches "
+        f"{rec['flash_launches']}")
+    return rec
+
+
+def sse_events(url, payload, t_start, timeout=600):
+    """One ``"stream": true`` :generate read event by event until the end
+    or a cut: (token events, seconds from ``t_start`` to the first, done
+    event or None)."""
+    import http.client
+
+    req = urllib.request.Request(url, data=json.dumps(
+        dict(payload, stream=True)).encode())
+    toks, first, done = [], None, None
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            for raw in r:
+                line = raw.decode().strip()
+                if not line.startswith("data: "):
+                    continue
+                ev = json.loads(line[len("data: "):])
+                if ev.get("done"):
+                    done = ev
+                    break
+                check("token" in ev, f"SSE error event {ev}")
+                if first is None:
+                    first = time.perf_counter() - t_start
+                toks.append(ev)
+    except (http.client.IncompleteRead, ConnectionError, OSError):
+        pass  # the migrated stream's cut
+    return toks, first, done
+
+
+def handoff_check(export_dir, prompts, dev):
+    """(m2): a KFX_LM_ROLE=prefill server with KFX_LM_KV_PEERS at a
+    decode server, both on the bf16 export in this process. Buffered: the
+    prefill server answers 503 + X-Kfx-Migrated, and the same body at that
+    peer claims the adopted generation; tokens equal the decode server's
+    own (mixed) answer. Streamed: the prefill server's stream is cut at
+    the hand-off and the peer resumes it with stream_skip; TTFT of both
+    paths."""
+    from kubeflow_tpu_torch.serving.lm_server import LMPredictor
+    from kubeflow_tpu_torch.serving.server import ModelServer
+
+    def serve(env):
+        old = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            pred = LMPredictor(export_dir, name="lm", device=dev.type,
+                               warm_buckets=[8])
+            pred.load()
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        srv = ModelServer(port=0)
+        srv.register(pred)
+        srv.start()
+        return srv, pred
+
+    # No prefix cache: a repeated body then takes the same prefill, so
+    # the buffered, streamed and handed-off tokens compare exactly in bf16.
+    plain = {"KFX_LM_SPEC": "0", "KFX_LM_PREFIX_CACHE": "0"}
+    dec_srv, dec = serve(plain)
+    dec_url = f"http://127.0.0.1:{dec_srv.port}"
+    pf_srv, pf = serve(dict(plain, KFX_LM_ROLE="prefill",
+                            KFX_LM_KV_PEERS=json.dumps([dec_url])))
+    out = {"rows": []}
+    try:
+        check(pf.engine.role == "prefill", "prefill role not set")
+        dec_gen = f"{dec_url}/v1/models/lm:generate"
+        pf_gen = f"http://127.0.0.1:{pf_srv.port}/v1/models/lm:generate"
+        for p in prompts[:HANDOFF_ROWS]:
+            body = {"prompt_tokens": [p], "max_new_tokens": SERVE_NEW}
+            want = http_json(dec_gen, body)["generated_tokens"][0]
+            t0 = time.perf_counter()
+            mixed, ttft_mixed, _ = sse_events(dec_gen, body, t0)
+            check([e["token"] for e in mixed] == want,
+                  "mixed stream differs from its buffered answer")
+            code, ans, headers = post_status(pf_gen, body)
+            hint = headers.get("X-Kfx-Migrated")
+            check(code == 503 and hint == f"127.0.0.1:{dec_srv.port}",
+                  f"prefill server answered {code} {ans} hint={hint!r}")
+            got = http_json(f"http://{hint}/v1/models/lm:generate",
+                            body)["generated_tokens"][0]
+            check(got == want, "hand-off tokens differ from the mixed "
+                               "server's")
+            t0 = time.perf_counter()
+            head, ttft_pf, done = sse_events(pf_gen, body, t0)
+            check(done is None, "the prefill server finished the stream")
+            rest, ttft_dec, done = sse_events(
+                dec_gen, dict(body, stream_skip=len(head)), t0)
+            check(done is not None, "the resumed stream did not finish")
+            toks = [e["token"] for e in head + rest]
+            check(toks == want and [e["index"] for e in head + rest]
+                  == list(range(SERVE_NEW)),
+                  "the handed-off stream differs from the mixed one")
+            out["rows"].append({
+                "prompt": len(p), "ttft_mixed_s": ttft_mixed,
+                "ttft_handoff_s": ttft_pf if head else ttft_dec,
+                "tokens_before_cut": len(head)})
+        out["migrations"] = counter_value(
+            pf.engine, "kfx_lm_kv_migrations_total", reason="disagg")
+        check(out["migrations"] == 2 * HANDOFF_ROWS,
+              f"disagg migrations {out['migrations']}")
+    finally:
+        pf_srv.stop()
+        dec_srv.stop()
+        pf.close()
+        dec.close()
+    log(f"kv (m2) prefill -> decode over loopback HTTP, {HANDOFF_ROWS} "
+        f"prompts x {SERVE_NEW}: tokens == the mixed server's (buffered "
+        f"and streamed); rows {out['rows']}")
+    return out
+
+
+def offload_check(torch, gap_cfg, dev):
+    """(m4): one slot over a pool of one max-length request (64 pages);
+    three prompts of OFFLOAD_PROMPT tokens push the first one's pages out
+    to the host tier, and the first prompt again promotes them: the
+    promoted bytes equal the demoted ones, the tokens are unchanged, and
+    the prefix hits count it."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.models.transformer import TransformerLM
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+    from kubeflow_tpu_torch.serving.prefix import chain_hash
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    model = TransformerLM(gap_cfg, device=dev, generator=g)
+    wide_gap_(torch, model)
+    sd = model.state_dict()
+    del model
+    n_blocks = gap_cfg.max_seq_len // ENGINE_PAGE
+    eng = DecodeEngine(gap_cfg, sd, n_slots=1, chunk_tokens=ENGINE_CHUNK,
+                       kv_page_size=ENGINE_PAGE, kv_pages=n_blocks,
+                       kv_offload_pages=2 * n_blocks, name="kv-offload",
+                       device=dev)
+    try:
+        rng = np.random.default_rng(12)
+        ps = [rng.integers(0, gap_cfg.vocab_size, OFFLOAD_PROMPT).tolist()
+              for _ in range(3)]
+        firsts = [eng.generate([p], OFFLOAD_NEW)[0] for p in ps]
+        tier = eng._offload
+        key = chain_hash(b"", ps[0][:ENGINE_PAGE])
+        demoted = tier.get(key)
+        check(demoted is not None and len(demoted) == eng.page_bytes,
+              f"first page not demoted ({tier.demoted} demotions)")
+        hits = eng.prefix_stats()["hits"]
+        promoted0 = tier.promoted
+        t0 = time.perf_counter()
+        again = eng.generate([ps[0]], OFFLOAD_NEW)[0]
+        wall = time.perf_counter() - t0
+        check(again == firsts[0], "tokens changed after promotion")
+        page = eng._prefix.full[key].page
+        check(eng._run_on_loop(lambda: eng._page_payload(page)) == demoted,
+              "promoted page bytes differ from the demoted ones")
+        st = eng.prefix_stats()
+        check(st["hits"] == hits + 1, f"prefix hits {st}")
+        ok, pages = balanced(eng)
+        check(ok, f"offload engine pages {pages}")
+        out = {"demoted": tier.demoted, "promoted": tier.promoted
+               - promoted0, "page_bytes": eng.page_bytes,
+               "tokens_reused": st["tokens_reused"],
+               "repeat_seconds": wall, "pages": pages}
+    finally:
+        eng.close()
+    log(f"kv (m4) host tier: {out['demoted']} pages demoted, "
+        f"{out['promoted']} promoted on the repeat ({out['page_bytes']} "
+        f"bytes a page, bytes equal), tokens unchanged, prefix hit "
+        f"counted; repeat in {wall:.3f} s")
+    return out
+
+
 # -- (i) the classifier / JAXJob path ---------------------------------------
 
 def classifier_models_check(torch, dev):
@@ -3537,6 +4178,10 @@ def main() -> int:
                       base_step)
     torch.cuda.empty_cache()
 
+    # 6m. the request plane and the KV transfer plane
+    kv = kv_phase(torch, fa, export_dir, gap_cfg, prompts, f1, dev)
+    torch.cuda.empty_cache()
+
     # 6i. the classifier / JAXJob path
     classifier = classifier_phase(torch, fa, dev, repo)
     chaos_rec["k6"] = classifier.pop("chaos_predict")
@@ -3577,6 +4222,7 @@ def main() -> int:
     log(json.dumps({"int8": int8}))
     log(json.dumps({"chaos": chaos_rec}))
     log(json.dumps({"lora": lora}))
+    log(json.dumps({"kv": kv}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -120,8 +120,38 @@ adapter load (the ``engine.adapter_load`` chaos point included) follows
 ``adapter_fallback``: "base" serves the base model and counts it,
 "error" fails the request with ``AdapterLoadError`` (503 + Retry-After).
 
-Not in this slice (ROADMAP.md Queue A 5b): QoS/deadlines/rate limits, KV
-transfer/offload/roles, the weight pool.
+Request plane, as in the reference: each request has a QoS class
+(``QOS_CLASSES``; ``qos_default``) and an optional deadline
+(``deadline_default_s``, stored absolute so queue time counts). Admission
+policy runs at enqueue, all or nothing and before any prefill: per-tenant
+token buckets (``rate_limits`` tokens/s of prompt + max_new weight, a
+``rate_burst_s`` burst; an empty budget sheds ``RateLimited`` with the
+deficit as Retry-After), deadline feasibility against the trailing
+queue-wait EWMA (``DeadlineInfeasible``), and batch-first shedding (queued
+batch requests make room for interactive arrivals). A deadline that
+expires while queued sheds at the slot boundary, before prefill; batch
+slots are the first preemption victims; the ledger bills each request's
+class.
+
+KV transfer plane (``serving/kvtransfer.py``): ``migrate_out`` exports
+in-flight slots (mid-decode or mid-prefill-cursor) and ships them to a
+peer, detaching the local copy only after the peer's acknowledgement;
+``kv_import`` verifies a page stream, checks its geometry leaf for leaf,
+and installs it all or nothing in a free slot; ``role="prefill"`` hands
+every freshly prefilled slot to ``kv_peer_send`` before its first decode
+step (a failed hand-off decodes locally); ``kv_offload_pages`` demotes
+evicted prefix pages into a host-RAM tier and promotes them back on a
+chain-hash match. Slot state stays loop-thread only: every export,
+import and detach runs as a control job at an iteration boundary
+(``_run_on_loop``). The wire is the reference's byte for byte: a page
+frame is every cache leaf's rows in the reference's flatten order
+(``cached_key``, ``cached_pos``, ``cached_value``, then the int8 scale
+planes), the sink page never ships, and page ids remap on import. The
+``rng`` field is null: a port stream is a function of (seed, token
+index), which the header carries, so a port-to-port resume needs no
+stash, and an imported threefry stash is ignored.
+
+Not in this slice (ROADMAP.md Queue A 5b.8): the weight pool.
 """
 
 from __future__ import annotations
@@ -145,6 +175,7 @@ from ..models.transformer import (PagedKVCache, quantize_params_int8,
 from ..obs import flightrec
 from ..obs import trace as obs_trace
 from ..obs.metrics import MetricsRegistry, default_registry
+from . import kvtransfer
 from .metering import TenantLedger
 from .prefix import chain_hash as _chain_hash
 
@@ -185,9 +216,13 @@ def _draft_params(params, n_layers: int):
     return {k: cut(v) if k == "layers" else v for k, v in tree.items()}
 
 
-# The ledger's qos label: the port serves one QoS class (ROADMAP.md Queue
-# A 5b.7).
-METER_QOS = "interactive"
+QOS_CLASSES = frozenset({"interactive", "batch"})
+
+# Wire names of the pool's dtypes (the reference's numpy names; bfloat16
+# crosses as raw bytes, no numpy bfloat16 needed).
+_WIRE_DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+                torch.float16: "float16", torch.int8: "int8",
+                torch.int32: "int32"}
 
 
 class EngineOverloaded(RuntimeError):
@@ -199,6 +234,21 @@ class EngineDraining(EngineOverloaded):
     """The engine is in drain mode: it stops admitting, finishes the slots
     already decoding, and resolves queued requests with THIS error (503 +
     Retry-After; another replica can serve them)."""
+
+
+class RequestMigrated(EngineOverloaded):
+    """The request's KV pages were exported to a peer replica
+    (serving/kvtransfer.py) and the peer is already decoding it. The
+    server answers 503 with a near-zero Retry-After and an
+    ``X-Kfx-Migrated`` peer hint; the re-dispatched body attaches to the
+    peer's adopted generation by its resume key, or degrades to a plain
+    seeded recompute where the adoption is gone."""
+
+    def __init__(self, msg: str, peer: str = "",
+                 retry_after_s: float = 0.05):
+        super().__init__(msg)
+        self.peer = peer
+        self.retry_after_s = retry_after_s
 
 
 class PageAllocError(EngineOverloaded):
@@ -220,6 +270,27 @@ class AdapterLoadError(EngineOverloaded):
     fails the request with this error ("error": 503 + Retry-After)."""
 
 
+class DeadlineInfeasible(EngineOverloaded):
+    """The request's deadline cannot be met, judged BEFORE prefill (at
+    enqueue against the trailing queue-wait estimate, or at the slot
+    boundary once it has expired): the request sheds instead of burning a
+    prefill and timing out after (503 + Retry-After)."""
+
+    def __init__(self, msg: str, retry_after_s: float = 1.0):
+        super().__init__(msg)
+        self.retry_after_s = retry_after_s
+
+
+class RateLimited(EngineOverloaded):
+    """A tenant exhausted its token-weighted rate budget (``rate_limits``
+    tokens/s of prompt + max_new weight, ``rate_burst_s`` of burst): 503
+    with a Retry-After derived from the deficit."""
+
+    def __init__(self, msg: str, retry_after_s: float = 1.0):
+        super().__init__(msg)
+        self.retry_after_s = retry_after_s
+
+
 class Request:
     """One in-flight generation: token budget, sampling knobs, and a
     completion event the submitting thread waits on. ``tokens`` doubles
@@ -233,14 +304,22 @@ class Request:
                  "t_first", "t_done", "counted", "trace_id", "span_id",
                  "rid", "preempts", "on_token", "tenant", "meter_skip",
                  "events", "stall_s", "spec_prop", "spec_acc", "_flight",
-                 "_usage", "_event", "adapter")
+                 "_usage", "_event", "adapter", "qos", "deadline")
 
     _rid_counter = itertools.count(1)
 
     def __init__(self, prompt: List[int], max_new: int, temperature: float,
-                 top_k: int, seed: int, stop: int, adapter: str = ""):
+                 top_k: int, seed: int, stop: int, adapter: str = "",
+                 qos: str = "interactive",
+                 deadline: Optional[float] = None):
         self.prompt = prompt
         self.adapter = adapter        # "" = the base model (tenant key)
+        # QoS class: batch slots are the first preemption victims and
+        # batch requests the first shed under queue pressure.
+        self.qos = qos
+        # Absolute monotonic deadline (None = none), checked BEFORE
+        # prefill: an infeasible request sheds, never times out.
+        self.deadline = deadline
         self.max_new = max_new
         self.temperature = temperature
         self.top_k = top_k
@@ -306,7 +385,7 @@ class Request:
         # only grows, and only an ADMITTED request billed its prompt (a
         # request shed before admission leaves no ledger row).
         if self._usage is not None and self.counted:
-            self._usage.retire(self.tenant, METER_QOS,
+            self._usage.retire(self.tenant, self.qos,
                                self.adapter or "base",
                                len(self.tokens) - self.meter_skip)
         if self._flight is not None:
@@ -500,12 +579,17 @@ class PrefixCache:
             pe.nchildren -= 1
         return self.mgr.decref([e.page])
 
-    def evict_one(self) -> bool:
+    def evict_one(self, spill: Optional[Callable[["_PrefixEntry"],
+                                                 None]] = None) -> bool:
         """Reclaim the least-recently-used childless entry whose page no
         slot is still reading (pool ref == 1). Returns whether a page went
-        back to the free list."""
+        back to the free list. ``spill`` sees the entry BEFORE it drops:
+        the host-RAM offload tier's demotion reads the page there, which
+        the selection rule makes safe (no live slot reads it)."""
         for e in list(self._lru.values()):
             if e.nchildren == 0 and self.mgr.ref[e.page] == 1:
+                if spill is not None:
+                    spill(e)
                 self._drop(e)
                 return True
         return False
@@ -773,7 +857,14 @@ class DecodeEngine:
                  adapter_slots: int = 8,
                  adapter_rank: int = 0,
                  adapter_default: str = "",
-                 adapter_fallback: str = "base"):
+                 adapter_fallback: str = "base",
+                 qos_default: str = "interactive",
+                 deadline_default_s: float = 0.0,
+                 rate_limits: Optional[Dict[str, float]] = None,
+                 rate_burst_s: float = 2.0,
+                 role: str = "mixed",
+                 kv_peer_send: Optional[Callable[[bytes], str]] = None,
+                 kv_offload_pages: int = 0):
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
         if chunk_tokens < 1:
@@ -845,6 +936,57 @@ class DecodeEngine:
         self.propose_tokens = propose_tokens
         self.max_queue = max_queue if max_queue is not None else 4 * n_slots
         self.request_timeout_s = request_timeout_s
+        # -- request-plane policy: the QoS class default, the deadline
+        # default and the per-tenant token-weighted rate budgets.
+        if qos_default not in QOS_CLASSES:
+            raise ValueError(
+                f"unknown qos_default {qos_default!r} "
+                f"(expected one of {sorted(QOS_CLASSES)})")
+        self.qos_default = qos_default
+        if deadline_default_s < 0:
+            raise ValueError("deadline_default_s must be >= 0 "
+                             "(0 = no default deadline)")
+        self.deadline_default_s = float(deadline_default_s)
+        self.rate_limits = {str(k): float(v)
+                            for k, v in (rate_limits or {}).items()}
+        for tenant, rate in self.rate_limits.items():
+            if rate <= 0:
+                raise ValueError(
+                    f"rate_limits[{tenant!r}] must be > 0 tokens/s")
+        self.rate_burst_s = max(float(rate_burst_s), 0.1)
+        # Tenant -> [budget_tokens, last_refill] (under _cond). Overdraw
+        # model: a request is admitted while its tenant's budget is
+        # positive and debits its whole prompt + max_new weight, so a
+        # burst runs the budget negative and the deficit / rate is the
+        # next request's Retry-After.
+        self._rate_buckets: Dict[str, List[float]] = {}
+        # Trailing queue-wait estimate (EWMA of first-admission waits):
+        # the deadline feasibility check's input.
+        self._qwait_ewma = 0.0
+        # -- KV transfer plane (serving/kvtransfer.py): the replica's
+        # disaggregation role, the peer sender exports ship through, and
+        # the host-RAM tier cold prefix pages demote into.
+        if role not in ("prefill", "decode", "mixed"):
+            raise ValueError(
+                f"unknown role {role!r} (expected prefill, decode or "
+                "mixed)")
+        self.role = role
+        self._peer_send = kv_peer_send
+        if kv_offload_pages < 0:
+            raise ValueError("kv_offload_pages must be >= 0 "
+                             "(0 = no host-RAM offload tier)")
+        self._offload: Optional[kvtransfer.HostOffloadTier] = \
+            kvtransfer.HostOffloadTier(kv_offload_pages) \
+            if kv_offload_pages else None
+        # rids a prefill-role engine must not hand off (again): the
+        # transfer is in flight, or it failed and the slot decodes
+        # locally. Cleared wholesale past 4096 entries: a stale rid costs
+        # one redundant skip check, never correctness.
+        self._handoff_skip: set = set()
+        # Cross-thread control jobs for the loop thread (export snapshots,
+        # import installs, detaches): slot state is loop-thread only, so
+        # other threads post a thunk and wait (_run_on_loop).
+        self._control: "deque[Callable[[], None]]" = deque()
         self._registry = registry
         self.model = load_decode_model(self.cfg, params, self.device)
 
@@ -1138,12 +1280,44 @@ class DecodeEngine:
         reg.gauge("kfx_lm_queue_depth",
                   "Requests waiting for a decode-engine slot.").set(
                       len(self._queue), model=self.name)
+        # In-flight slots by QoS class, both classes set so the idle value
+        # is an explicit 0.
+        by_cls = {"interactive": 0, "batch": 0}
+        for r in self._slots:
+            if r is not None:
+                by_cls[r.qos] = by_cls.get(r.qos, 0) + 1
+        for cls, cnt in by_cls.items():
+            reg.gauge("kfx_lm_class_active",
+                      "In-flight engine slots by QoS class "
+                      "(interactive/batch).").set(
+                          cnt, model=self.name, qos=cls)
+        # Request-plane shed counters, seeded before any traffic.
+        for family, help_text in self._SHED_HELP.items():
+            reg.counter(family, help_text).inc(0, model=self.name)
         reg.gauge("kfx_lm_kv_pages",
                   "KV cache pages in the engine's pool.").set(
                       self.n_pages, model=self.name)
         reg.gauge("kfx_lm_kv_pages_free",
                   "KV cache pages on the free list.").set(
                       self._mgr.n_free, model=self.name)
+        # KV transfer-plane families, seeded before the first migration:
+        # migrations by reason, pages shipped or adopted, the host offload
+        # tier's occupancy and the end-to-end transfer timer.
+        reg.counter("kfx_lm_kv_migrations_total",
+                    "In-flight requests migrated to a peer replica, "
+                    "by reason.").inc(0, model=self.name, reason="drain")
+        reg.counter("kfx_lm_kv_pages_transferred_total",
+                    "KV pages shipped to or adopted from peer "
+                    "replicas.").inc(0, model=self.name)
+        reg.gauge("kfx_lm_kv_offload_pages",
+                  "Prefix-cache pages held per KV offload tier.").set(
+                      len(self._offload) if self._offload is not None
+                      else 0, model=self.name, tier="host")
+        reg.histogram("kfx_lm_kv_transfer_seconds",
+                      "End-to-end KV transfer time (export snapshot to "
+                      "peer acknowledgement).",
+                      buckets=QUEUE_WAIT_BUCKETS).observe(
+                          0.0, n=0, model=self.name)
         reg.gauge("kfx_lm_kv_bytes_per_token",
                   "KV-cache bytes per cached token (entries + "
                   "quantization scales + position id).").set(
@@ -1481,7 +1655,9 @@ class DecodeEngine:
                       temperature: float, top_k: int, seed: int,
                       stop_token: Optional[int],
                       tenant: Optional[str] = None,
-                      adapter: Optional[str] = None) -> Request:
+                      adapter: Optional[str] = None,
+                      qos: Optional[str] = None,
+                      deadline_s: Optional[float] = None) -> Request:
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("prompt must be non-empty")
@@ -1506,10 +1682,27 @@ class DecodeEngine:
             raise ValueError(
                 f"unknown adapter {name!r} (configured: "
                 f"{sorted(self._apool.sources) if self._apool else []})")
+        # QoS class: the request's, else the engine default; an unknown
+        # class is a client mistake (-> 400).
+        cls = qos if qos is not None else self.qos_default
+        if cls not in QOS_CLASSES:
+            raise ValueError(
+                f"unknown qos {cls!r} (expected one of "
+                f"{sorted(QOS_CLASSES)})")
+        # Deadline: the request's, else the engine default (0 = none),
+        # stored absolute so queue time counts against it.
+        if deadline_s is None:
+            deadline_s = self.deadline_default_s or None
+        deadline = None
+        if deadline_s is not None:
+            deadline_s = float(deadline_s)
+            if deadline_s <= 0:
+                raise ValueError("deadline_s must be > 0")
+            deadline = time.monotonic() + deadline_s
         req = Request(prompt, int(max_new_tokens), float(temperature),
                       int(top_k), int(seed),
                       -1 if stop_token is None else int(stop_token),
-                      adapter=name)
+                      adapter=name, qos=cls, deadline=deadline)
         # Billable tenant: the client's explicit key, else the adapter's
         # tenant ("" counts as absent).
         if tenant:
@@ -1518,10 +1711,65 @@ class DecodeEngine:
         req._flight = self.flight
         return req
 
+    def _check_rate_locked(self, reqs: List[Request],
+                           now: float) -> Optional[RateLimited]:
+        """Token-bucket admission for limited tenants (under _cond). Cost
+        = prompt + max_new tokens. A tenant is admitted while its budget
+        is positive and debits the full cost (overdraw: the negative
+        budget paces the NEXT burst, and the deficit converts into
+        Retry-After seconds). The batch debits all or nothing. The bucket
+        key is the adapter tenant ("" = the base)."""
+        if not self.rate_limits:
+            return None
+        costs: Dict[str, float] = {}
+        for r in reqs:
+            tenant = r.adapter or ""
+            if tenant in self.rate_limits:
+                costs[tenant] = costs.get(tenant, 0.0) \
+                    + len(r.prompt) + r.max_new
+        for tenant, cost in costs.items():
+            rate = self.rate_limits[tenant]
+            burst = rate * self.rate_burst_s
+            bucket = self._rate_buckets.get(tenant)
+            if bucket is None:
+                bucket = self._rate_buckets[tenant] = [burst, now]
+            bucket[0] = min(burst, bucket[0] + rate * (now - bucket[1]))
+            bucket[1] = now
+            if bucket[0] <= 0.0:
+                retry = min(30.0, (cost - bucket[0]) / rate)
+                return RateLimited(
+                    f"tenant {tenant or 'base'!r} is over its "
+                    f"{rate:g} tokens/s budget "
+                    f"(deficit {-bucket[0]:.0f} tokens)",
+                    retry_after_s=max(retry, 0.1))
+        for tenant, cost in costs.items():
+            self._rate_buckets[tenant][0] -= cost
+        return None
+
+    _SHED_HELP = {
+        "kfx_lm_deadline_shed_total":
+            "Requests shed before prefill as deadline-infeasible "
+            "(503 + Retry-After).",
+        "kfx_lm_rate_limited_total":
+            "Requests shed by a tenant's token-weighted rate budget "
+            "(503 + Retry-After).",
+    }
+
+    def _count_shed(self, family: str, n: int = 1) -> None:
+        self._reg().counter(family, self._SHED_HELP[family]).inc(
+            n, model=self.name)
+
     def _enqueue(self, reqs: List[Request]) -> None:
         """All-or-nothing enqueue: a batch that does not fit the bounded
         queue is rejected WHOLE — partial admission would orphan the
-        admitted fraction exactly when the engine is most loaded."""
+        admitted fraction exactly when the engine is most loaded. The
+        admission policy runs here, before any prefill: the tenants' rate
+        budgets, deadline feasibility against the trailing queue-wait
+        estimate, then batch-first shedding (queued batch requests are
+        evicted, newest first, to make room for interactive arrivals)."""
+        shed_err: Optional[EngineOverloaded] = None
+        shed_family = ""
+        shed_victims: List[Request] = []
         with self._cond:
             if self._stopped:
                 raise RuntimeError("engine is closed")
@@ -1529,28 +1777,64 @@ class DecodeEngine:
                 raise EngineDraining(
                     f"engine {self.name} is draining; retry another "
                     "replica")
-            if len(self._queue) + len(reqs) > self.max_queue:
-                raise EngineOverloaded(
-                    f"admission queue full ({len(self._queue)} waiting, "
-                    f"{len(reqs)} arriving, cap {self.max_queue})")
-            if self._active_count() == 0 and not self._queue \
-                    and self._admitting is None:
-                # Waking an idle loop: the parked interval is not a stall.
-                self._last_progress = time.monotonic()
-            for r in reqs:
-                self._queue.push(r)
+            now = time.monotonic()
+            shed_err = self._check_rate_locked(reqs, now)
+            if shed_err is not None:
+                shed_family = "kfx_lm_rate_limited_total"
+            else:
+                # Feasibility with the queue state in hand; an empty queue
+                # skips the estimate (a stale EWMA must not shed an idle
+                # engine's traffic).
+                est = self._qwait_ewma if len(self._queue) else 0.0
+                for r in reqs:
+                    if r.deadline is not None and r.deadline - now <= est:
+                        shed_err = DeadlineInfeasible(
+                            f"deadline {max(r.deadline - now, 0):.2f}s "
+                            f"away but trailing queue wait is "
+                            f"{est:.2f}s", retry_after_s=1.0)
+                        shed_family = "kfx_lm_deadline_shed_total"
+                        break
+            if shed_err is None \
+                    and len(self._queue) + len(reqs) > self.max_queue:
+                overflow = len(self._queue) + len(reqs) - self.max_queue
+                if all(r.qos == "interactive" for r in reqs):
+                    shed_victims = self._queue.shed_batch(overflow)
+                if len(self._queue) + len(reqs) > self.max_queue:
+                    shed_err = EngineOverloaded(
+                        f"admission queue full ({len(self._queue)} "
+                        f"waiting, {len(reqs)} arriving, cap "
+                        f"{self.max_queue})")
+            if shed_err is None:
+                if self._active_count() == 0 and not self._queue \
+                        and self._admitting is None:
+                    # Waking an idle loop: the parked interval is not a
+                    # stall.
+                    self._last_progress = time.monotonic()
+                for r in reqs:
+                    self._queue.push(r)
             depth = len(self._queue)
             self._cond.notify()
+        if shed_victims:
+            evict = EngineOverloaded(
+                f"batch request shed for interactive admission "
+                f"(engine {self.name} under queue pressure)")
+            for v in shed_victims:
+                v._finish(evict)
         self._reg().gauge("kfx_lm_queue_depth",
                           "Requests waiting for a decode-engine slot."
                           ).set(depth, model=self.name)
+        if shed_err is not None:
+            if shed_family:
+                self._count_shed(shed_family)
+            raise shed_err
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 32,
                temperature: float = 0.0, top_k: int = 0, seed: int = 0,
                stop_token: Optional[int] = None,
                on_token: Optional[Callable[[Optional[int]], None]] = None,
                tenant: Optional[str] = None, meter_skip: int = 0,
-               adapter: Optional[str] = None) -> Request:
+               adapter: Optional[str] = None, qos: Optional[str] = None,
+               deadline_s: Optional[float] = None) -> Request:
         """Enqueue one prompt; returns the request handle (wait with
         ``.result(timeout)``). ``on_token`` is the streaming sink, called
         on the loop thread with each token id as it lands, then None at
@@ -1558,10 +1842,14 @@ class DecodeEngine:
         adapter's) and ``meter_skip`` the leading tokens a recovery
         re-dispatch regenerates, billed by the replica that streamed
         them; ``adapter`` names a configured LoRA adapter (None = the
-        engine's default, "" = the base). Raises EngineOverloaded when
-        the bounded admission queue is full."""
+        engine's default, "" = the base); ``qos`` overrides the engine's
+        class default and ``deadline_s`` its deadline default. Raises
+        EngineOverloaded when the bounded admission queue is full, and
+        its DeadlineInfeasible / RateLimited subclasses when admission
+        policy sheds the request."""
         req = self._make_request(prompt, max_new_tokens, temperature,
-                                 top_k, seed, stop_token, tenant, adapter)
+                                 top_k, seed, stop_token, tenant, adapter,
+                                 qos=qos, deadline_s=deadline_s)
         # Set before enqueue: even an instant retirement bills it right.
         req.meter_skip = max(int(meter_skip), 0)
         req.on_token = on_token
@@ -1573,13 +1861,17 @@ class DecodeEngine:
                  top_k: int = 0, seed: int = 0,
                  stop_token: Optional[int] = None,
                  tenant: Optional[str] = None,
-                 adapter: Optional[str] = None) -> List[List[int]]:
+                 adapter: Optional[str] = None, qos: Optional[str] = None,
+                 deadline_s: Optional[float] = None) -> List[List[int]]:
         """Blocking convenience mirroring LMGenerator.generate: one
         request per prompt (seeded seed+i), results in prompt order; one
-        ``request_timeout_s`` deadline covers the whole batch."""
+        deadline covers the whole batch: ``deadline_s`` when given, else
+        ``request_timeout_s``."""
         reqs = self.submit_batch(prompts, max_new_tokens, temperature,
-                                 top_k, seed, stop_token, tenant, adapter)
-        deadline = time.monotonic() + self.request_timeout_s
+                                 top_k, seed, stop_token, tenant, adapter,
+                                 qos=qos, deadline_s=deadline_s)
+        wait_s = deadline_s if deadline_s else self.request_timeout_s
+        deadline = time.monotonic() + wait_s
         return [r.result(max(0.001, deadline - time.monotonic()))
                 for r in reqs]
 
@@ -1588,11 +1880,14 @@ class DecodeEngine:
                      top_k: int = 0, seed: int = 0,
                      stop_token: Optional[int] = None,
                      tenant: Optional[str] = None,
-                     adapter: Optional[str] = None) -> List[Request]:
+                     adapter: Optional[str] = None,
+                     qos: Optional[str] = None,
+                     deadline_s: Optional[float] = None) -> List[Request]:
         """``generate`` minus the blocking wait: one request per prompt
         (seeded seed+i), enqueued atomically, handles returned."""
         reqs = [self._make_request(p, max_new_tokens, temperature, top_k,
-                                   seed + i, stop_token, tenant, adapter)
+                                   seed + i, stop_token, tenant, adapter,
+                                   qos=qos, deadline_s=deadline_s)
                 for i, p in enumerate(prompts)]
         self._enqueue(reqs)
         return reqs
@@ -1605,8 +1900,9 @@ class DecodeEngine:
         the failure."""
         chaos.fail_or_delay("engine.kv_alloc", PageAllocError, self.name,
                             target=self.name)
+        spill = self._spill_page if self._offload is not None else None
         while self._mgr.n_free < n:
-            if self._prefix is None or not self._prefix.evict_one():
+            if self._prefix is None or not self._prefix.evict_one(spill):
                 break  # alloc() raises with the honest numbers
         pages = self._mgr.alloc(n)
         self._invalidate_dirty(self._mgr, self._cache)
@@ -1646,6 +1942,596 @@ class DecodeEngine:
         self._draft_tables[slot, :] = -1
         self._spec_ok[slot] = False
 
+    # -- KV transfer plane (serving/kvtransfer.py) ---------------------------
+    # Slot state is loop-thread only, so every transfer operation that
+    # touches it (export snapshot, import install, detach) runs as a control
+    # job at an iteration boundary. The network leg never holds the loop:
+    # migrate_out snapshots on the loop, ships from the caller's thread, and
+    # detaches only after the peer's acknowledgement, so a severed transfer
+    # leaves the donor's copy authoritative and running.
+
+    def _run_on_loop(self, fn: Callable[[], Any],
+                     timeout: float = 30.0) -> Any:
+        """Run ``fn`` on the loop thread at the next iteration boundary and
+        return its result (its exception propagates to the caller). On
+        the loop thread itself it runs inline."""
+        if threading.current_thread() is self._thread:
+            return fn()
+        box: Dict[str, Any] = {}
+        done = threading.Event()
+
+        def job() -> None:
+            try:
+                box["r"] = fn()
+            except BaseException as e:  # noqa: BLE001 — relayed below
+                box["e"] = e
+            finally:
+                done.set()
+
+        with self._cond:
+            if self._stopped:
+                raise RuntimeError(f"engine {self.name} is closed")
+            self._control.append(job)
+            self._cond.notify()
+        deadline = time.monotonic() + timeout
+        while not done.wait(0.05):
+            if self._stopped and not done.is_set():
+                raise RuntimeError(
+                    f"engine {self.name} closed before the control job "
+                    "ran")
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"engine {self.name} loop did not service the control "
+                    f"job within {timeout}s")
+        if "e" in box:
+            raise box["e"]
+        return box.get("r")
+
+    def _service_control(self) -> None:
+        """Run the pending control jobs (loop thread, iteration start). A
+        job's exception lands in its waiter's box: a refused import fails
+        the TRANSFER, never the engine."""
+        while True:
+            with self._cond:
+                if not self._control:
+                    return
+                job = self._control.popleft()
+            job()
+
+    def _cache_leaves(self) -> List[Tuple[str, torch.Tensor]]:
+        """(leaf name, pool tensor) of every cache leaf in the reference's
+        flatten order (flax flattens the cache dict by sorted key). Each
+        tensor is [n_layers, N + 1, ...]: the page axis is 1."""
+        c = self._cache
+        leaves = [("cached_key", c.key), ("cached_pos", c.pos),
+                  ("cached_value", c.value)]
+        if c.key_scale is not None:
+            leaves += [("key_scale", c.key_scale),
+                       ("value_scale", c.value_scale)]
+        return leaves
+
+    def _leaf_descriptors(self) -> List[Dict[str, Any]]:
+        """Wire geometry: the reference's (path, per-page shape, dtype)
+        descriptor of every cache leaf in flatten order. The receiver
+        requires leaf-for-leaf identity before scattering a page, so an
+        f32 donor can never feed an int8 receiver."""
+        return [{"path": f"['layers']['attn']['{name}']",
+                 "shape": [int(t.shape[0]), 1] + [int(d)
+                                                  for d in t.shape[2:]],
+                 "dtype": _WIRE_DTYPES[t.dtype]}
+                for name, t in self._cache_leaves()]
+
+    @property
+    def page_bytes(self) -> int:
+        """Wire bytes of one page frame: every leaf's rows of the page in
+        all layers."""
+        return sum(t[:, 0].numel() * t.element_size()
+                   for _, t in self._cache_leaves())
+
+    def _gather_pages(self, pages: Sequence[int]) -> np.ndarray:
+        """The wire frames of ``pages`` as one host array [n, page_bytes]
+        (row i = page i's frame): one index gather per leaf on the device,
+        the page axis moved first, byte views concatenated, one copy to the
+        host. Never writes the pool."""
+        n = len(pages)
+        if not n:
+            return np.zeros((0, self.page_bytes), np.uint8)
+        idx = torch.tensor(list(pages), dtype=torch.int64,
+                           device=self.device)
+        parts = [t.index_select(1, idx).transpose(0, 1).reshape(n, -1)
+                 .view(torch.uint8) for _, t in self._cache_leaves()]
+        return torch.cat(parts, 1).cpu().numpy()
+
+    def _page_payload(self, page: int) -> bytes:
+        """One page's wire payload (loop thread only)."""
+        return self._gather_pages([page])[0].tobytes()
+
+    def _unpack_pages(self, frames: Sequence[bytes]) -> np.ndarray:
+        """Parse page frames into one host array [n, page_bytes]. A size
+        mismatch raises TransferError: geometry drift must never scatter
+        garbage into the pool."""
+        pb = self.page_bytes
+        for i, f in enumerate(frames):
+            if len(f) != pb:
+                raise kvtransfer.TransferError(
+                    f"page payload size mismatch (frame {i}: {len(f)} "
+                    f"bytes, geometry says {pb})")
+        buf = bytearray().join(frames)   # writable: torch takes it as is
+        return np.frombuffer(buf, np.uint8).reshape(len(frames), pb)
+
+    def _scatter_pages(self, rows: np.ndarray, pages: Sequence[int]) -> None:
+        """Write frames ``rows`` [n, page_bytes] into ``pages`` of the pool:
+        one copy to the device, then one index copy per leaf."""
+        n = len(pages)
+        if not n:
+            return
+        x = torch.from_numpy(rows).to(self.device)
+        idx = torch.tensor(list(pages), dtype=torch.int64,
+                           device=self.device)
+        off = 0
+        for _, t in self._cache_leaves():
+            per = t[:, 0].numel() * t.element_size()
+            col = x[:, off:off + per].contiguous().view(t.dtype)
+            t.index_copy_(1, idx, col.reshape(
+                n, t.shape[0], *t.shape[2:]).transpose(0, 1))
+            off += per
+
+    def _export_slot(self, slot: int) -> Tuple[Request, bytes, int]:
+        """Snapshot one slot's in-flight request as a kvtransfer payload
+        (loop thread only): pin the slot's pages for the gather, copy them
+        to host bytes, and pack them with the resume state — prompt and
+        generated tokens, sampling knobs, and the pending-logits row
+        (mid-decode) or the prefill cursor (mid-chunking). The slot keeps
+        running; the caller decides whether to detach it."""
+        req = self._slots[slot]
+        assert req is not None, f"export of empty slot {slot}"
+        cur = self._prefilling.get(slot)
+        blocks = [b for b in range(self.n_blocks)
+                  if self._tables[slot, b] >= 0]
+        phys = [int(self._tables[slot, b]) for b in blocks]
+        with obs_trace.span("engine.kv_export", trace_id=req.trace_id,
+                            parent_id=req.span_id, model=self.name,
+                            slot=str(slot), pages=str(len(blocks))):
+            for pg in phys:
+                self._mgr.incref(pg)  # pinned for the gather window
+            try:
+                frames = [r.tobytes() for r in self._gather_pages(phys)]
+            finally:
+                self._mgr.decref(phys)
+            rd = req.deadline
+            header: Dict[str, Any] = {
+                "format": 1,
+                "model": self.name,
+                "page_size": self.page_size,
+                "max_seq_len": int(self.cfg.max_seq_len),
+                "vocab": int(self.cfg.vocab_size),
+                "leaves": self._leaf_descriptors(),
+                "blocks": blocks,
+                "resume": kvtransfer.resume_key(
+                    req.prompt, req.max_new, req.temperature, req.top_k,
+                    req.seed, req.stop, req.adapter),
+                "req": {
+                    "prompt": req.prompt,
+                    "tokens": list(req.tokens),
+                    "max_new": req.max_new,
+                    "temperature": req.temperature,
+                    "top_k": req.top_k,
+                    "seed": req.seed,
+                    "stop": req.stop,
+                    "adapter": req.adapter or "",
+                    "qos": req.qos,
+                    "tenant": req.tenant,
+                    "deadline_s": (max(rd - time.monotonic(), 0.001)
+                                   if rd is not None else 0.0),
+                },
+                # A port stream is a function of (seed, token index).
+                "rng": None,
+            }
+            if cur is not None:
+                # Mid-prefill: the receiver resumes chunking at ``next``.
+                # ``n`` (the cursor's token count) is the port's own field:
+                # it tells a plain continuation from a speculating one.
+                header["phase"] = "prefill"
+                header["cursor"] = {"next": int(cur["next"]),
+                                    "bucket": int(cur["bucket"]),
+                                    "remaining": int(cur["remaining"]),
+                                    "fresh": bool(cur["fresh"]),
+                                    "n": int(cur["n"])}
+            else:
+                header["phase"] = "decode"
+                header["slot_state"] = {
+                    "pos": int(self._pos[slot]),
+                    "loc": int(self._loc[slot]),
+                    "max_loc": int(self._max_loc[slot]),
+                    "pending": int(self._pending[slot]),
+                }
+                # The next decode step samples from the slot's last logits
+                # row: it is state, shipped as the AUX frame.
+                logrow = self._logbuf[slot].float().cpu().numpy()
+                header["aux"] = {"dtype": "float32",
+                                 "shape": [int(d) for d in logrow.shape]}
+                frames.append(logrow.tobytes())
+            payload = kvtransfer.encode(header, frames)
+        return req, payload, len(blocks)
+
+    def migrate_out(self, reason: str = "manual",
+                    send: Optional[Callable[[bytes], str]] = None,
+                    rids: Optional[Sequence[int]] = None
+                    ) -> Dict[str, int]:
+        """Live migration: export every in-flight request (optionally only
+        ``rids``), ship each through ``send`` (default: the engine's peer
+        sender), and finish the local copy with RequestMigrated once the
+        peer acknowledged. The local copy keeps decoding until then, so a
+        severed transfer (the ``kv.transfer`` chaos point) loses nothing.
+        Returns {"moved", "failed", "pages"}."""
+        send = send if send is not None else self._peer_send
+        if send is None:
+            raise ValueError(
+                f"engine {self.name} has no KV transfer peer configured")
+        wanted = set(rids) if rids is not None else None
+
+        def snap() -> List[Tuple[Request, bytes, int]]:
+            return [self._export_slot(slot)
+                    for slot, req in enumerate(self._slots)
+                    if req is not None
+                    and (wanted is None or req.rid in wanted)]
+
+        moved = failed = pages = 0
+        for req, payload, npages in self._run_on_loop(snap):
+            t0 = time.monotonic()
+            try:
+                chaos.fail_or_delay("kv.transfer", kvtransfer.TransferError,
+                                    self.name, target=self.name)
+                peer = send(payload)
+            except Exception:
+                failed += 1  # the local copy keeps running: zero lost
+                continue
+            self._observe_transfer(time.monotonic() - t0)
+            if self._run_on_loop(
+                    lambda r=req, p=peer: self._finish_migrated(
+                        r, p, reason)):
+                moved += 1
+                pages += npages
+                self._count_migration(reason, npages)
+            # else it retired while the bytes traveled: the peer's adopted
+            # copy finishes unclaimed.
+        return {"moved": moved, "failed": failed, "pages": pages}
+
+    def _observe_transfer(self, seconds: float) -> None:
+        self._reg().histogram(
+            "kfx_lm_kv_transfer_seconds",
+            "End-to-end KV transfer time (export snapshot to peer "
+            "acknowledgement).", buckets=QUEUE_WAIT_BUCKETS).observe(
+                seconds, model=self.name)
+
+    def _count_migration(self, reason: str, npages: int) -> None:
+        reg = self._reg()
+        reg.counter("kfx_lm_kv_migrations_total",
+                    "In-flight requests migrated to a peer replica, "
+                    "by reason.").inc(1, model=self.name, reason=reason)
+        reg.counter("kfx_lm_kv_pages_transferred_total",
+                    "KV pages shipped to or adopted from peer "
+                    "replicas.").inc(npages, model=self.name)
+
+    def _finish_migrated(self, req: Request, peer: str,
+                         reason: str) -> bool:
+        """Detach a migrated request from its slot (loop thread): its pages
+        release, and its waiter gets RequestMigrated naming ``peer``.
+        False when the request already retired."""
+        slot = next((s for s, r in enumerate(self._slots) if r is req),
+                    None)
+        if slot is None:
+            return False
+        self._prefilling.pop(slot, None)
+        self._slots[slot] = None
+        self._release_slot(slot)
+        if self.flight is not None:
+            self.flight.event(req, "migrated", peer=peer, reason=reason)
+        req._finish(RequestMigrated(
+            f"request migrated to {peer} ({reason})", peer=peer))
+        self._touch_gauges()
+        return True
+
+    def kv_import(self, raw: bytes,
+                  on_token: Optional[Callable[[Optional[int]], None]]
+                  = None) -> Request:
+        """Adopt a migrated request: verify the page stream (a broken chain
+        digest raises TransferCorrupt and nothing is imported), check the
+        geometry leaf for leaf, then install it in a free slot at the next
+        iteration boundary, restoring the donor's slot state (mid-decode)
+        or prefill cursor (mid-chunking). Returns the live Request. Raises
+        TransferError / TransferCorrupt (nothing imported) or
+        EngineOverloaded (no slot or pages: the donor keeps it)."""
+        chaos.fail_or_delay("kv.transfer", kvtransfer.TransferCorrupt,
+                            self.name, target=self.name)
+        header, frames = kvtransfer.decode(raw)
+        if int(header.get("format", -1)) != 1:
+            raise kvtransfer.TransferError(
+                f"unknown transfer format {header.get('format')!r}")
+        if header.get("page_size") != self.page_size \
+                or header.get("max_seq_len") != int(self.cfg.max_seq_len) \
+                or header.get("vocab") != int(self.cfg.vocab_size) \
+                or header.get("leaves") != self._leaf_descriptors():
+            raise kvtransfer.TransferError(
+                "kv geometry mismatch: donor and receiver caches are not "
+                "leaf-for-leaf identical")
+        r = header["req"]
+        stop = int(r["stop"])
+        req = self._make_request(
+            r["prompt"], int(r["max_new"]), float(r["temperature"]),
+            int(r["top_k"]), int(r["seed"]), None if stop < 0 else stop,
+            tenant=r.get("tenant") or None,
+            adapter=str(r.get("adapter") or ""),   # the donor's resolved one
+            qos=r.get("qos"),
+            deadline_s=float(r.get("deadline_s") or 0) or None)
+        req.tokens = [int(t) for t in r["tokens"]]
+        # The donor billed (and maybe streamed) these tokens: bill only
+        # what this engine generates.
+        req.meter_skip = len(req.tokens)
+        req.counted = True
+        req.t_admitted = time.monotonic()
+        req.on_token = on_token
+        self._run_on_loop(lambda: self._install_import(header, frames, req))
+        return req
+
+    def _install_import(self, header: Dict[str, Any],
+                        frames: List[bytes], req: Request) -> None:
+        """Install an adopted request (loop thread), all or nothing: every
+        frame parses before the pool is touched, and a failure past
+        allocation releases every page taken."""
+        blocks = [int(b) for b in header["blocks"]]
+        phase = header.get("phase", "decode")
+        with obs_trace.span("engine.kv_import", trace_id=req.trace_id,
+                            parent_id=req.span_id, model=self.name,
+                            pages=str(len(blocks)), phase=phase):
+            if self._draining:
+                raise EngineDraining(
+                    f"engine {self.name} is draining; the donor keeps the "
+                    "request")
+            slot = next((s for s, rq in enumerate(self._slots)
+                         if rq is None), None)
+            if slot is None:
+                raise EngineOverloaded(
+                    f"engine {self.name} has no free slot for a KV import")
+            if any(b < 0 or b >= self.n_blocks for b in blocks):
+                raise kvtransfer.TransferError("block index out of range")
+            full = req.prompt + req.tokens
+            if phase == "decode":
+                st = header["slot_state"]
+                if int(st["pending"]) >= 0 and not self.spec:
+                    raise kvtransfer.TransferError(
+                        "pending speculative token requires a speculative "
+                        "receiver")
+                if len(frames) != len(blocks) + 1:
+                    raise kvtransfer.TransferError(
+                        f"expected {len(blocks)} pages + 1 aux frame, got "
+                        f"{len(frames)}")
+                aux = header.get("aux") or {}
+                if aux.get("dtype", "float32") != "float32" or \
+                        len(frames[-1]) != 4 * self.cfg.vocab_size:
+                    raise kvtransfer.TransferError(
+                        "pending-logits frame does not match the vocab")
+                logrow = np.frombuffer(frames[-1], np.float32).copy()
+            elif phase == "prefill":
+                cur = header["cursor"]
+                # A speculating engine's continuation leaves the last
+                # generated token (its pending token) out of the prefill.
+                if self.spec and req.tokens:
+                    full = full[:-1]
+                if int(cur.get("n", len(full))) != len(full):
+                    raise kvtransfer.TransferError(
+                        "mid-prefill continuation between a speculating "
+                        "and a plain engine")
+                if len(frames) != len(blocks):
+                    raise kvtransfer.TransferError(
+                        f"expected {len(blocks)} pages, got {len(frames)}")
+            else:
+                raise kvtransfer.TransferError(f"unknown phase {phase!r}")
+            rows = self._unpack_pages(frames[:len(blocks)])
+            aid = -1
+            if req.adapter:
+                aid = self._resolve_adapter(req)  # raises = refusal
+                if aid < 0:
+                    raise kvtransfer.TransferError(
+                        f"imported pages hold adapter KV but "
+                        f"{req.adapter!r} degraded to base here")
+            try:
+                pages = self._alloc_pages(len(blocks))
+            except PageAllocError:
+                if aid >= 0:
+                    self._apool.release(aid)
+                raise
+            try:
+                self._scatter_pages(rows, pages)
+            except Exception:
+                self._mgr.decref(pages)  # discard the partial import whole
+                if aid >= 0:
+                    self._apool.release(aid)
+                raise
+            trow = np.full((self.n_blocks,), -1, np.int32)
+            for b, pg in zip(blocks, pages):
+                trow[b] = pg
+            self._tables[slot] = trow
+            self._slot_pages[slot] = list(pages)
+            self._aids[slot] = aid
+            n, ps = len(full), self.page_size
+            # Register the imported PROMPT pages in the local prefix cache:
+            # a migration carries its share of the fleet cache along.
+            root = self._root_for(req, aid)
+            key = root
+            covered = len(req.prompt) // ps
+            if phase == "prefill":
+                covered = min(int(header["cursor"]["next"]),
+                              len(req.prompt)) // ps
+            reg_block = covered
+            if self._prefix is not None:
+                reg_block = 0
+                for b in range(covered):
+                    pg = int(trow[b])
+                    if pg < 0:
+                        break
+                    key = self._prefix.insert_full(
+                        key, full[b * ps:(b + 1) * ps], pg, root=root)
+                    reg_block = b + 1
+            if phase == "prefill":
+                cur = header["cursor"]
+                self._active[slot] = False
+                self._pending[slot] = -1
+                self._slots[slot] = req
+                self._prefilling[slot] = {
+                    "req": req, "full": full, "n": n,
+                    "next": int(cur["next"]), "key": key,
+                    "reg_block": reg_block, "root": root,
+                    "bucket": int(cur["bucket"]),
+                    "remaining": int(cur["remaining"]),
+                    "fresh": bool(cur.get("fresh"))}
+            else:
+                self._logbuf[slot] = torch.from_numpy(logrow).to(
+                    self.device)
+                self._pos[slot] = int(st["pos"])
+                self._loc[slot] = int(st["loc"])
+                self._max_loc[slot] = int(st["max_loc"])
+                self._pending[slot] = int(st["pending"])
+                self._produced[slot] = len(req.tokens)
+                self._seeds[slot] = seed32(req.seed)
+                self._temp[slot] = req.temperature
+                self._topk[slot] = req.top_k
+                self._stop[slot] = req.stop
+                self._max_new[slot] = req.max_new
+                # An adopted slot never speculates: the draft pool holds
+                # none of its KV (the verify window serves it a token an
+                # iteration).
+                self._spec_ok[slot] = False
+                self._active[slot] = True
+                self._slots[slot] = req
+            if self.flight is not None:
+                self.flight.event(req, "kv_import", pages=len(blocks),
+                                  phase=phase)
+            self._reg().counter(
+                "kfx_lm_kv_pages_transferred_total",
+                "KV pages shipped to or adopted from peer replicas.").inc(
+                    len(blocks), model=self.name)
+            self._touch_gauges()
+
+    def _handoff_ready(self) -> None:
+        """Prefill-role hand-off (loop thread): every active slot whose
+        prefill just completed exports NOW, before this iteration's decode
+        step, and ships from a side thread while the loop goes on. A
+        failed transfer leaves the slot decoding locally."""
+        for slot, req in enumerate(self._slots):
+            if req is None or not self._active[slot] \
+                    or slot in self._prefilling \
+                    or req.rid in self._handoff_skip:
+                continue
+            if len(self._handoff_skip) > 4096:
+                self._handoff_skip.clear()
+            self._handoff_skip.add(req.rid)
+            try:
+                _, payload, npages = self._export_slot(slot)
+            except Exception:
+                continue  # decode locally
+            threading.Thread(
+                target=self._handoff_send, args=(req, payload, npages),
+                name=f"kfx-kv-handoff-{self.name}", daemon=True).start()
+
+    def _handoff_send(self, req: Request, payload: bytes,
+                      npages: int) -> None:
+        t0 = time.monotonic()
+        try:
+            chaos.fail_or_delay("kv.transfer", kvtransfer.TransferError,
+                                self.name, target=self.name)
+            peer = self._peer_send(payload)
+        except Exception:
+            return  # the slot decodes locally: zero lost
+        self._observe_transfer(time.monotonic() - t0)
+        try:
+            if self._run_on_loop(lambda: self._finish_migrated(
+                    req, peer, "disagg")):
+                self._count_migration("disagg", npages)
+        except (RuntimeError, TimeoutError):
+            pass  # engine closed mid-hand-off; the peer copy idles out
+
+    # -- host-RAM offload tier -----------------------------------------------
+    def _offload_gauge(self) -> None:
+        self._reg().gauge(
+            "kfx_lm_kv_offload_pages",
+            "Prefix-cache pages held per KV offload tier.").set(
+                len(self._offload), model=self.name, tier="host")
+
+    def _spill_page(self, e: _PrefixEntry) -> None:
+        """Demote one evicted prefix page into the host tier (evict_one
+        selects only pages no slot reads). Partial boundary pages are
+        skipped: they are COW sources keyed by token comparison. The
+        ``kv.offload`` chaos point (or a failed gather) drops the
+        demotion: the page's next miss recomputes."""
+        if e.partial:
+            return
+        inj = chaos.draw("kv.offload", target=self.name)
+        if inj is not None:
+            if inj.delay > 0:
+                time.sleep(inj.delay)
+            if inj.mode != "delay":
+                return
+        try:
+            self._offload.put(e.key, self._page_payload(e.page))
+        except Exception:
+            return
+        self._offload_gauge()
+
+    def _promote_offloaded(self, full: List[int], max_reuse: int,
+                           shared: List[int], matched: int, key: bytes,
+                           root: bytes = b"") -> Tuple[int, bytes]:
+        """Extend a prefix-cache match from the host tier: while the next
+        full page's chain hash is resident in host RAM, allocate a page,
+        scatter the payload back and register it as a live cache entry,
+        so the admission skips that much more prefill. ``shared`` grows in
+        place. Pool pressure, geometry drift or the ``kv.offload`` chaos
+        point stop the walk (the tail re-prefills). The decode chunk's
+        shapes never change: promotion happens at admission."""
+        ps = self.page_size
+        base = list(shared)
+        for pg in base:
+            self._mgr.incref(pg)  # eviction guard: promote allocs may
+        ours: List[int] = []      # reclaim LRU cache pages
+        while matched + ps <= max_reuse:
+            nxt = _chain_hash(key, full[matched:matched + ps])
+            payload = self._offload.get(nxt)
+            if payload is None:
+                break
+            inj = chaos.draw("kv.offload", target=self.name)
+            if inj is not None:
+                if inj.delay > 0:
+                    time.sleep(inj.delay)
+                if inj.mode != "delay":
+                    break  # promotion refused: the tail re-prefills
+            try:
+                row = self._unpack_pages([payload])
+            except kvtransfer.TransferError:
+                self._offload.pop(nxt)  # stale geometry: unusable
+                break
+            try:
+                page = self._alloc_pages(1)[0]
+            except PageAllocError:
+                break
+            try:
+                self._scatter_pages(row, [page])
+            except Exception:
+                self._mgr.decref(base + ours + [page])
+                raise
+            self._offload.pop(nxt)
+            self._prefix.insert_full(key, full[matched:matched + ps], page,
+                                     root=root)
+            ours.append(page)
+            shared.append(page)
+            key = nxt
+            matched += ps
+        # Promoted pages keep their cache ref; ours and the guards drop
+        # here (the caller pins ``shared`` right after, on this thread).
+        self._mgr.decref(base + ours)
+        if ours:
+            self._offload_gauge()
+        return matched, key
+
     # -- the loop -------------------------------------------------------------
     def _loop(self) -> None:
         # Both are thread-local: the loop thread selects the device and
@@ -1659,11 +2545,16 @@ class DecodeEngine:
         while True:
             with self._cond:
                 while (not self._stopped and not self._queue
-                       and self._active_count() == 0):
+                       and self._active_count() == 0
+                       and not self._control):
                     self._cond.wait()
                 if self._stopped:
                     return
             try:
+                # KV-transfer control jobs first (export snapshots, import
+                # installs, detaches): slot-state surgery at a quiesced
+                # iteration boundary, like admission.
+                self._service_control()
                 # Prefill dispatch time (a monolithic admission's, or this
                 # iteration's one prompt chunk) is decode stall only when
                 # active decode slots existed to be stalled by it.
@@ -1688,6 +2579,12 @@ class DecodeEngine:
                             for slot, r in enumerate(self._slots):
                                 if r is not None and self._active[slot]:
                                     r.stall_s += self._iter_stall
+                    if self.role == "prefill" \
+                            and self._peer_send is not None:
+                        # Disaggregation: ship every freshly prefilled
+                        # slot toward a decode peer BEFORE this
+                        # iteration's decode step.
+                        self._handoff_ready()
                     if bool(self._active.any()):
                         self._decode_once()
                 if self.flight is not None:
@@ -1741,6 +2638,16 @@ class DecodeEngine:
                 self._admitting = req
             requeued = False
             try:
+                # Deadline gate at the slot boundary, BEFORE prefill: a
+                # request whose deadline expired while queued sheds here
+                # (a requeued preempt's included).
+                if req.deadline is not None \
+                        and time.monotonic() >= req.deadline:
+                    self._count_shed("kfx_lm_deadline_shed_total")
+                    req._finish(DeadlineInfeasible(
+                        "deadline expired while queued (waited "
+                        f"{time.monotonic() - req.t_enqueue:.2f}s)"))
+                    continue
                 self._admit(req, free[0])
             except PageAllocError as e:
                 if self._active_count() == 0:
@@ -1841,6 +2748,12 @@ class DecodeEngine:
         if self._prefix is not None:
             shared, cow, matched, key = self._prefix.match(full, n - 1,
                                                            root=root)
+            if self._offload is not None and cow is None \
+                    and len(self._offload):
+                # A page-aligned match may extend from the host offload
+                # tier; past a COW match the chain cannot fold.
+                matched, key = self._promote_offloaded(
+                    full, n - 1, shared, matched, key, root=root)
         tail = full[matched:]
         if self.prefill_chunk_tokens and \
                 len(tail) > self.prefill_chunk_tokens:
@@ -1960,11 +2873,16 @@ class DecodeEngine:
         req.t_admitted = time.monotonic()
         if self.flight is not None:
             self.flight.event(req, "admit", matched=matched, prompt=n)
+        wait = req.t_admitted - req.t_enqueue
+        # The trailing queue-wait EWMA the deadline feasibility check
+        # reads, biased toward recency (0.3) so a drained backlog stops
+        # shedding within a few admissions.
+        self._qwait_ewma = wait if self._qwait_ewma <= 0.0 \
+            else 0.7 * self._qwait_ewma + 0.3 * wait
         self._reg().histogram(
             "kfx_lm_queue_wait_seconds",
             "Decode-engine admission wait (enqueue to slot prefill).",
-            buckets=QUEUE_WAIT_BUCKETS).observe(
-                req.t_admitted - req.t_enqueue, model=self.name)
+            buckets=QUEUE_WAIT_BUCKETS).observe(wait, model=self.name)
         if self._apool is not None:
             # Per-tenant traffic ("" counts as the base tenant).
             self._reg().counter(
@@ -1974,7 +2892,7 @@ class DecodeEngine:
         if req._usage is not None:
             # Admission billing, under the same ``counted`` latch: a
             # preempted request's recompute never bills twice.
-            req._usage.admit(req.tenant, METER_QOS, req.adapter or "base",
+            req._usage.admit(req.tenant, req.qos, req.adapter or "base",
                              len(req.prompt))
         if self._prefix is not None:
             if matched:
@@ -2216,9 +3134,11 @@ class DecodeEngine:
                 self._preempt(self._preempt_victim(victims))
 
     def _preempt_victim(self, victims: List[int]) -> int:
-        """The YOUNGEST in-flight slot: the oldest requests always make
-        progress."""
-        return max(victims, key=lambda s: self._slots[s].t_enqueue)
+        """QoS-aware victim: a batch slot before any interactive one, and
+        the YOUNGEST within a class, so the oldest requests of the better
+        class always make progress."""
+        return max(victims, key=lambda s: (self._slots[s].qos == "batch",
+                                           self._slots[s].t_enqueue))
 
     def _preempt(self, slot: int) -> None:
         req = self._slots[slot]

@@ -64,12 +64,26 @@ the load-failure policy. The body field ``adapter`` selects one: absent
 means the default, "" the base; an unknown name or a non-string is a
 400, and so is any ``adapter`` on the one-shot path.
 
-Every knob of an engine extension that is not ported raises
-``NotImplementedError`` naming its Queue A 5b item rather than being
-ignored: ``KFX_LM_QOS_DEFAULT`` other than interactive,
-``KFX_LM_DEADLINE_MS``, ``KFX_LM_RATE_LIMITS`` (5b.7), a ``KFX_LM_ROLE``
-other than mixed, ``KFX_LM_KV_PEERS``, ``KFX_LM_KV_OFFLOAD_PAGES`` and
-``KFX_LM_MODELS`` (5b.8). The body field ``model`` is a 400.
+The request plane, as in the reference: ``KFX_LM_QOS_DEFAULT``
+("interactive" or "batch"), ``KFX_LM_DEADLINE_MS`` (0 = none),
+``KFX_LM_RATE_LIMITS`` (a JSON object ``{adapter tenant: tokens/s}``, ""
+the base) and ``KFX_LM_RATE_BURST_S`` (2); the body fields ``qos`` and
+``deadline_ms`` (the server merges the ``X-KFX-Deadline-Ms`` header into
+the latter) override them per request, and a request's deadline is also
+its result-wait clock (under the router's 60 s backend timeout).
+
+The KV transfer plane (serving/kvtransfer.py): ``KFX_LM_ROLE``
+("prefill" ships each finished prompt's pages to a decode peer, "decode"
+receives them, "mixed" does both locally), ``KFX_LM_KV_PEERS`` (a JSON
+list of peer base URLs; the server's ``:kvpeers`` verb replaces it) and
+``KFX_LM_KV_OFFLOAD_PAGES`` (0 = no host-RAM offload tier). ``kv_import``
+adopts a migrated generation and indexes it by its resume key, so the
+re-dispatched ``:generate`` body attaches to it instead of recomputing;
+``migrate_to`` pushes every in-flight generation to a peer.
+
+The weight pool is not ported: ``KFX_LM_MODELS`` raises
+``NotImplementedError`` naming ROADMAP.md Queue A 5b.8, and the body
+field ``model`` is a 400.
 
 Tokenization is caller-side.
 """
@@ -92,14 +106,18 @@ from ..models.transformer import (TransformerConfig, dequantize_params_int8,
                                   quantize_params_int8)
 from ..obs.metrics import default_registry
 from . import _msgpack
-from .engine import METER_QOS, DecodeEngine, EngineOverloaded
+from . import kvtransfer
+from .engine import DecodeEngine, EngineOverloaded, RequestMigrated
 from .export import FORMAT_VERSION, _sorted
 from .server import Predictor
 
 CONFIG_FILE = "lm_config.json"
 PARAMS_FILE = "params.msgpack"
 
-_ENGINE = "ROADMAP.md Queue A 5b, the engine's extensions"
+_ENGINE = "ROADMAP.md Queue A 5b.8, the weight pool"
+# The router's backend timeout: a request's result wait stays under it, so
+# a queue-starved request fails with an engine error, never a router 502.
+_BACKEND_TIMEOUT_S = 60.0
 _DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 
 
@@ -155,32 +173,11 @@ def is_lm_export(model_dir: str) -> bool:
 def _refuse_engine_knobs() -> None:
     """Raise on an explicitly set knob of an engine extension the port
     does not have yet (ROADMAP.md Queue A 5b), naming its item."""
-    env = os.environ.get
-    off = ("", "0")
-    knobs = [
-        ("KFX_LM_QOS_DEFAULT",
-         env("KFX_LM_QOS_DEFAULT", "") not in ("", "interactive"),
-         "QoS, deadlines and rate limits", "5b.7"),
-        ("KFX_LM_DEADLINE_MS", env("KFX_LM_DEADLINE_MS", "") not in off,
-         "QoS, deadlines and rate limits", "5b.7"),
-        ("KFX_LM_RATE_LIMITS",
-         env("KFX_LM_RATE_LIMITS", "") not in ("", "{}"),
-         "QoS, deadlines and rate limits", "5b.7"),
-        ("KFX_LM_ROLE", env("KFX_LM_ROLE", "mixed") != "mixed",
-         "KV transfer, offload and roles", "5b.8"),
-        ("KFX_LM_KV_PEERS", env("KFX_LM_KV_PEERS", "") not in ("", "[]"),
-         "KV transfer, offload and roles", "5b.8"),
-        ("KFX_LM_KV_OFFLOAD_PAGES",
-         env("KFX_LM_KV_OFFLOAD_PAGES", "") not in off,
-         "KV transfer, offload and roles", "5b.8"),
-        ("KFX_LM_MODELS", env("KFX_LM_MODELS", "") not in ("", "{}"),
-         "the weight pool", "5b.8"),
-    ]
-    for name, set_, what, item in knobs:
-        if set_:
-            raise NotImplementedError(
-                f"{name}={env(name)!r}: {what} is not ported yet "
-                f"(ROADMAP.md Queue A {item}); unset it")
+    value = os.environ.get("KFX_LM_MODELS", "")
+    if value not in ("", "{}"):
+        raise NotImplementedError(
+            f"KFX_LM_MODELS={value!r}: the weight pool is not ported yet "
+            "(ROADMAP.md Queue A 5b.8); unset it")
 
 
 class _RateWindow:
@@ -273,6 +270,37 @@ class LMPredictor(Predictor):
         self.adapter_slots = int(env("KFX_LM_ADAPTER_SLOTS", "8"))
         self.adapter_rank = int(env("KFX_LM_ADAPTER_RANK", "0"))
         self.adapter_fallback = env("KFX_LM_ADAPTER_FALLBACK", "base")
+        # Request plane: the QoS class default (the body's "qos"
+        # overrides), the default deadline in ms (0 = none; the body's
+        # "deadline_ms" or the X-KFX-Deadline-Ms header overrides), and
+        # per-tenant token-weighted rate budgets {adapter: tokens/s} with
+        # a burst window.
+        self.qos_default = env("KFX_LM_QOS_DEFAULT", "interactive")
+        self.deadline_default_ms = float(env("KFX_LM_DEADLINE_MS", "0"))
+        try:
+            self.rate_limits = json.loads(
+                env("KFX_LM_RATE_LIMITS", "") or "{}")
+        except ValueError as e:
+            raise ValueError(
+                f"KFX_LM_RATE_LIMITS is not valid JSON: {e}") from e
+        self.rate_burst_s = float(env("KFX_LM_RATE_BURST_S", "2.0"))
+        # KV transfer plane: this replica's disaggregation role, the
+        # decode peers (a JSON list of base URLs, replaced live by
+        # :kvpeers) and the host-RAM offload tier's pages (0 = none).
+        self.role = env("KFX_LM_ROLE", "mixed")
+        try:
+            self.kv_peers = json.loads(env("KFX_LM_KV_PEERS", "") or "[]")
+        except ValueError as e:
+            raise ValueError(
+                f"KFX_LM_KV_PEERS is not valid JSON: {e}") from e
+        if not isinstance(self.kv_peers, list) or any(
+                not isinstance(p, str) for p in self.kv_peers):
+            raise ValueError("KFX_LM_KV_PEERS must be a JSON list of URLs")
+        self.kv_offload_pages = int(env("KFX_LM_KV_OFFLOAD_PAGES", "0"))
+        self.set_kv_peers(self.kv_peers)
+        # The adopted generations by resume key.
+        self._resume: Dict[str, Dict[str, Any]] = {}
+        self._resume_lock = threading.Lock()
         for name, value in (("KFX_LM_QUANT", self.quant),
                             ("KFX_LM_KV_QUANT", self.kv_quant),
                             ("KFX_LM_QUANT_DRAFT", self.draft_quant)):
@@ -333,7 +361,19 @@ class LMPredictor(Predictor):
                 adapter_slots=self.adapter_slots,
                 adapter_rank=self.adapter_rank,
                 adapter_default=self.adapter_default,
-                adapter_fallback=self.adapter_fallback)
+                adapter_fallback=self.adapter_fallback,
+                qos_default=self.qos_default,
+                deadline_default_s=self.deadline_default_ms / 1000.0,
+                rate_limits=self.rate_limits or None,
+                rate_burst_s=self.rate_burst_s,
+                role=self.role,
+                # A prefill-role replica always gets a sender, even before
+                # the first :kvpeers push: an empty list raises
+                # TransferError and the hand-off decodes locally.
+                kv_peer_send=(self._kv_send
+                              if (self.kv_peers or self.role == "prefill")
+                              else None),
+                kv_offload_pages=max(0, self.kv_offload_pages))
             self._attach_usage()
             buckets = self.warm_buckets or self._engine.prompt_buckets
             # The first bucket and a decode step warm synchronously
@@ -400,7 +440,7 @@ class LMPredictor(Predictor):
             return
         ledger = self._engine.usage
         tenant = self.adapter_default or "base"
-        ledger.seed(tenant, METER_QOS, tenant)
+        ledger.seed(tenant, self.qos_default, tenant)
         self.metrics.add_collector(ledger.collect)
 
     def engine_heartbeat(self) -> Optional[Dict[str, Any]]:
@@ -435,6 +475,92 @@ class LMPredictor(Predictor):
         if self._engine is None:
             return True
         return self._engine.drain(wait_s)
+
+    # -- KV transfer plane ----------------------------------------------------
+    _RESUME_TTL_S = 120.0
+
+    def kv_import(self, raw: bytes) -> Dict[str, Any]:
+        """Adopt a migrated in-flight generation: hand the page stream to
+        the engine (verify, allocate, scatter, resume) and index the live
+        Request by its resume key, so the re-dispatched ``:generate``
+        body claims it here instead of recomputing."""
+        if self._engine is None:
+            raise kvtransfer.TransferError(
+                "KV import requires the engine path (KFX_LM_ENGINE=1)")
+        header = kvtransfer.peek(raw)
+        key = str(header.get("resume", ""))
+        q: "_queue.Queue[Optional[int]]" = _queue.Queue()
+        req = self._engine.kv_import(raw, on_token=q.put)
+        if key:
+            with self._resume_lock:
+                self._prune_resume_locked()
+                self._resume[key] = {"req": req, "q": q,
+                                     "imported": len(req.tokens),
+                                     "t": time.monotonic()}
+        self.metrics.counter(
+            "kfx_lm_kv_migrations_total",
+            "In-flight requests migrated to a peer replica, by "
+            "reason.").inc(1, model=self.name, reason="adopted")
+        return {"resume": key, "tokens": len(req.tokens),
+                "pages": len(header.get("blocks", []))}
+
+    def migrate_to(self, peer: str,
+                   reason: str = "manual") -> Dict[str, int]:
+        """Push every in-flight generation to ``peer`` (the operator's
+        migrate-before-kill hook, and the rebalancing verb). Failed
+        transfers keep running here; the stats say how many moved."""
+        if self._engine is None:
+            return {"moved": 0, "failed": 0, "pages": 0}
+        return self._engine.migrate_out(
+            reason=reason, send=lambda payload: kvtransfer.post_pages(
+                peer, self.name, payload))
+
+    def _kv_send(self, payload: bytes) -> str:
+        """The engine's ``kv_peer_send``: round-robin over the CURRENT peer
+        list (``set_kv_peers`` replaces the sender whole), falling through
+        the rest on refusal; with no peer it raises TransferError and the
+        donor keeps the request."""
+        sender = self._sender
+        if sender is None:
+            raise kvtransfer.TransferError(
+                "no decode peers configured (no :kvpeers push yet)")
+        return sender(payload)
+
+    def set_kv_peers(self, peers: List[str]) -> None:
+        """Replace the decode-peer URL set (live state: peer ports change
+        on respawn)."""
+        if not isinstance(peers, list) or any(
+                not isinstance(p, str) for p in peers):
+            raise ValueError("peers must be a JSON list of URLs")
+        self.kv_peers = [p for p in peers if p]
+        self._sender = (kvtransfer.round_robin_sender(self.kv_peers,
+                                                      self.name)
+                        if self.kv_peers else None)
+
+    def _prune_resume_locked(self) -> None:
+        now = time.monotonic()
+        for key in [k for k, e in self._resume.items()
+                    if now - e["t"] > self._RESUME_TTL_S]:
+            del self._resume[key]  # an unclaimed adoption idles out
+
+    def _claim_resume(self, key: str) -> Optional[Dict[str, Any]]:
+        with self._resume_lock:
+            self._prune_resume_locked()
+            return self._resume.pop(key, None)
+
+    def _resume_key_for(self, p: Dict[str, Any]) -> str:
+        """The resume key of a parsed single-prompt body, with the
+        engine's adapter-default resolution, so donor and receiver agree
+        without a side channel."""
+        adapter = p["adapter"]
+        if adapter is None:
+            adapter = getattr(self._engine, "adapter_default", "")
+        kw = p["kw"]
+        return kvtransfer.resume_key(
+            p["prompts"][0], kw["max_new_tokens"], kw["temperature"],
+            kw["top_k"], kw["seed"],
+            -1 if p["stop"] is None else int(p["stop"]),
+            str(adapter or ""))
 
     def close(self) -> None:
         if self._engine is not None:
@@ -505,12 +631,25 @@ class LMPredictor(Predictor):
             "stop": stop,
             "tenant": tenant or None,
             "adapter": body.get("adapter"),
+            "qos": qos,
+            "deadline_s": (float(deadline_ms) / 1000.0
+                           if deadline_ms is not None else None),
             "kw": dict(
                 max_new_tokens=int(body.get("max_new_tokens", 32)),
                 temperature=float(body.get("temperature", 0.0)),
                 top_k=int(body.get("top_k", 0)),
                 seed=int(body.get("seed", 0))),
         }
+
+    def _wait_budget_s(self, deadline_s: Optional[float]) -> float:
+        """The result-wait clock: the request's own deadline when it has
+        one, else the engine's ``request_timeout_s``; either way under the
+        router's backend timeout."""
+        cap = _BACKEND_TIMEOUT_S - 2.0
+        if deadline_s is not None:
+            return min(deadline_s, cap)
+        return min(self._engine.request_timeout_s, cap) \
+            if self._engine is not None else cap
 
     def _record_generate(self, n_tokens: int, elapsed: float) -> None:
         self._rate.record(n_tokens)
@@ -537,11 +676,19 @@ class LMPredictor(Predictor):
         t0 = time.perf_counter()
         reqs = None
         if self._engine is not None:
-            reqs = self._engine.submit_batch(p["prompts"],
-                                             stop_token=p["stop"],
-                                             tenant=p["tenant"],
-                                             adapter=p["adapter"], **p["kw"])
-            deadline = time.monotonic() + self._engine.request_timeout_s
+            # A re-dispatched body whose generation migrated HERE attaches
+            # to the adopted request instead of recomputing.
+            entry = (self._claim_resume(self._resume_key_for(p))
+                     if len(p["prompts"]) == 1 else None)
+            if entry is not None:
+                reqs = [entry["req"]]
+            else:
+                reqs = self._engine.submit_batch(
+                    p["prompts"], stop_token=p["stop"], tenant=p["tenant"],
+                    adapter=p["adapter"], qos=p["qos"],
+                    deadline_s=p["deadline_s"], **p["kw"])
+            deadline = time.monotonic() + self._wait_budget_s(
+                p["deadline_s"])
             out = [r.result(max(0.001, deadline - time.monotonic()))
                    for r in reqs]
         else:
@@ -589,13 +736,21 @@ class LMPredictor(Predictor):
         if self._engine is None:
             out, elapsed, _ = self._run(p)
             return iter(self._replay_events(out[0], skip, elapsed))
+        budget_s = self._wait_budget_s(p["deadline_s"])
+        # A re-dispatched stream whose generation migrated HERE attaches to
+        # the adopted request: the tokens that traveled with the pages
+        # replay first, then the adoption's queue delivers the rest.
+        entry = self._claim_resume(self._resume_key_for(p))
+        if entry is not None:
+            return self._stream_events(entry["req"], entry["q"], skip,
+                                       budget_s, prefix=entry["imported"])
         q: "_queue.Queue[Optional[int]]" = _queue.Queue()
         req = self._engine.submit(p["prompts"][0], stop_token=p["stop"],
                                   on_token=q.put, tenant=p["tenant"],
                                   meter_skip=skip, adapter=p["adapter"],
+                                  qos=p["qos"], deadline_s=p["deadline_s"],
                                   **p["kw"])
-        return self._stream_events(req, q, skip,
-                                   self._engine.request_timeout_s)
+        return self._stream_events(req, q, skip, budget_s)
 
     @staticmethod
     def _sse(obj: Dict[str, Any], event: str = "") -> bytes:
@@ -611,11 +766,18 @@ class LMPredictor(Predictor):
         yield self._sse({"done": True, "n_tokens": len(tokens),
                          "tokens_per_second": round(tps, 2)})
 
-    def _stream_events(self, req, q, skip: int,
-                       budget_s: float) -> Iterator[bytes]:
+    def _stream_events(self, req, q, skip: int, budget_s: float,
+                       prefix: int = 0) -> Iterator[bytes]:
         t0 = time.perf_counter()
         deadline = time.monotonic() + budget_s
         seen = 0
+        # An adopted generation's first ``prefix`` tokens were produced
+        # before the queue attached: replay them by engine index, honoring
+        # the same skip window.
+        for i in range(prefix):
+            if i >= skip:
+                yield self._sse({"index": i, "token": int(req.tokens[i])})
+            seen = i + 1
         while True:
             try:
                 tok = q.get(timeout=min(
@@ -634,6 +796,13 @@ class LMPredictor(Predictor):
                 yield self._sse({"index": seen, "token": tok})
             seen += 1
         if req.error is not None:
+            if isinstance(req.error, RequestMigrated):
+                # Mid-stream migration: sever instead of erroring. The
+                # server turns the iterator's exception into a hard cut,
+                # the truncated stream a router's mid-stream recovery
+                # retries (stream_skip = tokens relayed), and the retry
+                # claims the adopted generation on the peer.
+                raise ConnectionResetError(str(req.error))
             code = 503 if isinstance(req.error, EngineOverloaded) else 500
             yield self._sse({"error": str(req.error), "code": code},
                             event="error")

@@ -22,13 +22,24 @@ behind the ``MicroBatcher``).
                                            predictor error (an LM's too)
                                            or an injected
                                            ``serving.predict`` fault
+    POST /v1/models/{m}:kvimport        -> {"resume", "tokens", "pages"}
+                                           (body: a kvtransfer payload;
+                                           400 corrupt or mismatched,
+                                           503 + Retry-After no capacity)
+    POST /v1/models/{m}:migrate?peer=URL[&reason=R]
+                                        -> {"moved", "failed", "pages"}
+    POST /v1/models/{m}:kvpeers         -> {"peers": n} (body: JSON list)
     POST /drain[?wait_s=S]              -> {"draining": true, "drained": b}
 
 /drain is the operator's pre-kill hook: readiness flips false, new
 requests shed with 503 + Retry-After, and each predictor's engine stops
 admitting and finishes its in-flight requests (``drained`` says whether
 they finished within ``wait_s``). An engine's bounded-queue overflow
-(``EngineOverloaded``) is a 503 + Retry-After too. An engine-served
+(``EngineOverloaded``) is a 503 + Retry-After too; a deadline or rate
+shed carries its own Retry-After, and a migrated request's 503 the
+adopting peer in ``X-Kfx-Migrated``. ``:generate`` merges the
+``X-KFX-Deadline-Ms`` header into the body's ``deadline_ms`` (the body
+wins; a malformed header is a 400). An engine-served
 ``:generate`` answer carries the flight recorder's ``X-Kfx-Timing``
 header, and each ``/healthz`` writes the newest flight snapshot to
 ``$KFX_WORKDIR/flight/<KFX_COMPONENT>-<pid>.json`` (atomically, at most
@@ -36,8 +47,7 @@ once every ``KFX_FLIGHT_SNAP_S`` seconds, default 1, "0" off). The
 ``serving.predict`` chaos point answers 500 ``chaos[serving.predict]:
 <model>`` on ``:predict`` (the reference's site) and on ``:generate``,
 and ``/metrics`` carries ``kfx_chaos_injected_total``. The reference's
-weight-pool and KV-transfer routes (``:kvimport``, ``:migrate``,
-``:kvpeers``, ``:evict``) are not ported yet (ROADMAP.md Queue A 5b.8),
+weight-pool route ``:evict`` is not ported yet (ROADMAP.md Queue A 5b.8),
 nor are its PyTorch, TensorFlow and scikit-learn predictors (Queue A 9).
 
     python -m kubeflow_tpu_torch.serving.server --model-dir EXPORT \\
@@ -639,6 +649,22 @@ class ModelServer:
                     self._finish_request(h, name, verb, t0)
                     self._finish_span(h, sp)
                 return
+        route = path.split("?", 1)[0]
+        for verb, handler in (("kvimport", self._handle_kvimport),
+                              ("migrate", self._handle_migrate)):
+            suffix = f":{verb}"
+            if route.startswith("/v1/models/") and route.endswith(suffix):
+                name = route[len("/v1/models/"):-len(suffix)]
+                sp = self._request_span(h, f"serving.{verb}", name)
+                try:
+                    handler(h, name)
+                finally:
+                    self._finish_request(h, name, verb, t0)
+                    self._finish_span(h, sp)
+                return
+        if route.startswith("/v1/models/") and route.endswith(":kvpeers"):
+            self._handle_kvpeers(h, route[len("/v1/models/"):-len(":kvpeers")])
+            return
         h._send(404, {"error": f"no route {path}"})
 
     @staticmethod
@@ -737,6 +763,17 @@ class ModelServer:
         body = self._read_json(h)
         if body is None or self._chaos_predict(h, name):
             return
+        # Deadline header alias for clients that cannot touch the body;
+        # the body field wins.
+        hdr_deadline = h.headers.get("X-KFX-Deadline-Ms")
+        if hdr_deadline is not None and isinstance(body, dict) \
+                and "deadline_ms" not in body:
+            try:
+                body["deadline_ms"] = float(hdr_deadline)
+            except ValueError:
+                h._send(400, {"error": "X-KFX-Deadline-Ms must be a "
+                                       "number"})
+                return
         # The tenant on the serving.generate span, resolved as the engine
         # resolves it: the explicit tenant, else the adapter's ("" or
         # absent: the default adapter, the base when there is none).
@@ -761,13 +798,109 @@ class ModelServer:
         except EngineOverloaded as e:
             # Bounded-queueing overflow and drain are load shedding, not a
             # client mistake and not a server fault: 503 + Retry-After.
-            h._send(503, {"error": str(e)},
-                    extra_headers={"Retry-After": "1"})
+            # Deadline and rate sheds carry their own Retry-After, and a
+            # migrated request's 503 names the adopting peer.
+            extra = self._retry_after(e)
+            peer = getattr(e, "peer", "")
+            if peer:
+                extra["X-Kfx-Migrated"] = str(peer)
+            h._send(503, {"error": str(e)}, extra_headers=extra)
             return
         except Exception as e:
             h._send(500, {"error": str(e)})
             return
         h._send(200, result, extra_headers=_timing_header(result))
+
+    @staticmethod
+    def _retry_after(e: BaseException) -> Dict[str, str]:
+        retry = getattr(e, "retry_after_s", None)
+        return {"Retry-After": f"{retry:.1f}" if retry else "1"}
+
+    def _handle_kvimport(self, h, name: str) -> None:
+        """Adopt a migrated request's KV pages (serving/kvtransfer.py wire
+        format, raw in the body). A corrupt or mismatched stream is a 400
+        (the donor must not resend the same bytes here), a capacity
+        refusal a 503 (retriable at another peer); either way the donor's
+        copy stays authoritative."""
+        from . import kvtransfer
+
+        p = self.predictors.get(name)
+        if p is None:
+            h._send(404, {"error": f"model {name!r} not found"})
+            return
+        if not getattr(p, "kv_import", None):
+            h._send(400, {"error": f"model {name!r} does not accept KV "
+                                   "imports"})
+            return
+        if not p.ready or self.draining:
+            h._send(503, {"error": f"model {name!r} not ready"
+                          if not p.ready else "server draining"},
+                    extra_headers={"Retry-After": "1"})
+            return
+        raw = h.rfile.read(int(h.headers.get("Content-Length", 0)))
+        try:
+            result = p.kv_import(raw)
+        except kvtransfer.TransferCorrupt as e:
+            h._send(400, {"error": str(e), "corrupt": True})
+            return
+        except (kvtransfer.TransferError, ValueError) as e:
+            h._send(400, {"error": str(e)})
+            return
+        except EngineOverloaded as e:
+            h._send(503, {"error": str(e)},
+                    extra_headers=self._retry_after(e))
+            return
+        except Exception as e:
+            h._send(500, {"error": str(e)})
+            return
+        h._send(200, result)
+
+    def _handle_migrate(self, h, name: str) -> None:
+        """Push this model's in-flight requests to a peer
+        (``?peer=URL&reason=drain``): 200 with the {moved, failed, pages}
+        stats; a failed transfer is a degrade, never an HTTP error."""
+        p = self.predictors.get(name)
+        if p is None:
+            h._send(404, {"error": f"model {name!r} not found"})
+            return
+        if not getattr(p, "migrate_to", None):
+            h._send(400, {"error": f"model {name!r} does not support "
+                                   "migration"})
+            return
+        q = parse_qs(urlsplit(h.path).query)
+        peer = (q.get("peer") or [""])[0]
+        reason = (q.get("reason") or ["manual"])[0]
+        if not peer:
+            h._send(400, {"error": "peer=URL is required"})
+            return
+        try:
+            stats = p.migrate_to(peer, reason=reason)
+        except ValueError as e:
+            h._send(400, {"error": str(e)})
+            return
+        except Exception as e:
+            h._send(500, {"error": str(e)})
+            return
+        h._send(200, stats)
+
+    def _handle_kvpeers(self, h, name: str) -> None:
+        """Replace this replica's decode-peer URL set (body: JSON list),
+        pushed every reconcile: peer ports change on respawn."""
+        p = self.predictors.get(name)
+        if p is None:
+            h._send(404, {"error": f"model {name!r} not found"})
+            return
+        if not getattr(p, "set_kv_peers", None):
+            h._send(400, {"error": f"model {name!r} does not support KV "
+                                   "peers"})
+            return
+        try:
+            n = int(h.headers.get("Content-Length", 0))
+            p.set_kv_peers(json.loads(h.rfile.read(n).decode() or "[]"))
+        except (ValueError, UnicodeDecodeError) as e:
+            h._send(400, {"error": str(e)})
+            return
+        h._send(200, {"peers": len(p.kv_peers)})
 
     def _send_sse(self, h, events) -> None:
         """Stream SSE events over a chunked HTTP/1.1 response. The

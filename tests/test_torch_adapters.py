@@ -569,9 +569,13 @@ class TestFairness:
         contended = b_round(6)
         for r in burst:
             r.result(120)
+        # The reference's sanity checks: the burst was really served, and
+        # the adapters really paged (3 over 2 slots).
+        assert burst[-1].t_done >= 0.0
         assert contended[-1] <= 3.0 * max(base_p99, 0.01), (
             f"minority p99 {contended[-1]:.3f}s vs uncontended "
             f"{base_p99:.3f}s")
+        assert engine.adapter_stats()["loads"] >= 2
 
 
 class TestAcceptanceHBM:

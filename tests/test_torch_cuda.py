@@ -718,3 +718,88 @@ def test_adapter_pool_writes_slots_in_place_on_cuda(cuda_lora, tmp_path):
     slot = pool._by_name["t2"]
     b = pool.tree["mlp"]["wi"]["b"][:, slot].cpu().numpy()
     np.testing.assert_allclose(b, flat["mlp.wi"]["b"] * 2.0, rtol=1e-6)
+
+
+@pytest.fixture
+def cuda_kv():
+    if not torch.cuda.is_available():
+        pytest.skip("the KV transfer plane's page gather and scatter on the "
+                    "card (DecodeEngine export/import, the host offload "
+                    "tier) need an NVIDIA GPU; torch.cuda.is_available() "
+                    "is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _throttled(eng, prompt, n=24):
+    import time
+
+    req = eng.submit(prompt, max_new_tokens=n,
+                     on_token=lambda t: time.sleep(0.02))
+    while len(req.tokens) < 2:
+        time.sleep(0.002)
+    return req
+
+
+@pytest.mark.parametrize("kv_quant", ["", "int8"])
+def test_kv_import_writes_the_pool_in_place_on_cuda(cuda_kv, kv_quant):
+    """An import scatters into the receiver's pool in place (every pool
+    tensor keeps its data_ptr, so the decode launches' views stay valid),
+    the imported prompt page's bytes on the card equal the exported frame,
+    and the adopted request continues to the donor's greedy tokens."""
+    import time
+
+    from kubeflow_tpu_torch.serving import kvtransfer
+
+    cfg, model = _tiny_gapped_lm(cuda_kv)
+    kw = dict(kv_quant=kv_quant) if kv_quant else {}
+    donor = _engine_on_card(cfg, model, cuda_kv, **kw)
+    recv = _engine_on_card(cfg, model, cuda_kv, **kw)
+    try:
+        prompt = [(7 * i + 3) % 60 for i in range(20)]
+        want = donor.generate([prompt], max_new_tokens=24)[0]
+        ptrs = [t.data_ptr() for _, t in recv._cache_leaves()]
+        grabbed = []
+
+        def capture(payload):
+            grabbed.append(payload)
+            raise kvtransfer.TransferError("captured")
+
+        req = _throttled(donor, prompt)
+        assert donor.migrate_out(send=capture)["failed"] == 1
+        assert req.result(60) == want   # the donor kept its copy
+        hdr, frames = kvtransfer.decode(grabbed[0])
+        adopted = recv.kv_import(grabbed[0],
+                                 on_token=lambda t: time.sleep(0.05))
+        slot = next(s for s, r in enumerate(recv._slots) if r is adopted)
+        page = int(recv._tables[slot, hdr["blocks"][0]])
+        row = recv._run_on_loop(lambda: recv._gather_pages([page]))
+        assert row[0].tobytes() == frames[0]   # block 0: prompt only
+        assert [t.data_ptr() for _, t in recv._cache_leaves()] == ptrs
+        assert adopted.result(60) == want
+    finally:
+        donor.close()
+        recv.close()
+
+
+def test_offload_tier_round_trip_on_cuda(cuda_kv):
+    """A prefix page demoted to the host tier at eviction promotes back on
+    the card byte for byte, and the repeated prompt's tokens are
+    unchanged."""
+    from kubeflow_tpu_torch.serving.prefix import chain_hash
+
+    cfg, model = _tiny_gapped_lm(cuda_kv)
+    eng = _engine_on_card(cfg, model, cuda_kv, kv_pages=4,
+                          kv_offload_pages=16)
+    try:
+        prompts = [[(7 * i + j + 2) % 60 for j in range(32)]
+                   for i in range(4)]
+        firsts = [eng.generate([p], max_new_tokens=8)[0] for p in prompts]
+        key = chain_hash(b"", prompts[0][:16])
+        demoted = eng._offload.get(key)
+        assert demoted is not None
+        assert eng.generate([prompts[0]], max_new_tokens=8)[0] == firsts[0]
+        page = eng._prefix.full[key].page
+        assert eng._run_on_loop(lambda: eng._page_payload(page)) == demoted
+    finally:
+        eng.close()

@@ -504,21 +504,53 @@ def test_http_greedy_equals_reference_oneshot_server(tiny_export,
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("KFX_LM_MODELS", '{"m": "/x"}'), ("KFX_LM_ROLE", "prefill"),
-    ("KFX_LM_KV_PEERS", '["http://127.0.0.1:1"]'),
-    ("KFX_LM_KV_OFFLOAD_PAGES", "4"),
-    ("KFX_LM_QOS_DEFAULT", "batch"), ("KFX_LM_DEADLINE_MS", "500"),
-    ("KFX_LM_RATE_LIMITS", '{"": 10}')])
+    ("KFX_LM_MODELS", '{"m": "/x"}')])
 def test_engine_knobs_are_refused(tiny_export, monkeypatch, knob, value):
     """Every knob of an unported engine extension raises, naming its
-    ROADMAP item (Queue A 5b), with the engine on (the default) and
+    ROADMAP item (Queue A 5b.8), with the engine on (the default) and
     off."""
     assert knob in ENGINE_KNOBS
     monkeypatch.setenv(knob, value)
     for engine in ("1", "0"):
         monkeypatch.setenv("KFX_LM_ENGINE", engine)
-        with pytest.raises(NotImplementedError, match="Queue A 5b"):
+        with pytest.raises(NotImplementedError, match="Queue A 5b.8"):
             lm_server.LMPredictor(tiny_export[0], device="cpu")
+
+
+@pytest.mark.parametrize("knob,value,attr,want", [
+    ("KFX_LM_QOS_DEFAULT", "batch", "qos_default", "batch"),
+    ("KFX_LM_DEADLINE_MS", "500", "deadline_default_s", 0.5),
+    ("KFX_LM_RATE_LIMITS", '{"": 10}', "rate_limits", {"": 10.0}),
+    ("KFX_LM_ROLE", "prefill", "role", "prefill"),
+    ("KFX_LM_KV_PEERS", '["http://127.0.0.1:1"]', "_peer_send", True),
+    ("KFX_LM_KV_OFFLOAD_PAGES", "4", "_offload", 4)])
+def test_request_and_kv_knobs_take_effect(tiny_export, monkeypatch, knob,
+                                          value, attr, want):
+    """The knobs of the request plane (Queue A 5b.7) and of the KV
+    transfer plane (the first half of 5b.8), once refused, load and reach
+    the engine as the reference's do: the class default, the default
+    deadline, the rate budgets, the role, a peer sender, and the host
+    tier's capacity. The one-shot path (KFX_LM_ENGINE=0) takes them too
+    and has no engine to give them to, as in the reference."""
+    assert knob in ENGINE_KNOBS
+    monkeypatch.setenv(knob, value)
+    for engine in ("1", "0"):
+        monkeypatch.setenv("KFX_LM_ENGINE", engine)
+        p = lm_server.LMPredictor(tiny_export[0], device="cpu",
+                                  warm_buckets=[8])
+        p.load()
+        try:
+            if engine == "0":
+                assert p.engine is None
+                continue
+            got = getattr(p.engine, attr)
+            if knob == "KFX_LM_KV_PEERS":
+                got = got is not None
+            elif knob == "KFX_LM_KV_OFFLOAD_PAGES":
+                got = got.capacity
+            assert got == want
+        finally:
+            p.close()
 
 
 @pytest.mark.parametrize("knob,value", [
