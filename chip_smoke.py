@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (kubeflow_tpu_torch) on one NVIDIA H100.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --n3-alone   # only (n3), in a fresh process
 
 Phases, in order; any failure raises and the process exits non-zero:
 
@@ -183,10 +184,35 @@ Phases, in order; any failure raises and the process exits non-zero:
    both paths; (m4) the host tier on the wide-gap f32 weights: a page
    demoted at eviction promotes back byte for byte, tokens unchanged, the
    prefix hit counted; flash launches 0/0/0;
+   (n) the multi-model weight pool at the base preset's full width: three
+   checkpoints over two weight slots (m0 (f1)'s wide-gap f32 weights and
+   m1 another seed's as v1 f32 exports, m2 a third seed's as a v2 int8
+   export normalized into the f32 pool), each export written once; (n1)
+   an engine (8 slots, 8-step chunks, 32-token pages, weight_slots 2,
+   model_default m0) takes (a)'s 8 prompts at once, prompt i for model
+   m{i % 3}, 32 greedy tokens each: every completion equal to LMGenerator
+   on its model's weights (gaps held as in (f1)), loads >= 3, evictions
+   >= 1, every page and weight slot free after; each swap's split
+   printed; (n2) m1 evicted (hbm_bytes()["weights"] and
+   torch.cuda.memory_allocated() fall by its bytes), then a 1-token
+   request cold against the same warm, the swap split into
+   storage.initialize + load_lm, normalize and the copy to the card
+   (GB/s); (n3) the chunk at 8 active slots by hand (not profiled, 3
+   reps): one weight group against two groups of 4, with the process's
+   live threads (--n3-alone runs only this part, after the exports and
+   the engine it needs, in a fresh process); (n5) the pool's
+   hbm_bytes()["total"] (2 models resident) over a dedicated engine's;
+   (n4) LMPredictor with KFX_LM_MODELS, KFX_LM_MODEL_DEFAULT and
+   KFX_LM_WEIGHT_SLOTS=2 behind ModelServer: a model "m1" :generate equal
+   to (n1)'s tokens, "nope" a 400, GET /v1/models/m2 pooled, :evict of m1
+   {"model": "m1", "evicted": true}, KFX_CHAOS="weights.load:count=1" a
+   503 with Retry-After then a 200, /metrics with the kfx_lm_weight_*
+   families and kfx_autoscaler_cold_start_seconds{mode="swap"}; flash
+   launches 0/0/0;
 7. one JSON line per kernel set, the serving line, the engine line, the
    spec line, the training line, the classifier line, the int8 line, the
-   chaos line, the lora line, the kv line, the card's name and power
-   limit, and the last line {"ok": true, "device": {...}}.
+   chaos line, the lora line, the kv line, the weights line, the card's
+   name and power limit, and the last line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or without the port's package beside it, it exits non-zero
@@ -340,6 +366,16 @@ HANDOFF_ROWS = 1
 CHAOS_NEW = 32
 OFFLOAD_PROMPT = 1024
 OFFLOAD_NEW = 16
+
+# Weight pool phase (n): three base-preset checkpoints over two weight
+# slots (the pinned default and one swappable). m0 is (f1)'s wide-gap f32
+# weights (seed 0) and m1 another seed's, both written as v1 f32 exports;
+# m2 a third seed's, written as a v2 int8 export and normalized into the
+# f32 pool at load. (n1) sends prompt i of (a) to m{i % 3}, POOL_NEW greedy
+# tokens each, all at once.
+POOL_SEEDS = (0, 1, 2)
+POOL_SLOTS = 2
+POOL_NEW = 32
 
 
 def log(msg: str) -> None:
@@ -1136,6 +1172,16 @@ def decode_timings(torch, gen, B, pad, steps, seed):
     return prefill, step_ms, enqueue_ms, prof
 
 
+def serve_prompts(vocab_size):
+    """Phase (a)'s 8 seeded prompts, 64-512 tokens (the longest 512)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_BATCH)
+    lens[int(np.argmax(lens))] = SERVE_PROMPT[1]
+    return [rng.integers(0, vocab_size, int(n)).tolist() for n in lens]
+
+
 def serving_phase(torch, fa, export_dir, gap_cfg, dev):
     """Serve the main path's export on ``dev`` (the card); see the module
     docstring (6). ``gap_cfg`` is the configuration of the
@@ -1177,10 +1223,7 @@ def serving_phase(torch, fa, export_dir, gap_cfg, dev):
     server = ModelServer(port=0)
     server.register(pred)
     server.start()
-    rng = np.random.default_rng(0)
-    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_BATCH)
-    lens[int(np.argmax(lens))] = SERVE_PROMPT[1]
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
+    prompts = serve_prompts(cfg.vocab_size)
     try:
         url = f"http://127.0.0.1:{server.port}"
         gen_url = f"{url}/v1/models/lm:generate"
@@ -1210,7 +1253,7 @@ def serving_phase(torch, fa, export_dir, gap_cfg, dev):
     finally:
         server.stop()
     rec["http_tokens_per_second"] = body["tokens_per_second"]
-    rec["prompt_lengths"] = [int(n) for n in lens]
+    rec["prompt_lengths"] = [len(p) for p in prompts]
     log(f"serving (a) export {rec['export']} loaded in "
         f"{rec['load_seconds']:.2f} s; HTTP :generate {SERVE_BATCH}x"
         f"{SERVE_NEW} greedy in {rec['http_seconds']:.3f} s "
@@ -2033,12 +2076,14 @@ def _agreement(got, want):
     return first, sum(rows) / len(rows)
 
 
-def chunk_by_hand(torch, eng, prompts, adapters=None, profile=True):
+def chunk_by_hand(torch, eng, prompts, adapters=None, profile=True,
+                  models=None):
     """The decode chunk at 8 active slots on a stopped engine (as (f3)):
     the prompts admitted whole with a budget of a quarter of the cache
-    (slot i wearing ``adapters[i]`` when given), then the chunk's
-    CUDA-event time (median of 3), its host enqueue (median of 3) and,
-    with ``profile``, a profile of one chunk (step_profile; else {})."""
+    (slot i wearing ``adapters[i]``, or pooled model ``models[i]``, when
+    given), then the chunk's CUDA-event time (median of 3), its host
+    enqueue (median of 3) and, with ``profile``, a profile of one chunk
+    (step_profile; else {})."""
     with torch.inference_mode():
         eng._cache.pos.fill_(-1)
         eng.prefill_chunk_tokens = 0
@@ -2046,7 +2091,8 @@ def chunk_by_hand(torch, eng, prompts, adapters=None, profile=True):
         for slot, p in enumerate(prompts[:ENGINE_SLOTS]):
             eng._admit(eng._make_request(
                 p, budget, 0.0, 0, 0, None,
-                adapter=adapters[slot] if adapters else None), slot)
+                adapter=adapters[slot] if adapters else None,
+                model=models[slot] if models else None), slot)
 
         def chunk():
             eng._ensure_chunk_pages()
@@ -4087,9 +4133,367 @@ def classifier_phase(torch, fa, dev, repo):
     return rec
 
 
+# -- (n) the multi-model weight pool ------------------------------------------
+
+def pool_exports(torch, gap_cfg, dev, root):
+    """The pool's three exports, written once for (n1)-(n5): m0 and m1 as
+    v1 f32 exports (no format_version, no quant block), m2 as a v2 int8
+    export (export_lm's quantize="int8"). Returns ({name: dir}, {name:
+    host tree of the weights}, seconds)."""
+    from kubeflow_tpu_torch.models.convert import params_to_jax
+    from kubeflow_tpu_torch.models.transformer import TransformerLM
+    from kubeflow_tpu_torch.serving.lm_server import CONFIG_FILE, export_lm
+
+    t0 = time.perf_counter()
+    sources, trees = {}, {}
+    for i, seed in enumerate(POOL_SEEDS):
+        name = f"m{i}"
+        g = torch.Generator(device=dev).manual_seed(seed)
+        model = TransformerLM(gap_cfg, device=dev, generator=g)
+        wide_gap_(torch, model)
+        trees[name] = params_to_jax(model.state_dict())
+        del model
+        d = os.path.join(root, name)
+        export_lm(d, gap_cfg, trees[name],
+                  quantize="int8" if name == "m2" else "")
+        if name != "m2":
+            path = os.path.join(d, CONFIG_FILE)
+            with open(path) as f:
+                meta = json.load(f)
+            meta.pop("format_version", None)
+            meta.pop("quant", None)
+            meta["config"].pop("quant", None)
+            with open(path, "w") as f:
+                json.dump(meta, f)
+        sources[name] = d
+    torch.cuda.empty_cache()
+    return sources, trees, time.perf_counter() - t0
+
+
+def pool_oracles(torch, gap_cfg, sources, trees, prompts, plan, f1, dev):
+    """Each prompt's greedy tokens on its model's weights: (f1)'s
+    LMGenerator tokens for m0, LMGenerator on m1's weights and on m2's
+    int8 export dequantized (what the f32 pool serves), each model's
+    smallest top-1/top-2 gap held against (f1)'s measured disagreement of
+    the engine's and LMGenerator's logits."""
+    from kubeflow_tpu_torch.models.generate import LMGenerator
+    from kubeflow_tpu_torch.models.transformer import dequantize_params_int8
+    from kubeflow_tpu_torch.serving.lm_server import load_lm
+
+    want, gaps = {}, {}
+    for name in sorted(set(plan)):
+        rows = [i for i, m in enumerate(plan) if m == name]
+        if name == "m0":
+            for i in rows:
+                want[i] = f1["want"][i][:POOL_NEW]
+            gaps[name] = f1["gap"]
+            continue
+        tree = trees[name] if name != "m2" else dequantize_params_int8(
+            load_lm(sources[name])[1])
+        gen = LMGenerator(gap_cfg, tree, device=dev)
+        toks, gaps[name], _ = greedy_with_gap(
+            gen, [prompts[i] for i in rows], POOL_NEW, 0)
+        del gen, tree
+        for i, t in zip(rows, toks):
+            want[i] = t
+        check(gaps[name] > GAP_MARGIN * f1["diff"],
+              f"(n) {name}: argmax gap {gaps[name]:.3g} too small against "
+              f"the paths' logit disagreement {f1['diff']:.3g}")
+    torch.cuda.empty_cache()
+    return [want[i] for i in range(len(plan))], gaps
+
+
+def pool_server_check(sources, prompts, n1_tokens, dev):
+    """(n4) LMPredictor with KFX_LM_MODELS naming the three exports and
+    KFX_LM_WEIGHT_SLOTS=2 behind an in-process ModelServer, as a user
+    sets them: a model "m1" :generate equal to (n1)'s tokens, "nope" a
+    400, GET /v1/models/m2 pooled, :evict of m1, a weights.load fault a
+    503 with Retry-After then a 200, and the weight families and the swap
+    cold-start series on /metrics."""
+    from kubeflow_tpu_torch.serving.lm_server import LMPredictor
+    from kubeflow_tpu_torch.serving.server import ModelServer
+
+    env = {"KFX_LM_MODELS": json.dumps(sources),
+           "KFX_LM_MODEL_DEFAULT": "m0", "KFX_LM_WEIGHT_SLOTS": "2"}
+    os.environ.update(env)
+    try:
+        pred = LMPredictor(sources["m0"], name="lm", device=str(dev),
+                           warm_buckets=[8])
+        pred.load()
+    finally:
+        for k in env:
+            del os.environ[k]
+    check(pred.engine is not None and not pred.engine.spec
+          and pred.pooled_models() == {"m0": True, "m1": False,
+                                       "m2": False},
+          f"(n4) pooled models {pred.pooled_models()}")
+    server = ModelServer(port=0)
+    server.register(pred)
+    server.start()
+    url = f"http://127.0.0.1:{server.port}"
+    gen_url = f"{url}/v1/models/lm:generate"
+    body = {"prompt_tokens": [prompts[1]], "max_new_tokens": POOL_NEW,
+            "model": "m1"}
+    rec = {}
+    try:
+        t0 = time.perf_counter()
+        out = http_json(gen_url, body)
+        rec["m1_request_s"] = time.perf_counter() - t0
+        check(out["generated_tokens"][0] == n1_tokens[1],
+              "(n4) model m1 over HTTP differs from (n1)")
+        code, err, _ = post_status(gen_url, dict(body, model="nope"))
+        check(code == 400 and "unknown model" in err["error"],
+              f"(n4) unknown model answered {code} {err}")
+        m2 = http_json(f"{url}/v1/models/m2")
+        check(m2 == {"name": "m2", "ready": True, "pooled": True,
+                     "loaded": False, "host": "lm"},
+              f"(n4) GET /v1/models/m2 {m2}")
+        host = http_json(f"{url}/v1/models/lm")
+        check(host.get("pooledModels") == {"m0": True, "m1": True,
+                                           "m2": False},
+              f"(n4) host status {host}")
+        ev = http_json(f"{url}/v1/models/lm:evict", {"model": "m1"})
+        check(ev == {"model": "m1", "evicted": True}, f"(n4) :evict {ev}")
+        with chaos_env("weights.load:count=1"):
+            code, err, hdr = post_status(gen_url, body)
+        check(code == 503 and hdr.get("Retry-After") is not None
+              and "chaos[weights.load]" in err.get("error", ""),
+              f"(n4) weights.load fault answered {code} {err}")
+        out = http_json(gen_url, body)
+        check(out["generated_tokens"][0] == n1_tokens[1],
+              "(n4) the request after the fault differs from (n1)")
+        text = http_json(f"{url}/metrics")
+        fams = ("kfx_lm_weight_slots", "kfx_lm_weight_slots_free",
+                "kfx_lm_weight_models_loaded", "kfx_lm_weight_loads_total",
+                "kfx_lm_weight_swap_seconds",
+                "kfx_lm_weight_evictions_total",
+                "kfx_lm_weight_model_loaded")
+        missing = [f for f in fams if f not in text]
+        swap = re.search(r'^kfx_autoscaler_cold_start_seconds_count\{'
+                         r'[^}]*mode="swap"[^}]*\} (\S+)$', text, re.M)
+        check(not missing and swap is not None and float(swap.group(1)) >= 2,
+              f"(n4) /metrics lacks {missing} or the swap cold starts")
+        engine = http_json(f"{url}/metrics?format=json")["engine"]["lm"]
+        rec.update({"swap_cold_starts": float(swap.group(1)),
+                    "engine_block": {k: engine.get(k) for k in (
+                        "weight_slots", "weight_slots_free",
+                        "weight_models_loaded", "pooled")},
+                    "weight_stats": pred.weight_stats()})
+    finally:
+        server.stop()
+        if pred._warm_thread is not None:
+            pred._warm_thread.join(timeout=300)
+        pred.close()
+    return rec
+
+
+def pool_chunk_groups(torch, eng, prompts):
+    """(n3) the chunk at 8 active slots by hand on the stopped pooled
+    engine ``eng`` (models m0 and m1 resident or loadable): one weight
+    group, then two groups of 4 (unprofiled, 3 reps each). Records the
+    process's live threads beside the times: the chunk is host-bound, so
+    a thread left by an earlier phase competes with it for the
+    interpreter."""
+    import threading
+
+    one_ms, one_enq, _ = chunk_by_hand(torch, eng, prompts, profile=False,
+                                       models=["m0"] * ENGINE_SLOTS)
+    eng._fail_inflight(RuntimeError("(n3) next configuration"))
+    half = ENGINE_SLOTS // 2
+    two_ms, two_enq, _ = chunk_by_hand(
+        torch, eng, prompts, profile=False,
+        models=["m0"] * half + ["m1"] * (ENGINE_SLOTS - half))
+    threads = sorted(t.name for t in threading.enumerate())
+    rec = {"one_group_chunk_ms": one_ms, "one_group_enqueue_ms": one_enq,
+           "two_group_chunk_ms": two_ms, "two_group_enqueue_ms": two_enq,
+           "ratio": two_ms / one_ms, "threads": len(threads),
+           "thread_names": threads}
+    log(f"weights (n3) chunk at {ENGINE_SLOTS} slots ({ENGINE_CHUNK} steps, "
+        f"f32): one weight group {one_ms:.2f} ms (enqueue {one_enq:.2f} "
+        f"ms), two groups of {half} {two_ms:.2f} ms (enqueue "
+        f"{two_enq:.2f} ms), ratio {two_ms / one_ms:.3f}; "
+        f"{len(threads)} threads live")
+    return rec
+
+
+def pool_chunk_alone(torch, dev, repo):
+    """``--n3-alone``: (n3) in a fresh process, with no phase before it:
+    the three exports and a pooled engine as phase (n) builds them, then
+    pool_chunk_groups on (a)'s prompts."""
+    from kubeflow_tpu_torch.models.transformer import preset_config
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+
+    gap_cfg = preset_config("base", max_seq_len=2048, dtype="float32",
+                            attn_impl="naive")
+    sources, trees, _ = pool_exports(torch, gap_cfg, dev,
+                                     os.path.join(repo, "build", "pool"))
+    eng = DecodeEngine(gap_cfg, trees["m0"], name="pool", models=sources,
+                       model_default="m0", weight_slots=POOL_SLOTS,
+                       n_slots=ENGINE_SLOTS, chunk_tokens=ENGINE_CHUNK,
+                       kv_page_size=ENGINE_PAGE,
+                       prefill_chunk_tokens=ENGINE_PREFILL_CHUNK, device=dev)
+    del trees
+    eng.close()
+    rec = pool_chunk_groups(torch, eng, serve_prompts(gap_cfg.vocab_size))
+    eng._fail_inflight(RuntimeError("(n3) done"))
+    return rec
+
+
+def pool_phase(torch, fa, gap_cfg, prompts, f1, dev, repo):
+    """(n) the multi-model weight pool at the base preset's full width;
+    see the module docstring. ``f1`` holds phase (f1)'s LMGenerator tokens
+    and gaps on the m0 weights. Returns the {"weights": ...} record."""
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+
+    t_phase = time.perf_counter()
+    rec = {"seconds": {}, "slots": POOL_SLOTS, "new_tokens": POOL_NEW}
+    t_sub = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        rec["seconds"][name] = now - t_sub[0]
+        t_sub[0] = now
+
+    fa.reset_launches()
+    sources, trees, rec["export_s"] = pool_exports(
+        torch, gap_cfg, dev, os.path.join(repo, "build", "pool"))
+    plan = [f"m{i % len(POOL_SEEDS)}" for i in range(len(prompts))]
+    want, rec["gaps"] = pool_oracles(torch, gap_cfg, sources, trees,
+                                     prompts, plan, f1, dev)
+    lap("exports_and_oracles")
+
+    # (n1) 8 prompts over 3 models and 2 slots, all submitted at once
+    kw = dict(n_slots=ENGINE_SLOTS, chunk_tokens=ENGINE_CHUNK,
+              kv_page_size=ENGINE_PAGE,
+              prefill_chunk_tokens=ENGINE_PREFILL_CHUNK, device=dev)
+    eng = DecodeEngine(gap_cfg, trees["m0"], name="pool", models=sources,
+                       model_default="m0", weight_slots=POOL_SLOTS,
+                       request_timeout_s=600.0, **kw)
+    wp = eng._wpool
+    swaps, real_load = [], wp._load_into
+
+    def load_into(name, slot):
+        real_load(name, slot)
+        swaps.append(dict(wp.last_swap))
+
+    wp._load_into = load_into
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, POOL_NEW, model=m) for p, m in zip(prompts, plan)]
+    got = [r.result(600) for r in reqs]
+    n1_s = time.perf_counter() - t0
+    del wp._load_into   # the pool's own method again (no cycle to keep)
+    bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    check(not bad, f"(n1) pooled greedy tokens differ from LMGenerator in "
+                   f"rows {bad} (models {[plan[i] for i in bad]})")
+    st = eng.weight_stats()
+    check(st["loads"] >= 3 and st["evictions"] >= 1,
+          f"(n1) weight stats {st}")
+    pages = eng.page_stats()
+    check(pages["free"] + pages["cached"] == pages["pages"],
+          f"(n1) page leak {pages}")
+    check(int(wp.ref.sum()) == 0 and st["free"] == POOL_SLOTS - 1,
+          f"(n1) weight slots still pinned: ref {wp.ref.tolist()}, {st}")
+    rec["n1"] = {"seconds": n1_s, "tokens": len(prompts) * POOL_NEW,
+                 "tokens_per_s": len(prompts) * POOL_NEW / n1_s,
+                 "weight_stats": st, "pages": pages, "swaps": swaps}
+    log(f"weights (n1) {len(prompts)} prompts over {len(POOL_SEEDS)} models "
+        f"and {POOL_SLOTS} slots, {POOL_NEW} greedy tokens each == "
+        f"LMGenerator (gaps {rec['gaps']}): {n1_s:.2f} s, loads "
+        f"{st['loads']}, evictions {st['evictions']}, swaps "
+        f"{[(w['model'], round(w['seconds'], 3)) for w in swaps]}")
+    lap("n1")
+
+    # (n2) the swap: evict m1, then a 1-token request cold against warm
+    if "m1" not in wp.loaded():
+        eng.generate([prompts[1]], 1, model="m1")
+    slot_bytes = sum(t.numel() * t.element_size() for t in wp.module(
+        wp._by_name["m1"]).state_dict().values())
+    torch.cuda.synchronize()
+    hbm0, alloc0 = eng.hbm_bytes()["weights"], torch.cuda.memory_allocated()
+    check(eng.evict_model("m1"), "(n2) m1 was not evicted")
+    torch.cuda.synchronize()
+    hbm1, alloc1 = eng.hbm_bytes()["weights"], torch.cuda.memory_allocated()
+    check(hbm0 - hbm1 == slot_bytes,
+          f"(n2) hbm weights fell {hbm0 - hbm1} for a {slot_bytes}-byte slot")
+    check(alloc0 - alloc1 >= 0.99 * slot_bytes,
+          f"(n2) allocated fell {alloc0 - alloc1} for a {slot_bytes}-byte "
+          "slot")
+    t0 = time.perf_counter()
+    cold = eng.generate([prompts[1]], 1, model="m1")[0]
+    cold_s = time.perf_counter() - t0
+    swap = dict(wp.last_swap)
+    t0 = time.perf_counter()
+    warm = eng.generate([prompts[1]], 1, model="m1")[0]
+    warm_s = time.perf_counter() - t0
+    check(cold == warm == want[1][:1], f"(n2) cold {cold} warm {warm}")
+    check(torch.cuda.memory_allocated() - alloc1 >= 0.99 * slot_bytes,
+          "(n2) the reload did not take the slot's bytes back")
+    rec["n2"] = {"cold_1tok_s": cold_s, "warm_1tok_s": warm_s,
+                 "swap_s": max(cold_s - warm_s, 0.0), "split": swap,
+                 "device_gb_per_s": swap["bytes"] / swap["device_s"] / 1e9,
+                 "slot_bytes": slot_bytes,
+                 "hbm_weights_drop": hbm0 - hbm1,
+                 "allocated_drop": alloc0 - alloc1}
+    log(f"weights (n2) swap of m1 ({slot_bytes / 1e9:.3f} GB): 1-token "
+        f"request cold {cold_s:.3f} s, warm {warm_s:.3f} s; swap "
+        f"{swap['seconds']:.3f} s = initialize + load_lm "
+        f"{swap['load_s']:.3f} s + normalize {swap['normalize_s']:.3f} s + "
+        f"to the card {swap['device_s']:.3f} s "
+        f"({rec['n2']['device_gb_per_s']:.2f} GB/s); hbm weights fell "
+        f"{hbm0 - hbm1} B, allocated fell {alloc0 - alloc1} B")
+    lap("n2")
+
+    # (n3) the chunk at 8 active slots by hand: one weight group, then two
+    # groups of 4 (the loop stopped; the pool keeps its models)
+    eng.close()
+    rec["n3"] = pool_chunk_groups(torch, eng, prompts)
+    lap("n3")
+
+    # (n5) HBM: the pool (2 models resident) against one dedicated engine
+    # with the same KV geometry
+    pooled = eng.hbm_bytes()
+    eng._fail_inflight(RuntimeError("(n5) done"))
+    del eng, wp
+    torch.cuda.empty_cache()
+    ded = DecodeEngine(gap_cfg, trees["m0"], name="pool-ded", **kw)
+    ded.close()
+    dedicated = ded.hbm_bytes()
+    del ded
+    torch.cuda.empty_cache()
+    rec["n5"] = {"pooled": pooled, "dedicated": dedicated,
+                 "hbm_ratio": pooled["total"] / dedicated["total"]}
+    log(f"weights (n5) HBM: pool of 2 resident models "
+        f"{pooled['total'] / 1e9:.3f} GB (weights beyond the default "
+        f"{pooled['weights'] / 1e9:.3f} GB) against a dedicated engine "
+        f"{dedicated['total'] / 1e9:.3f} GB: ratio "
+        f"{rec['n5']['hbm_ratio']:.4f}")
+    lap("n5")
+    del trees
+
+    # (n4) the server
+    rec["n4"] = pool_server_check(sources, prompts, got, dev)
+    log(f"weights (n4) server: m1 over HTTP == (n1), unknown model 400, "
+        f"pooled readiness, :evict, weights.load 503 + Retry-After then "
+        f"200; {json.dumps(rec['n4'])}")
+    lap("n4")
+    torch.cuda.empty_cache()
+    rec["flash_launches"] = dict(fa.LAUNCHES)
+    check(all(v == 0 for v in rec["flash_launches"].values()),
+          f"(n) flash launches {rec['flash_launches']}")
+    rec["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"weights (n) seconds {json.dumps(rec['seconds'])}, phase "
+        f"{rec['phase_seconds']:.1f} s; flash launches "
+        f"{rec['flash_launches']}")
+    return rec
+
+
 def main() -> int:
     import torch
 
+    if sys.argv[1:] not in ([], ["--n3-alone"]):
+        print("usage: python3 chip_smoke.py [--n3-alone]", file=sys.stderr)
+        return 2
+    alone = sys.argv[1:] == ["--n3-alone"]
     if not torch.cuda.is_available():
         print("error: torch.cuda.is_available() is false; chip_smoke.py "
               "runs the port on an NVIDIA GPU", file=sys.stderr)
@@ -4103,6 +4507,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+
+    if alone:
+        card = card_line()
+        log(f"card: {card}")
+        log(json.dumps({"n3_alone": pool_chunk_alone(torch, dev, repo)}))
+        log(card)
+        return 0
 
     # 1. the card
     card = card_line()
@@ -4182,6 +4593,10 @@ def main() -> int:
     kv = kv_phase(torch, fa, export_dir, gap_cfg, prompts, f1, dev)
     torch.cuda.empty_cache()
 
+    # 6n. the multi-model weight pool
+    weights = pool_phase(torch, fa, gap_cfg, prompts, f1, dev, repo)
+    torch.cuda.empty_cache()
+
     # 6i. the classifier / JAXJob path
     classifier = classifier_phase(torch, fa, dev, repo)
     chaos_rec["k6"] = classifier.pop("chaos_predict")
@@ -4223,6 +4638,7 @@ def main() -> int:
     log(json.dumps({"chaos": chaos_rec}))
     log(json.dumps({"lora": lora}))
     log(json.dumps({"kv": kv}))
+    log(json.dumps({"weights": weights}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

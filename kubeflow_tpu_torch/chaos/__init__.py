@@ -10,9 +10,8 @@ restarts resume from the latest checkpoint and serving degrades
 gracefully. This module is what turns that claim into a regression-
 tested property: sites across the stack declare *fault points*. The
 port reaches the points marked ``*``; the rest belong to the control
-plane, the router and the engine extensions the port does not have yet
-(ROADMAP.md Queue A 8 and 5b.6-5b.8), and a spec naming them parses
-but injects nothing here:
+plane and the router, which the port does not have yet (ROADMAP.md
+Queue A 8), and a spec naming them parses but injects nothing here:
 
     gang.spawn          member spawn failure        (runtime/gang.py)
     gang.kill           supervisor kills a member   (runtime/gang.py)
@@ -48,7 +47,7 @@ but injects nothing here:
     router.stream_cut   sever an in-flight SSE      (serving/router.py)
                         token stream after >=1
                         relayed token
-    weights.load        artifact load fails/stalls  (serving/weights.py)
+  * weights.load        artifact load fails/stalls  (serving/weights.py)
                         during a weight-pool swap
 
 — and a *plan* decides, deterministically, which evaluations inject.

@@ -166,25 +166,50 @@ def lora_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
-def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
-    """Inverse of ``params_from_jax``: nested dicts of numpy arrays with
-    the layer leaves stacked on a leading axis. Raises ``KeyError`` on a
-    missing or unknown key."""
-    sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
+def _layout(keys) -> tuple:
+    """(depth, top leaves, layer leaves) of a ``state_dict``'s keys.
+    Raises ``KeyError`` on a missing or unknown key."""
+    keys = set(keys)
     depth = 0
-    while f"layers.{depth}.{_LAYER[('ln1', 'scale')]}" in sd:
+    while f"layers.{depth}.{_LAYER[('ln1', 'scale')]}" in keys:
         depth += 1
-    quant = "lm_head.scale" in sd
-    layer = _layer_leaves(f"layers.0.{_MOE_FFN[('moe', 'wi')]}" in sd,
-                          quant, "layers.0.attn.query_lora_a" in sd)
+    quant = "lm_head.scale" in keys
+    layer = _layer_leaves(f"layers.0.{_MOE_FFN[('moe', 'wi')]}" in keys,
+                          quant, "layers.0.attn.query_lora_a" in keys)
     top = _top_leaves(quant)
     want = set(top.values()) | {f"layers.{i}.{s}" for i in range(depth)
                                 for s in layer.values()}
-    missing, extra = sorted(want - set(sd)), sorted(set(sd) - want)
+    missing, extra = sorted(want - keys), sorted(keys - want)
     if missing or extra or depth == 0:
         raise KeyError(f"state_dict does not match the TransformerLM: "
                        f"missing {missing}, unexpected {extra}, "
                        f"depth {depth}")
+    return depth, top, layer
+
+
+def tree_signature(state_dict: Mapping[str, torch.Tensor]
+                   ) -> Dict[tuple, tuple]:
+    """{reference path: (shape, dtype name)} of the tree ``params_to_jax``
+    would make from ``state_dict``, read from the tensors' metadata alone
+    (nothing is copied, so a device-resident model costs no transfer)."""
+    depth, top, layer = _layout(state_dict)
+
+    def meta(t, lead=()):
+        return lead + tuple(t.shape), str(t.dtype).replace("torch.", "")
+
+    out = {path: meta(state_dict[key]) for path, key in top.items()}
+    for path, suffix in layer.items():
+        out[("layers",) + path] = meta(state_dict[f"layers.0.{suffix}"],
+                                       (depth,))
+    return out
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """Inverse of ``params_from_jax``: nested dicts of numpy arrays with
+    the layer leaves stacked on a leading axis. Raises ``KeyError`` on a
+    missing or unknown key."""
+    depth, top, layer = _layout(state_dict)
+    sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
     tree: dict = {}
     for path, key in top.items():
         _set(tree, path, sd[key])

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from .. import chaos
+from ..device import resolve_device
 from ..models.transformer import lora_layers
 from .engine import AdapterLoadError, AdapterSlotError, FairQueue  # noqa: F401,E501
 
@@ -185,14 +186,15 @@ class AdapterPool:
     bookkeeping, paging artifacts in lazily from ``sources`` (name ->
     artifact URI). A speculating engine also gets ``draft_tree`` /
     ``draft_layers_views``: the same adapters truncated to the draft's
-    depth, written at load time.
+    depth, written at load time. ``device`` is "cuda" unless the caller
+    asks for "cpu".
 
     All mutation happens on the engine's loop thread."""
 
     def __init__(self, cfg, n_slots: int, sources: Dict[str, str],
                  rank: int = 0, draft_layers: int = 0,
                  name: str = "model", registry=None,
-                 device: Union[str, torch.device] = "cpu"):
+                 device: Union[str, torch.device] = "cuda"):
         if n_slots < 1:
             raise ValueError("adapter_slots must be >= 1")
         if not sources:
@@ -203,6 +205,7 @@ class AdapterPool:
         self.n_slots = int(n_slots)
         self.sources = {str(k): str(v) for k, v in sources.items()}
         self._registry = registry
+        device = resolve_device(device)   # "cuda" without a GPU raises
         if rank <= 0:
             # Auto-rank: the largest rank the artifacts declare (a config
             # peek each, so a bad URI fails at startup, not at the first

@@ -151,7 +151,25 @@ planes), the sink page never ships, and page ids remap on import. The
 index), which the header carries, so a port-to-port resume needs no
 stash, and an imported threefry stash is ignored.
 
-Not in this slice (ROADMAP.md Queue A 5b.8): the weight pool.
+Multi-model weight pool (``models``, serving/weights.py): several
+same-architecture checkpoints time-share the engine through refcounted,
+LRU-paged weight slots. The constructor's model is the default
+(``model_default``), adopted into a permanently pinned slot; a request
+names another with ``model`` and admission acquires (and, on a miss,
+swaps in) its slot before any page work (``WeightSlotError`` requeues
+like page pressure; ``WeightLoadError`` fails that request alone, 503 +
+Retry-After: there is no fallback to the default's weights). A prefill
+calls its slot's module, and the decode chunk runs its k steps once per
+weight group among the active slots, each under the mask ``active &
+(wids == wid)``: the KV pool and the logits carry chain from one group's
+run to the next (both gated per row, so a group's run leaves a masked
+row's pending logits and KV untouched), the slot state merges under each
+group's mask on the device, and the chunk still reads back once. Prefix
+chains root at the slot's ``name@generation`` and drop on eviction;
+``model_idle_s`` sweeps idle models out at iteration boundaries (the
+parked loop waits with a timeout so the sweep still runs). A pooled
+engine refuses speculation, adapters, a non-mixed role, KV peers, and
+migration and import of KV pages.
 """
 
 from __future__ import annotations
@@ -270,6 +288,22 @@ class AdapterLoadError(EngineOverloaded):
     fails the request with this error ("error": 503 + Retry-After)."""
 
 
+class WeightSlotError(PageAllocError):
+    """Every weight slot is pinned by an in-flight request (the
+    whole-checkpoint analogue of AdapterSlotError, serving/weights.py):
+    pool pressure, not failure. Admission requeues behind in-flight work
+    and a lone unplaceable request sheds with 503 + Retry-After, on the
+    page-pressure code path."""
+
+
+class WeightLoadError(EngineOverloaded):
+    """A model's weight artifact failed to page into its slot (unknown
+    name, unreadable or mismatched export, or the ``weights.load`` chaos
+    point). There is no degrade option (serving the wrong weights is
+    never acceptable), so the engine fails the request with this error:
+    503 + Retry-After, and the router re-dispatches."""
+
+
 class DeadlineInfeasible(EngineOverloaded):
     """The request's deadline cannot be met, judged BEFORE prefill (at
     enqueue against the trailing queue-wait estimate, or at the slot
@@ -304,16 +338,18 @@ class Request:
                  "t_first", "t_done", "counted", "trace_id", "span_id",
                  "rid", "preempts", "on_token", "tenant", "meter_skip",
                  "events", "stall_s", "spec_prop", "spec_acc", "_flight",
-                 "_usage", "_event", "adapter", "qos", "deadline")
+                 "_usage", "_event", "adapter", "qos", "deadline",
+                 "model")
 
     _rid_counter = itertools.count(1)
 
     def __init__(self, prompt: List[int], max_new: int, temperature: float,
                  top_k: int, seed: int, stop: int, adapter: str = "",
                  qos: str = "interactive",
-                 deadline: Optional[float] = None):
+                 deadline: Optional[float] = None, model: str = ""):
         self.prompt = prompt
         self.adapter = adapter        # "" = the base model (tenant key)
+        self.model = model            # "" = the pool default (weight pool)
         # QoS class: batch slots are the first preemption victims and
         # batch requests the first shed under queue pressure.
         self.qos = qos
@@ -594,6 +630,19 @@ class PrefixCache:
                 return True
         return False
 
+    def drop_root(self, root: bytes) -> List[int]:
+        """Invalidate every chain seeded at ``root`` (the weight pool's
+        eviction hook): a model's cached prompt pages must never survive
+        its weight slot, or a stale hit would pair pages computed under
+        the OLD weights with freshly swapped-in ones. Pages a live slot
+        still reads keep its ref and free when that slot retires. Returns
+        the pages that went back to the free list."""
+        freed: List[int] = []
+        for e in list(self._lru.values()):
+            if e.root == root:
+                freed += self._drop(e)
+        return freed
+
     def drop_all(self) -> List[int]:
         """Drop every entry, releasing the cache's page refs (a page a live
         slot still reads survives until that slot retires). Returns the
@@ -864,7 +913,11 @@ class DecodeEngine:
                  rate_burst_s: float = 2.0,
                  role: str = "mixed",
                  kv_peer_send: Optional[Callable[[bytes], str]] = None,
-                 kv_offload_pages: int = 0):
+                 kv_offload_pages: int = 0,
+                 models: Optional[Dict[str, str]] = None,
+                 weight_slots: int = 0,
+                 model_default: str = "",
+                 model_idle_s: float = 0.0):
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
         if chunk_tokens < 1:
@@ -1052,6 +1105,50 @@ class DecodeEngine:
             raise ValueError(
                 f"adapter_default {self.adapter_default!r} is not a "
                 "configured adapter")
+        # -- multi-model weight pool (serving/weights.py): several whole
+        # checkpoints time-share the engine. The constructor's model is the
+        # DEFAULT, adopted into a permanently pinned slot (its module is
+        # self.model: no second copy).
+        self.model_default = model_default or ""
+        self.model_idle_s = float(model_idle_s)
+        self._wpool = None
+        if models:
+            if self.spec:
+                raise ValueError(
+                    "models= (weight pool) is incompatible with "
+                    "speculative decoding: the layer-truncated draft "
+                    "derives from ONE checkpoint")
+            if self._apool is not None:
+                raise ValueError(
+                    "models= (weight pool) is incompatible with "
+                    "adapters=: the LoRA slot pool factors over ONE "
+                    "base model")
+            if role != "mixed" or kv_peer_send is not None:
+                raise ValueError(
+                    "models= (weight pool) requires role='mixed' with "
+                    "no KV peers: a migrated request's pages would "
+                    "decode under the peer's weights")
+            if not self.model_default:
+                raise ValueError(
+                    "model_default must name the engine's resident "
+                    "model (one of models=)")
+            if self.model_default not in models:
+                raise ValueError(
+                    f"model_default {self.model_default!r} is not a "
+                    "configured model")
+            from .weights import WeightPool
+
+            self._wpool = WeightPool(
+                self.cfg, params,
+                n_slots=int(weight_slots) if weight_slots else len(models),
+                sources=models, name=name, registry=self._reg,
+                on_evict=self._on_model_evict, device=self.device)
+            self._wpool.adopt(self.model_default, self.model, pin=True)
+        elif weight_slots or self.model_default:
+            raise ValueError(
+                "weight_slots/model_default require models= "
+                "(name -> LM export dir)")
+        self._last_idle_sweep = 0.0  # the idle sweep's rate limit
         # Cumulative spec counters (host truth; the registry counters
         # mirror them) and the trailing accept-rate window (read from
         # server threads, appended by the loop: locked).
@@ -1090,6 +1187,9 @@ class DecodeEngine:
         # Per-slot adapter ids (-1 = the base), uploaded with the slot
         # state; a slot holds one AdapterPool pin per id >= 0.
         self._aids = np.full((B,), -1, np.int64)
+        # Per-slot weight-pool slot ids (-1 = no pool); a slot holds one
+        # WeightPool pin per id >= 0.
+        self._wids = np.full((B,), -1, np.int64)
         # Chunked-prefill cursors: slot -> {"req", "full", "n", "next"
         # (absolute index of the next chunk's first token), "key"/
         # "reg_block" (incremental prefix registration), "bucket",
@@ -1215,13 +1315,46 @@ class DecodeEngine:
                 "slots": self._apool.n_slots,
                 "free": self._apool.n_free}
 
+    def weight_stats(self) -> Dict[str, Any]:
+        """Cumulative weight-pool counters (zeros without a pool):
+        artifact swap-ins, evictions, slot capacity, free slots and the
+        resident model names."""
+        if self._wpool is None:
+            return {"loads": 0, "evictions": 0, "slots": 0, "free": 0,
+                    "loaded": []}
+        return {"loads": self._wpool.loads,
+                "evictions": self._wpool.evictions,
+                "slots": self._wpool.n_slots,
+                "free": self._wpool.n_free,
+                "loaded": self._wpool.loaded()}
+
+    def pooled_models(self) -> Dict[str, bool]:
+        """{name: resident?} for every model the pool was configured with
+        ("pooled but unloaded" is an explicit False). Empty without a
+        pool."""
+        if self._wpool is None:
+            return {}
+        loaded = set(self._wpool.loaded())
+        return {m: (m in loaded) for m in sorted(self._wpool.sources)}
+
+    def evict_model(self, name: str) -> bool:
+        """Explicitly evict ``name``'s weights from its pool slot (the
+        operator's scale-to-zero push, or a drain), on the loop thread at
+        an iteration boundary. False when the model is not resident, is
+        worn by in-flight requests, or is the pinned default."""
+        if self._wpool is None:
+            return False
+        return bool(self._run_on_loop(
+            lambda: self._wpool.evict_model(name)))
+
     def hbm_bytes(self) -> Dict[str, int]:
         """Device bytes by owner, counted from the tensors: the target's
         weights, the KV pool (entries, scale planes, position ids), the
         logits buffer, the draft (its pool, and its weights where it has
         its own: an int8 draft; a truncated draft shares the target's),
-        and the adapter stacks. ``total`` over a base-only engine's is
-        the multi-tenant HBM ratio."""
+        the adapter stacks and the pooled models beyond the resident one.
+        ``total`` over a base-only engine's is the multi-tenant HBM
+        ratio."""
         def weights(model):
             return sum(t.numel() * t.element_size()
                        for t in model.state_dict().values())
@@ -1236,7 +1369,12 @@ class DecodeEngine:
                "logits": self._logbuf.numel() * self._logbuf.element_size(),
                "draft": draft,
                "adapters": self._apool.nbytes()
-               if self._apool is not None else 0}
+               if self._apool is not None else 0,
+               # Pooled checkpoints BEYOND the resident default (whose
+               # module is self.model, counted under "params"): the
+               # marginal cost of hosting N models on one engine.
+               "weights": max(0, self._wpool.nbytes() - weights(self.model))
+               if self._wpool is not None else 0}
         out["total"] = sum(out.values())
         return out
 
@@ -1389,6 +1527,9 @@ class DecodeEngine:
             reg.counter("kfx_lm_adapter_requests_total",
                         "Admitted client requests by adapter tenant."
                         ).inc(0, model=self.name, adapter="base")
+        # Weight-pool families, seeded iff the engine HAS a pool.
+        if self._wpool is not None:
+            self._wpool.touch()
         if self.flight is not None:
             reg.gauge("kfx_lm_flight_ring_records",
                       "Iteration records currently held in the flight "
@@ -1506,17 +1647,23 @@ class DecodeEngine:
         return self._apool.draft_layers_views if draft \
             else self._apool.layers
 
+    def _module(self, wid: int):
+        """The decode module of weight slot ``wid`` (-1: the engine's
+        own model)."""
+        return self.model if wid < 0 else self._wpool.module(wid)
+
     def _prefill(self, tokens: Sequence[int], start: int,
                  table: np.ndarray, draft: bool = False,
-                 aid: int = -1) -> torch.Tensor:
+                 aid: int = -1, wid: int = -1) -> torch.Tensor:
         """Run the prompt tail ``tokens`` (absolute positions from
         ``start``; earlier positions are read from the pages ``table``
         maps) right-padded to its power-of-two bucket, writing its K/V
         straight into the pool through ``table`` [L/P] (the draft's pool
         with ``draft``), wearing adapter slot ``aid`` (-1 = the base:
-        prompt KV is adapter KV). Pads carry position -1: their writes go
-        to the sink and they are masked out of every attention. Returns
-        the last real token's logits [V]."""
+        prompt KV is adapter KV) under weight slot ``wid`` (-1 = the
+        engine's model: prompt KV is that model's KV). Pads carry
+        position -1: their writes go to the sink and they are masked out
+        of every attention. Returns the last real token's logits [V]."""
         n = len(tokens)
         P = pow2_bucket(n, self.cfg.max_seq_len)
         tok = np.zeros((1, P), np.int64)
@@ -1524,8 +1671,10 @@ class DecodeEngine:
         ar = np.arange(P)
         pos = np.where(ar < n, start + ar, -1).astype(np.int32)[None]
         dev = self.device
-        model, cache = (self.draft_model, self._draft_cache) if draft \
-            else (self.model, self._cache)
+        if draft:
+            model, cache = self.draft_model, self._draft_cache
+        else:
+            model, cache = self._module(wid), self._cache
         lora = self._lora(draft)
         aids = torch.full((1,), aid, dtype=torch.int64, device=dev) \
             if lora else None
@@ -1592,14 +1741,18 @@ class DecodeEngine:
 
     def _chunk_launch(self) -> torch.Tensor:
         """Enqueue ``chunk_tokens`` decode steps over every slot at fixed
-        shapes. Each step: sample -> stop/emit/active gating -> one token
-        for every slot, inactive slots as a masked dummy (position -1,
-        location -1, so their writes go to the sink) -> the logits carry
-        gated per ACTIVE row (an inactive row's dummy logits must never
-        replace its pending next-token logits) -> writes at the
-        dense-equivalent location. The state is uploaded once and nothing
-        here waits for the device. Returns the packed device result
-        ([k] tokens, [k] emits, position, location, active, produced)."""
+        shapes (``_chunk_steps``) and pack the result for the chunk's one
+        read-back. The state is uploaded once and nothing here waits for
+        the device. The k steps run once per weight group among the
+        active slots: one group (always, without a pool) runs once under
+        ``active`` and is returned as it comes; several run each under
+        the mask ``active &
+        (wids == wid)`` with that group's module: the KV pool and the
+        logits carry chain from one group's run to the next (a masked row
+        writes to the sink and keeps its logits), and position, location,
+        active, produced and the emitted tokens merge under each group's
+        mask on the device. Returns the packed device result ([k] tokens,
+        [k] emits, position, location, active, produced)."""
         dev, k = self.device, self.chunk_tokens
         live = self._active
         sampled = bool((self._temp[live] > 0).any())
@@ -1607,15 +1760,64 @@ class DecodeEngine:
         state = torch.from_numpy(np.stack([
             self._pos, self._loc, self._active.astype(np.int64),
             self._produced, self._topk, self._stop, self._max_new,
-            self._seeds, self._aids])).to(dev)
-        pos, loc, active, produced, topk, stop, max_new, seeds, aids = state
-        lora = self._lora()
+            self._seeds, self._aids, self._wids])).to(dev)
+        pos, loc, active, produced, topk, stop, max_new, seeds, aids, \
+            wids = state
         active = active.bool()
-        temp = torch.from_numpy(self._temp).to(dev)
-        tables = torch.from_numpy(self._tables).to(dev)
+        knobs = dict(temp=torch.from_numpy(self._temp).to(dev), topk=topk,
+                     stop=stop, max_new=max_new, seeds=seeds, aids=aids,
+                     tables=torch.from_numpy(self._tables).to(dev),
+                     sampled=sampled, with_topk=with_topk)
+        # One run a weight group among the live slots; an engine without
+        # a pool (every wid -1) is one group, its own model.
+        groups = sorted({int(w) for w in self._wids[live]}) or [-1]
+        if len(groups) == 1:
+            toks, emits, pos, loc, active, produced, self._logbuf = \
+                self._chunk_steps(self._module(groups[0]), pos, loc, active,
+                                  produced, self._logbuf, **knobs)
+            return torch.cat([toks, emits.long(),
+                              torch.stack([pos, loc, active.long(),
+                                           produced])])
+        toks_all = torch.zeros(k, self.n_slots, dtype=torch.int64,
+                               device=dev)
+        emits_all = torch.zeros(k, self.n_slots, dtype=torch.bool,
+                                device=dev)
+        out_pos, out_loc = pos, loc
+        out_active, out_produced = active, produced
         logits = self._logbuf
+        for wid in groups:
+            gmask = active & (wids == wid)
+            toks, emits, g_pos, g_loc, g_active, g_produced, logits = \
+                self._chunk_steps(self._module(wid), pos, loc, gmask,
+                                  produced, logits, **knobs)
+            # Each slot's state advances once, in its own group's run;
+            # another group's verdicts for it are artifacts of the mask.
+            out_pos = torch.where(gmask, g_pos, out_pos)
+            out_loc = torch.where(gmask, g_loc, out_loc)
+            out_active = torch.where(gmask, g_active, out_active)
+            out_produced = torch.where(gmask, g_produced, out_produced)
+            # Emits are active-gated, so groups never overlap.
+            toks_all = torch.where(emits, toks, toks_all)
+            emits_all = emits_all | emits
+        self._logbuf = logits
+        return torch.cat([toks_all, emits_all.long(),
+                          torch.stack([out_pos, out_loc, out_active.long(),
+                                       out_produced])])
+
+    def _chunk_steps(self, model, pos, loc, active, produced, logits, *,
+                     temp, topk, stop, max_new, seeds, aids, tables,
+                     sampled, with_topk):
+        """The k decode steps of one chunk through ``model`` for the rows
+        in ``active``. Each step: sample -> stop/emit/active gating -> one
+        token for every slot, inactive rows as a masked dummy (position
+        -1, location -1, so their writes go to the sink) -> the logits
+        carry gated per ACTIVE row (an inactive row's dummy logits must
+        never replace its pending next-token logits) -> writes at the
+        dense-equivalent location. Returns ([k, B] tokens, [k, B] emits,
+        position, location, active, produced, logits), on the device."""
+        lora = self._lora()
         toks, emits = [], []
-        for _ in range(k):
+        for _ in range(self.chunk_tokens):
             tok = sample_slots(logits, temp, topk, seeds, produced,
                                sampled, with_topk)
             is_stop = (stop >= 0) & (tok == stop)
@@ -1626,18 +1828,17 @@ class DecodeEngine:
             feed = torch.where(active, tok, 0)
             eff_pos = torch.where(active, pos, -1).int()
             eff_loc = torch.where(active, loc, -1).int()
-            out = self.model(feed[:, None], eff_pos[:, None], self._cache,
-                             tables, eff_loc[:, None], lora=lora,
-                             adapter_ids=aids)[:, 0]
+            out = model(feed[:, None], eff_pos[:, None], self._cache,
+                        tables, eff_loc[:, None], lora=lora,
+                        adapter_ids=aids)[:, 0]
             logits = torch.where(active[:, None], out, logits)
             pos = torch.where(active, pos + 1, pos)
             loc = torch.where(active, loc + 1, loc)
             active = emit & (produced < max_new)
             toks.append(tok)
             emits.append(emit)
-        self._logbuf = logits
-        return torch.cat([torch.stack(toks), torch.stack(emits).long(),
-                          torch.stack([pos, loc, active.long(), produced])])
+        return (torch.stack(toks), torch.stack(emits), pos, loc, active,
+                produced, logits)
 
     def _chunk_collect(self, packed: torch.Tensor
                        ) -> Tuple[np.ndarray, np.ndarray]:
@@ -1657,7 +1858,8 @@ class DecodeEngine:
                       tenant: Optional[str] = None,
                       adapter: Optional[str] = None,
                       qos: Optional[str] = None,
-                      deadline_s: Optional[float] = None) -> Request:
+                      deadline_s: Optional[float] = None,
+                      model: Optional[str] = None) -> Request:
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("prompt must be non-empty")
@@ -1682,6 +1884,19 @@ class DecodeEngine:
             raise ValueError(
                 f"unknown adapter {name!r} (configured: "
                 f"{sorted(self._apool.sources) if self._apool else []})")
+        # Model selection (weight pool): the named model, else the
+        # resident default ("" too). An unknown name is a client mistake
+        # (-> 400), never a 503: the pool pages only what it was told of.
+        mdl = str(model or "")
+        if mdl:
+            if self._wpool is None:
+                raise ValueError(
+                    "per-request model selection requires a weight "
+                    "pool (models= in the engine spec)")
+            if not self._wpool.known(mdl):
+                raise ValueError(
+                    f"unknown model {mdl!r} (pooled: "
+                    f"{sorted(self._wpool.sources)})")
         # QoS class: the request's, else the engine default; an unknown
         # class is a client mistake (-> 400).
         cls = qos if qos is not None else self.qos_default
@@ -1702,7 +1917,8 @@ class DecodeEngine:
         req = Request(prompt, int(max_new_tokens), float(temperature),
                       int(top_k), int(seed),
                       -1 if stop_token is None else int(stop_token),
-                      adapter=name, qos=cls, deadline=deadline)
+                      adapter=name, qos=cls, deadline=deadline,
+                      model=mdl)
         # Billable tenant: the client's explicit key, else the adapter's
         # tenant ("" counts as absent).
         if tenant:
@@ -1834,7 +2050,8 @@ class DecodeEngine:
                on_token: Optional[Callable[[Optional[int]], None]] = None,
                tenant: Optional[str] = None, meter_skip: int = 0,
                adapter: Optional[str] = None, qos: Optional[str] = None,
-               deadline_s: Optional[float] = None) -> Request:
+               deadline_s: Optional[float] = None,
+               model: Optional[str] = None) -> Request:
         """Enqueue one prompt; returns the request handle (wait with
         ``.result(timeout)``). ``on_token`` is the streaming sink, called
         on the loop thread with each token id as it lands, then None at
@@ -1842,14 +2059,16 @@ class DecodeEngine:
         adapter's) and ``meter_skip`` the leading tokens a recovery
         re-dispatch regenerates, billed by the replica that streamed
         them; ``adapter`` names a configured LoRA adapter (None = the
-        engine's default, "" = the base); ``qos`` overrides the engine's
+        engine's default, "" = the base); ``model`` names a pooled model
+        (None or "" = the pool's default); ``qos`` overrides the engine's
         class default and ``deadline_s`` its deadline default. Raises
         EngineOverloaded when the bounded admission queue is full, and
         its DeadlineInfeasible / RateLimited subclasses when admission
         policy sheds the request."""
         req = self._make_request(prompt, max_new_tokens, temperature,
                                  top_k, seed, stop_token, tenant, adapter,
-                                 qos=qos, deadline_s=deadline_s)
+                                 qos=qos, deadline_s=deadline_s,
+                                 model=model)
         # Set before enqueue: even an instant retirement bills it right.
         req.meter_skip = max(int(meter_skip), 0)
         req.on_token = on_token
@@ -1862,14 +2081,16 @@ class DecodeEngine:
                  stop_token: Optional[int] = None,
                  tenant: Optional[str] = None,
                  adapter: Optional[str] = None, qos: Optional[str] = None,
-                 deadline_s: Optional[float] = None) -> List[List[int]]:
+                 deadline_s: Optional[float] = None,
+                 model: Optional[str] = None) -> List[List[int]]:
         """Blocking convenience mirroring LMGenerator.generate: one
         request per prompt (seeded seed+i), results in prompt order; one
         deadline covers the whole batch: ``deadline_s`` when given, else
         ``request_timeout_s``."""
         reqs = self.submit_batch(prompts, max_new_tokens, temperature,
                                  top_k, seed, stop_token, tenant, adapter,
-                                 qos=qos, deadline_s=deadline_s)
+                                 qos=qos, deadline_s=deadline_s,
+                                 model=model)
         wait_s = deadline_s if deadline_s else self.request_timeout_s
         deadline = time.monotonic() + wait_s
         return [r.result(max(0.001, deadline - time.monotonic()))
@@ -1882,12 +2103,14 @@ class DecodeEngine:
                      tenant: Optional[str] = None,
                      adapter: Optional[str] = None,
                      qos: Optional[str] = None,
-                     deadline_s: Optional[float] = None) -> List[Request]:
+                     deadline_s: Optional[float] = None,
+                     model: Optional[str] = None) -> List[Request]:
         """``generate`` minus the blocking wait: one request per prompt
         (seeded seed+i), enqueued atomically, handles returned."""
         reqs = [self._make_request(p, max_new_tokens, temperature, top_k,
                                    seed + i, stop_token, tenant, adapter,
-                                   qos=qos, deadline_s=deadline_s)
+                                   qos=qos, deadline_s=deadline_s,
+                                   model=model)
                 for i, p in enumerate(prompts)]
         self._enqueue(reqs)
         return reqs
@@ -1932,6 +2155,12 @@ class DecodeEngine:
             # pages out only under slot pressure).
             self._apool.release(aid)
         self._aids[slot] = -1
+        wid = int(self._wids[slot])
+        if wid >= 0 and self._wpool is not None:
+            # Unpin the slot's model; its weights stay resident (LRU evicts
+            # only under slot pressure or the idle sweep).
+            self._wpool.release(wid)
+        self._wids[slot] = -1
 
     def _release_draft(self, slot: int) -> None:
         """Return a slot's draft pages (slot-private: they free whole)
@@ -2163,7 +2392,12 @@ class DecodeEngine:
         sender), and finish the local copy with RequestMigrated once the
         peer acknowledged. The local copy keeps decoding until then, so a
         severed transfer (the ``kv.transfer`` chaos point) loses nothing.
-        Returns {"moved", "failed", "pages"}."""
+        Returns {"moved", "failed", "pages"}. A weight-pool engine
+        refuses: its pages would decode under the peer's weights."""
+        if self._wpool is not None:
+            raise ValueError(
+                f"engine {self.name} hosts a weight pool: migrated "
+                "pages would decode under the peer's weights")
         send = send if send is not None else self._peer_send
         if send is None:
             raise ValueError(
@@ -2241,7 +2475,12 @@ class DecodeEngine:
         iteration boundary, restoring the donor's slot state (mid-decode)
         or prefill cursor (mid-chunking). Returns the live Request. Raises
         TransferError / TransferCorrupt (nothing imported) or
-        EngineOverloaded (no slot or pages: the donor keeps it)."""
+        EngineOverloaded (no slot or pages: the donor keeps it). A
+        weight-pool engine refuses every import (TransferError)."""
+        if self._wpool is not None:
+            raise kvtransfer.TransferError(
+                f"engine {self.name} hosts a weight pool: imported "
+                "pages would decode under a different model's weights")
         chaos.fail_or_delay("kv.transfer", kvtransfer.TransferCorrupt,
                             self.name, target=self.name)
         header, frames = kvtransfer.decode(raw)
@@ -2357,7 +2596,7 @@ class DecodeEngine:
             n, ps = len(full), self.page_size
             # Register the imported PROMPT pages in the local prefix cache:
             # a migration carries its share of the fleet cache along.
-            root = self._root_for(req, aid)
+            root = self._root_for(req, aid)   # a pool refuses imports
             key = root
             covered = len(req.prompt) // ps
             if phase == "prefill":
@@ -2547,6 +2786,11 @@ class DecodeEngine:
                 while (not self._stopped and not self._queue
                        and self._active_count() == 0
                        and not self._control):
+                    # A weight pool with an idle window keeps ticking while
+                    # parked, or an idle engine would never run the sweep.
+                    if self._wpool is not None and self.model_idle_s > 0:
+                        self._cond.wait(timeout=min(1.0, self.model_idle_s))
+                        break
                     self._cond.wait()
                 if self._stopped:
                     return
@@ -2555,6 +2799,9 @@ class DecodeEngine:
                 # installs, detaches): slot-state surgery at a quiesced
                 # iteration boundary, like admission.
                 self._service_control()
+                # Replica-side scale-to-zero: models idle past
+                # model_idle_s leave their weight slots here.
+                self._maybe_evict_idle()
                 # Prefill dispatch time (a monolithic admission's, or this
                 # iteration's one prompt chunk) is decode stall only when
                 # active decode slots existed to be stalled by it.
@@ -2596,6 +2843,19 @@ class DecodeEngine:
                 self._fail_inflight(e)  # requests, never the engine;
                 time.sleep(0.01)        # KeyboardInterrupt/SystemExit
                 #                         propagate (shutdown)
+
+    def _maybe_evict_idle(self) -> None:
+        """The weight pool's idle sweep (loop thread, iteration boundary,
+        at most about once a second): every ref-0 model idle past
+        ``model_idle_s`` drops its slot; the next acquire undoes it with
+        a measured swap. The resident default stays warm."""
+        if self._wpool is None or self.model_idle_s <= 0:
+            return
+        now = time.monotonic()
+        if now - self._last_idle_sweep < min(1.0, self.model_idle_s):
+            return
+        self._last_idle_sweep = now
+        self._wpool.evict_idle(self.model_idle_s, keep=self.model_default)
 
     def _record_flight(self) -> None:
         """Append this iteration's flight record (loop thread, end of the
@@ -2686,12 +2946,22 @@ class DecodeEngine:
         # pressure. An admission that does not place the request releases
         # the pin (unless _fail_inflight already dropped every pin).
         aid = self._resolve_adapter(req)
+        wid = -1
         try:
-            self._admit_resolved(req, slot, aid)
+            # The weight slot resolves on the same contract, before any
+            # page work (prompt KV is decoded under these weights):
+            # WeightSlotError requeues like page pressure; WeightLoadError
+            # fails this request through _admit_ready (503 + Retry-After,
+            # never the wrong weights).
+            wid = self._resolve_model(req)
+            self._admit_resolved(req, slot, aid, wid)
         finally:
             if aid >= 0 and self._slots[slot] is not req \
                     and self._apool.ref[aid] > 0:
                 self._apool.release(aid)
+            if wid >= 0 and self._slots[slot] is not req \
+                    and self._wpool.ref[wid] > 0:
+                self._wpool.release(wid)
 
     def _resolve_adapter(self, req: Request) -> int:
         """The request's adapter slot for this admission: acquire (paging
@@ -2716,15 +2986,40 @@ class DecodeEngine:
                     1, model=self.name)
             return -1
 
-    @staticmethod
-    def _root_for(req: Request, aid: int) -> bytes:
-        """The prefix-cache chain root of an admission: the RESOLVED
-        adapter's name (cached pages hold adapter KV, so the same tokens
-        under two adapters never share a page), "" for the base, a
+    def _resolve_model(self, req: Request) -> int:
+        """The request's weight-pool slot for this admission: acquire (and
+        swap in, if needed) its named model, or the engine's resident
+        default, pinning the slot for the request's residency. There is
+        NO fallback: a load failure propagates as WeightLoadError (503 +
+        Retry-After). WeightSlotError (every slot worn by in-flight work)
+        is pool pressure, handled like KV-page exhaustion. -1 without a
+        pool."""
+        if self._wpool is None:
+            return -1
+        return self._wpool.acquire(req.model or self.model_default)
+
+    def _on_model_evict(self, name: str, root: bytes) -> None:
+        """Weight-pool eviction hook (loop thread, fired BEFORE the slot
+        can be refilled): drop the evicted model's prefix chains, so a
+        stale hit can never pair with freshly swapped-in weights.
+        Host-offloaded pages need no sweep: their chain keys fold the
+        per-load generation, so a reloaded model can never match them."""
+        if self._prefix is not None:
+            self._prefix.drop_root(root)
+
+    def _root_for(self, req: Request, aid: int, wid: int = -1) -> bytes:
+        """The prefix-cache chain root of an admission. Under a weight pool
+        it is the slot's ``name@generation`` (fresh per load, so chains
+        built against evicted weights never match again); otherwise the
+        RESOLVED adapter's name (cached pages hold adapter KV, so the same
+        tokens under two adapters never share a page), "" for the base, a
         request that fell back to the base included."""
+        if wid >= 0:
+            return self._wpool.root(wid)
         return req.adapter.encode() if (req.adapter and aid >= 0) else b""
 
-    def _admit_resolved(self, req: Request, slot: int, aid: int) -> None:
+    def _admit_resolved(self, req: Request, slot: int, aid: int,
+                        wid: int = -1) -> None:
         L, ps = self.cfg.max_seq_len, self.page_size
         # Recompute continuation: a preempted request re-prefills prompt +
         # already-generated (the same values incremental decode wrote) and
@@ -2740,7 +3035,7 @@ class DecodeEngine:
         bucket = pow2_bucket(n, L - remaining)
         # Shared-prefix reuse, capped at n-1: the last prompt token must
         # run through the model for the next-token logits.
-        root = self._root_for(req, aid)
+        root = self._root_for(req, aid, wid)
         shared: List[int] = []
         cow = None
         matched = 0
@@ -2759,7 +3054,7 @@ class DecodeEngine:
                 len(tail) > self.prefill_chunk_tokens:
             return self._admit_chunked(req, slot, full, n, remaining,
                                        bucket, shared, cow, matched, key,
-                                       aid, root)
+                                       aid, root, wid)
         first_own = len(shared)  # COW lands in the first owned block
         # The matched pages (and the COW source) are pinned FIRST:
         # _alloc_pages reclaims LRU cache pages, and an unpinned
@@ -2793,7 +3088,7 @@ class DecodeEngine:
                 if cow is not None:
                     self._copy_page(int(row[first_own]), cow[0], cow[1])
                 self._logbuf[slot] = self._prefill(tail, matched, row,
-                                                   aid=aid)
+                                                   aid=aid, wid=wid)
             except Exception:
                 self._mgr.decref(pinned + pages)
                 raise
@@ -2818,6 +3113,7 @@ class DecodeEngine:
                     h, full[(n // ps) * ps:n], int(row[n // ps]),
                     root=root)
         self._aids[slot] = aid    # the slot owns the adapter pin now
+        self._wids[slot] = wid    # ...and the weight-pool pin
         self._slots[slot] = req
         self._activate(slot, req, full, bucket, remaining)
 
@@ -2930,7 +3226,7 @@ class DecodeEngine:
                        n: int, remaining: int, bucket: int,
                        shared: List[int], cow, matched: int,
                        key: bytes, aid: int = -1,
-                       root: bytes = b"") -> None:
+                       root: bytes = b"", wid: int = -1) -> None:
         """Chunked admission: place the request in the slot WITHOUT a
         prompt dispatch — pin the matched prefix pages (and clone the COW
         boundary page), count the admission as the monolithic path does,
@@ -2959,6 +3255,7 @@ class DecodeEngine:
         self._slot_pages[slot] = shared + own
         self._active[slot] = False
         self._aids[slot] = aid    # the slot owns the adapter pin now
+        self._wids[slot] = wid    # ...and the weight-pool pin
         self._slots[slot] = req
         self._prefilling[slot] = {
             "req": req, "full": full, "n": n, "next": matched,
@@ -3022,7 +3319,8 @@ class DecodeEngine:
             try:
                 self._logbuf[slot] = self._prefill(
                     cur["full"][start:start + length], start,
-                    self._tables[slot], aid=int(self._aids[slot]))
+                    self._tables[slot], aid=int(self._aids[slot]),
+                    wid=int(self._wids[slot]))
             except Exception as e:
                 self._abort_prefill(slot, e)
                 return
@@ -3523,6 +3821,12 @@ class DecodeEngine:
             # have corrupted them).
             self._apool.release_all()
         self._aids[:] = -1
+        if self._wpool is not None:
+            # Same for pooled weights: a dispatch only reads a slot's
+            # module, so only the request pins drop (the pinned default is
+            # not refcounted and stays unevictable).
+            self._wpool.release_all()
+        self._wids[:] = -1
         self._active[:] = False
         self._tables[:, :] = -1
         self._slot_pages = [[] for _ in range(self.n_slots)]

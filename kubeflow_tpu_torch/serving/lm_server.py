@@ -81,9 +81,16 @@ adopts a migrated generation and indexes it by its resume key, so the
 re-dispatched ``:generate`` body attaches to it instead of recomputing;
 ``migrate_to`` pushes every in-flight generation to a peer.
 
-The weight pool is not ported: ``KFX_LM_MODELS`` raises
-``NotImplementedError`` naming ROADMAP.md Queue A 5b.8, and the body
-field ``model`` is a 400.
+The multi-model weight pool (serving/weights.py), as in the reference:
+``KFX_LM_MODELS`` is a JSON object ``{name: LM export URI}`` of
+same-architecture checkpoints time-sharing the engine,
+``KFX_LM_MODEL_DEFAULT`` names the resident one (the model ``model_dir``
+points at; required with ``KFX_LM_MODELS``), ``KFX_LM_WEIGHT_SLOTS`` sizes
+the slot pool (0 = one slot a model) and ``KFX_LM_WEIGHT_IDLE_S`` > 0
+evicts models idle that long (the default stays warm). Speculation is
+off with a pool. The body field ``model`` selects one (absent = the
+default; unknown or non-string = 400; one-shot path 400); a failed swap
+(the ``weights.load`` chaos point included) answers 503 + Retry-After.
 
 Tokenization is caller-side.
 """
@@ -114,7 +121,6 @@ from .server import Predictor
 CONFIG_FILE = "lm_config.json"
 PARAMS_FILE = "params.msgpack"
 
-_ENGINE = "ROADMAP.md Queue A 5b.8, the weight pool"
 # The router's backend timeout: a request's result wait stays under it, so
 # a queue-starved request fails with an engine error, never a router 502.
 _BACKEND_TIMEOUT_S = 60.0
@@ -170,16 +176,6 @@ def is_lm_export(model_dir: str) -> bool:
     return os.path.exists(os.path.join(model_dir, CONFIG_FILE))
 
 
-def _refuse_engine_knobs() -> None:
-    """Raise on an explicitly set knob of an engine extension the port
-    does not have yet (ROADMAP.md Queue A 5b), naming its item."""
-    value = os.environ.get("KFX_LM_MODELS", "")
-    if value not in ("", "{}"):
-        raise NotImplementedError(
-            f"KFX_LM_MODELS={value!r}: the weight pool is not ported yet "
-            "(ROADMAP.md Queue A 5b.8); unset it")
-
-
 class _RateWindow:
     """Sliding-window token-rate tracker: ``kfx_lm_tokens_per_second``
     is tokens counted over the trailing window, not the last call's
@@ -222,7 +218,6 @@ class LMPredictor(Predictor):
     def __init__(self, model_dir: str, name: str = "",
                  max_batch_size: int = 8, device: str = "cuda",
                  warm_buckets: Optional[Sequence[int]] = None):
-        _refuse_engine_knobs()
         env = os.environ.get
         self.model_dir = model_dir
         self.name = name or "model"
@@ -298,6 +293,24 @@ class LMPredictor(Predictor):
             raise ValueError("KFX_LM_KV_PEERS must be a JSON list of URLs")
         self.kv_offload_pages = int(env("KFX_LM_KV_OFFLOAD_PAGES", "0"))
         self.set_kv_peers(self.kv_peers)
+        # Multi-model weight pool: {name: LM export URI} of checkpoints
+        # time-sharing this engine (a body selects one with "model"); the
+        # resident default (the model model_dir points at); the slot count
+        # (0 = one slot a model); the idle eviction window (0 = never).
+        try:
+            self.models = json.loads(env("KFX_LM_MODELS", "") or "{}")
+        except ValueError as e:
+            raise ValueError(
+                f"KFX_LM_MODELS is not valid JSON: {e}") from e
+        if not isinstance(self.models, dict) or any(
+                not isinstance(k, str) or not isinstance(v, str)
+                for k, v in self.models.items()):
+            raise ValueError(
+                "KFX_LM_MODELS must be a JSON object "
+                "{name: LM export dir}")
+        self.model_default = env("KFX_LM_MODEL_DEFAULT", "")
+        self.weight_slots = int(env("KFX_LM_WEIGHT_SLOTS", "0"))
+        self.model_idle_s = float(env("KFX_LM_WEIGHT_IDLE_S", "0"))
         # The adopted generations by resume key.
         self._resume: Dict[str, Dict[str, Any]] = {}
         self._resume_lock = threading.Lock()
@@ -337,7 +350,9 @@ class LMPredictor(Predictor):
             # target (at least 1), always shallower than the target: a
             # 1-layer model has nothing to truncate, so it runs without.
             draft = 0
-            if self.spec and cfg.n_layers > 1:
+            if self.spec and cfg.n_layers > 1 and not self.models:
+                # A weight pool excludes speculation (the draft derives
+                # from one checkpoint): off rather than a failed start.
                 draft = self.spec_layers or max(1, cfg.n_layers // 4)
                 draft = min(draft, cfg.n_layers - 1)
             # registry as a thunk: register() swaps self.metrics for the
@@ -373,7 +388,12 @@ class LMPredictor(Predictor):
                 kv_peer_send=(self._kv_send
                               if (self.kv_peers or self.role == "prefill")
                               else None),
-                kv_offload_pages=max(0, self.kv_offload_pages))
+                kv_offload_pages=max(0, self.kv_offload_pages),
+                models=self.models or None,
+                weight_slots=(max(0, self.weight_slots)
+                              if self.models else 0),
+                model_default=(self.model_default if self.models else ""),
+                model_idle_s=max(0.0, self.model_idle_s))
             self._attach_usage()
             buckets = self.warm_buckets or self._engine.prompt_buckets
             # The first bucket and a decode step warm synchronously
@@ -467,6 +487,29 @@ class LMPredictor(Predictor):
         if self._engine is None or self._engine.flight is None:
             return None
         return self._engine.flight.requests()
+
+    def pooled_models(self) -> Dict[str, bool]:
+        """{model name: resident?} over the weight pool's full source set
+        (empty without a pool). A name mapped to False is "pooled but
+        unloaded": servable after one measured swap, so readiness reports
+        it available rather than missing."""
+        if self._engine is None:
+            return {}
+        return self._engine.pooled_models()
+
+    def weight_stats(self) -> Optional[Dict[str, Any]]:
+        """Weight-pool occupancy counters (None on the one-shot path)."""
+        if self._engine is None:
+            return None
+        return self._engine.weight_stats()
+
+    def evict_model(self, name: str) -> bool:
+        """Operator scale-to-zero push: drop ``name``'s weight slot if it
+        is idle (refcount 0, not the pinned default). False when unknown,
+        not resident, or held by in-flight requests."""
+        if self._engine is None:
+            return False
+        return self._engine.evict_model(name)
 
     def drain(self, wait_s: float = 0.0) -> bool:
         """Stop admitting and wait up to ``wait_s`` for in-flight
@@ -610,9 +653,6 @@ class LMPredictor(Predictor):
             if v is not None and self._engine is None:
                 raise ValueError(f"{field} selection requires the engine "
                                  "path (KFX_LM_ENGINE=1)")
-        if body.get("model") is not None:
-            raise ValueError("model selection needs the weight pool, not "
-                             f"ported yet ({_ENGINE})")
         qos = body.get("qos")
         if qos is not None and not isinstance(qos, str):
             raise ValueError("qos must be a string class name")
@@ -631,6 +671,7 @@ class LMPredictor(Predictor):
             "stop": stop,
             "tenant": tenant or None,
             "adapter": body.get("adapter"),
+            "model": body.get("model"),
             "qos": qos,
             "deadline_s": (float(deadline_ms) / 1000.0
                            if deadline_ms is not None else None),
@@ -686,7 +727,8 @@ class LMPredictor(Predictor):
                 reqs = self._engine.submit_batch(
                     p["prompts"], stop_token=p["stop"], tenant=p["tenant"],
                     adapter=p["adapter"], qos=p["qos"],
-                    deadline_s=p["deadline_s"], **p["kw"])
+                    deadline_s=p["deadline_s"], model=p["model"],
+                    **p["kw"])
             deadline = time.monotonic() + self._wait_budget_s(
                 p["deadline_s"])
             out = [r.result(max(0.001, deadline - time.monotonic()))
@@ -749,7 +791,7 @@ class LMPredictor(Predictor):
                                   on_token=q.put, tenant=p["tenant"],
                                   meter_skip=skip, adapter=p["adapter"],
                                   qos=p["qos"], deadline_s=p["deadline_s"],
-                                  **p["kw"])
+                                  model=p["model"], **p["kw"])
         return self._stream_events(req, q, skip, budget_s)
 
     @staticmethod

@@ -14,6 +14,10 @@ behind the ``MicroBatcher``).
                                            the decode engines' load block)
     GET  /v1/models                     -> {"models": [...]}
     GET  /v1/models/{m}                 -> {"name": m, "ready": true}
+                                           (+ "pooledModels" on a weight
+                                           pool's host; a pooled name ->
+                                           {"pooled": true, "loaded",
+                                           "host"})
     POST /v1/models/{m}:generate        -> {"generated_tokens": [...], ...}
                                            ("stream": true -> SSE)
     POST /v1/models/{m}:predict         -> {"predictions": [...]} (and
@@ -29,6 +33,8 @@ behind the ``MicroBatcher``).
     POST /v1/models/{m}:migrate?peer=URL[&reason=R]
                                         -> {"moved", "failed", "pages"}
     POST /v1/models/{m}:kvpeers         -> {"peers": n} (body: JSON list)
+    POST /v1/models/{m}:evict           -> {"model", "evicted"} (body:
+                                           {"model": pooled name})
     POST /drain[?wait_s=S]              -> {"draining": true, "drained": b}
 
 /drain is the operator's pre-kill hook: readiness flips false, new
@@ -46,9 +52,11 @@ header, and each ``/healthz`` writes the newest flight snapshot to
 once every ``KFX_FLIGHT_SNAP_S`` seconds, default 1, "0" off). The
 ``serving.predict`` chaos point answers 500 ``chaos[serving.predict]:
 <model>`` on ``:predict`` (the reference's site) and on ``:generate``,
-and ``/metrics`` carries ``kfx_chaos_injected_total``. The reference's
-weight-pool route ``:evict`` is not ported yet (ROADMAP.md Queue A 5b.8),
-nor are its PyTorch, TensorFlow and scikit-learn predictors (Queue A 9).
+and ``/metrics`` carries ``kfx_chaos_injected_total``. ``:evict`` is the
+operator's scale-to-zero push into a weight pool (serving/weights.py):
+best-effort, a slot worn by in-flight requests (or the pinned default)
+stays and the answer says so. The reference's PyTorch, TensorFlow and
+scikit-learn predictors are not ported yet (ROADMAP.md Queue A 9).
 
     python -m kubeflow_tpu_torch.serving.server --model-dir EXPORT \\
         [--device cpu] [--batcher-max-latency-ms 5]
@@ -486,10 +494,23 @@ class ModelServer:
                               ("kfx_lm_adapter_slots", "adapter_slots"),
                               ("kfx_lm_adapter_slots_free",
                                "adapter_slots_free"),
+                              ("kfx_lm_weight_slots", "weight_slots"),
+                              ("kfx_lm_weight_slots_free",
+                               "weight_slots_free"),
+                              ("kfx_lm_weight_models_loaded",
+                               "weight_models_loaded"),
                               ("kfx_lm_spec_accept_rate",
                                "spec_accept_rate")):
             for labels, value in self.metrics.gauge(family).samples():
                 out.setdefault(labels.get("model", ""), {})[field] = value
+        # Per-model weight-pool residency flattened into {name: loaded?}
+        # ("pooled but unloaded" is False, never an absent name).
+        for labels, value in self.metrics.gauge(
+                "kfx_lm_weight_model_loaded").samples():
+            pooled = labels.get("pooled", "")
+            if pooled:
+                out.setdefault(labels.get("model", ""), {}).setdefault(
+                    "pooled", {})[pooled] = bool(value)
         # The quantization info gauge's labels as the `kfx top` Q-column
         # string ("w8", "kv8", "w8+kv8", "d8" or "f32").
         for labels, _ in self.metrics.gauge("kfx_lm_quant_mode").samples():
@@ -612,11 +633,27 @@ class ModelServer:
             name = path[len("/v1/models/"):]
             p = self.predictors.get(name)
             if p is None:
+                # A pooled model resolves to the predictor hosting its
+                # weight pool: "pooled but unloaded" is ready after one
+                # swap at admission, not a 404.
+                for host in self.predictors.values():
+                    pooled = getattr(host, "pooled_models", lambda: {})()
+                    if name in pooled:
+                        h._send(200, {
+                            "name": name,
+                            "ready": host.ready and not self.draining,
+                            "pooled": True,
+                            "loaded": bool(pooled[name]),
+                            "host": host.name})
+                        return
                 h._send(404, {"error": f"model {name!r} not found"})
             else:
                 # A draining server is deliberately not ready.
-                h._send(200, {"name": name,
-                              "ready": p.ready and not self.draining})
+                body = {"name": name, "ready": p.ready and not self.draining}
+                pooled = getattr(p, "pooled_models", lambda: {})()
+                if pooled:
+                    body["pooledModels"] = pooled
+                h._send(200, body)
         else:
             h._send(404, {"error": f"no route {path}"})
 
@@ -664,6 +701,9 @@ class ModelServer:
                 return
         if route.startswith("/v1/models/") and route.endswith(":kvpeers"):
             self._handle_kvpeers(h, route[len("/v1/models/"):-len(":kvpeers")])
+            return
+        if route.startswith("/v1/models/") and route.endswith(":evict"):
+            self._handle_evict(h, route[len("/v1/models/"):-len(":evict")])
             return
         h._send(404, {"error": f"no route {path}"})
 
@@ -901,6 +941,32 @@ class ModelServer:
             h._send(400, {"error": str(e)})
             return
         h._send(200, {"peers": len(p.kv_peers)})
+
+    def _handle_evict(self, h, name: str) -> None:
+        """Operator scale-to-zero push: drop an idle pooled model's weight
+        slot (body: {"model": name}). Best-effort: a slot held by in-flight
+        requests (or the pinned default) stays resident and the answer
+        says so, for the operator to retry on its next reconcile."""
+        p = self.predictors.get(name)
+        if p is None:
+            h._send(404, {"error": f"model {name!r} not found"})
+            return
+        if not getattr(p, "pooled_models", lambda: {})():
+            h._send(400, {"error": f"model {name!r} does not host a "
+                                   "weight pool"})
+            return
+        try:
+            n = int(h.headers.get("Content-Length", 0))
+            body = json.loads(h.rfile.read(n).decode() or "{}")
+            target = body.get("model", "")
+        except (ValueError, UnicodeDecodeError, AttributeError) as e:
+            h._send(400, {"error": str(e)})
+            return
+        if not isinstance(target, str) or not target:
+            h._send(400, {"error": "body must carry a model name"})
+            return
+        h._send(200, {"model": target,
+                      "evicted": bool(p.evict_model(target))})
 
     def _send_sse(self, h, events) -> None:
         """Stream SSE events over a chunked HTTP/1.1 response. The

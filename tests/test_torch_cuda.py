@@ -276,9 +276,10 @@ def cuda_serving():
     return torch.device("cuda")
 
 
-def _tiny_gapped_lm(device):
+def _tiny_gapped_lm(device, seed=0):
     """A tiny f32 LM on ``device`` with wide argmax gaps (lm_head tied to
-    the embedding, attn.out and mlp.wo scaled by 0.35)."""
+    the embedding, attn.out and mlp.wo scaled by 0.35), drawn from
+    ``seed``."""
     from kubeflow_tpu_torch.models.transformer import (
         TransformerConfig, TransformerLM)
 
@@ -286,7 +287,7 @@ def _tiny_gapped_lm(device):
                             head_dim=16, n_layers=2, d_ff=64, max_seq_len=64,
                             dtype="float32", attn_impl="naive")
     model = TransformerLM(cfg, device=device,
-                          generator=torch.Generator(device).manual_seed(0))
+                          generator=torch.Generator(device).manual_seed(seed))
     with torch.no_grad():
         model.lm_head.kernel.copy_(model.embed.embedding.T)
         for layer in model.layers:
@@ -801,5 +802,125 @@ def test_offload_tier_round_trip_on_cuda(cuda_kv):
         assert eng.generate([prompts[0]], max_new_tokens=8)[0] == firsts[0]
         page = eng._prefix.full[key].page
         assert eng._run_on_loop(lambda: eng._page_payload(page)) == demoted
+    finally:
+        eng.close()
+
+
+@pytest.fixture
+def cuda_pool():
+    if not torch.cuda.is_available():
+        pytest.skip("the weight pool's swaps to the card (WeightPool, the "
+                    "DecodeEngine's grouped dispatch) need an NVIDIA GPU; "
+                    "torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _pool_exports(device, root, n=3):
+    """``n`` tiny wide-gap LMs (seeds 0..n-1) exported by the port's
+    export_lm: (cfg, {name: dir}, {name: reference tree})."""
+    from kubeflow_tpu_torch.models.convert import params_to_jax
+    from kubeflow_tpu_torch.serving.lm_server import export_lm
+
+    sources, trees = {}, {}
+    for i in range(n):
+        cfg, model = _tiny_gapped_lm(device, seed=i)
+        trees[f"m{i}"] = params_to_jax(model.state_dict())
+        sources[f"m{i}"] = export_lm(str(root / f"m{i}"), cfg,
+                                     trees[f"m{i}"])
+    return cfg, sources, trees
+
+
+def test_weight_swap_lands_on_cuda_byte_equal_to_export(cuda_pool,
+                                                        tmp_path):
+    """A swap puts every tensor of the slot's module on the card, byte
+    equal to the export, and records its split."""
+    from kubeflow_tpu_torch.models.convert import params_to_jax
+    from kubeflow_tpu_torch.models.generate import decode_config
+    from kubeflow_tpu_torch.serving.lm_server import load_lm
+    from kubeflow_tpu_torch.serving.weights import WeightPool
+
+    cfg, sources, trees = _pool_exports(cuda_pool, tmp_path, 2)
+    pool = WeightPool(decode_config(cfg), trees["m0"], 2, sources,
+                      device=cuda_pool)
+    slot = pool.acquire("m1")
+    sd = pool.module(slot).state_dict()
+    assert all(t.device.type == "cuda" for t in sd.values())
+    got, want = params_to_jax(sd), load_lm(sources["m1"])[1]
+    for a, b in zip(_flat(got), _flat(want)):
+        assert a[0] == b[0] and a[1].dtype == b[1].dtype
+        assert a[1].tobytes() == b[1].tobytes(), a[0]
+    swap = pool.last_swap
+    assert swap["model"] == "m1" and swap["bytes"] == pool.nbytes()
+    assert swap["seconds"] >= swap["device_s"] > 0
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat(tree[k],
+                                                       f"{prefix}/{k}")]
+    return [(prefix, np.asarray(tree))]
+
+
+def test_grouped_greedy_equals_dedicated_engines_on_cuda(cuda_pool,
+                                                         tmp_path):
+    """Three pooled models over two weight slots on the card, one
+    concurrent batch (grouped dispatch, slot pressure): every completion
+    equals a dedicated engine's on that model's weights, and no flash
+    kernel launches."""
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+
+    cfg, sources, trees = _pool_exports(cuda_pool, tmp_path)
+    prompts = [[5, 9, 11, 3, 7], [2, 30], [40, 41, 42, 43], [7] * 20,
+               [(3 * i + 1) % 60 for i in range(33)], [1, 2, 3]]
+    plan = [f"m{i % 3}" for i in range(len(prompts))]
+    want = {}
+    for name in sorted(sources):
+        ded = DecodeEngine(cfg, trees[name], device=cuda_pool, n_slots=4,
+                           chunk_tokens=4, kv_page_size=16)
+        try:
+            for i, m in enumerate(plan):
+                if m == name:
+                    want[i] = ded.generate([prompts[i]], max_new_tokens=10)[0]
+        finally:
+            ded.close()
+    fa.reset_launches()
+    eng = DecodeEngine(cfg, trees["m0"], device=cuda_pool, n_slots=4,
+                       chunk_tokens=4, kv_page_size=16, models=sources,
+                       model_default="m0", weight_slots=2)
+    try:
+        reqs = [eng.submit(p, max_new_tokens=10, model=m)
+                for p, m in zip(prompts, plan)]
+        got = [r.result(120) for r in reqs]
+        st = eng.weight_stats()
+    finally:
+        eng.close()
+    assert got == [want[i] for i in range(len(prompts))]
+    assert st["loads"] >= 2 and st["evictions"] >= 1
+    assert fa.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+
+
+def test_eviction_returns_the_slot_bytes_on_cuda(cuda_pool, tmp_path):
+    """Evicting a resident model gives its module's bytes back to the
+    allocator, and hbm_bytes()["weights"] falls by the same bytes."""
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+
+    cfg, sources, trees = _pool_exports(cuda_pool, tmp_path, 2)
+    eng = DecodeEngine(cfg, trees["m0"], device=cuda_pool, n_slots=2,
+                       chunk_tokens=4, kv_page_size=16, models=sources,
+                       model_default="m0", weight_slots=2)
+    try:
+        eng.generate([[5, 9, 11]], max_new_tokens=2, model="m1")
+        wp = eng._wpool
+        nbytes = sum(t.numel() * t.element_size() for t in wp.module(
+            wp._by_name["m1"]).state_dict().values())
+        torch.cuda.synchronize()
+        hbm0, alloc0 = eng.hbm_bytes()["weights"], \
+            torch.cuda.memory_allocated()
+        assert hbm0 == nbytes
+        assert eng.evict_model("m1") is True
+        torch.cuda.synchronize()
+        assert eng.hbm_bytes()["weights"] == 0
+        assert alloc0 - torch.cuda.memory_allocated() >= nbytes
     finally:
         eng.close()

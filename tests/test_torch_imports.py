@@ -57,13 +57,15 @@ def test_every_module_imports_with_jax_blocked():
                          env=env)
     assert res.returncode == 0, res.stderr
     assert f"imported {len(_modules())}" in res.stdout
-    assert len(_modules()) >= 40
+    assert len(_modules()) >= 48
     # The serving engine, its prefix keying, its usage ledger, its KV
-    # transfer plane and its flight recorder are on the list, the
-    # classifier / JAXJob path, and the chaos points with the runner's
-    # startup hook.
+    # transfer plane, its weight pool with the storage initializer and
+    # its flight recorder are on the list, the classifier / JAXJob path,
+    # and the chaos points with the runner's startup hook.
     assert {"kubeflow_tpu_torch.chaos",
             "kubeflow_tpu_torch.serving.kvtransfer",
+            "kubeflow_tpu_torch.serving.weights",
+            "kubeflow_tpu_torch.serving.storage",
             "kubeflow_tpu_torch.runtime",
             "kubeflow_tpu_torch.runtime.rendezvous",
             "kubeflow_tpu_torch.serving.engine",

@@ -35,6 +35,8 @@ from kubeflow_tpu_torch.serving import server as port_server  # noqa: E402
 from test_torch_generate import MIN_GAP, TINY, recompute, wide_gap  # noqa: E402,E501
 
 ENGINE_KNOBS = ("KFX_CHAOS", "KFX_LM_ADAPTERS", "KFX_LM_MODELS",
+                "KFX_LM_MODEL_DEFAULT", "KFX_LM_WEIGHT_SLOTS",
+                "KFX_LM_WEIGHT_IDLE_S",
                 "KFX_LM_QUANT", "KFX_LM_KV_QUANT", "KFX_LM_QUANT_DRAFT",
                 "KFX_LM_ROLE", "KFX_LM_KV_PEERS", "KFX_LM_KV_OFFLOAD_PAGES",
                 "KFX_LM_QOS_DEFAULT", "KFX_LM_DEADLINE_MS",
@@ -355,8 +357,10 @@ def test_generate_and_error_contract(server):
         code, _, _ = _code(f"{url}/v1/models/nope:{verb}",
                            {"prompt_tokens": [[1]]})
         assert code == 404
-    code, _, _ = _code(f"{url}/v1/models/lm:evict", {})
-    assert code == 404
+    # :evict is the weight pool's verb: a host without a pool answers
+    # 400, as the reference's server does.
+    code, err, _ = _code(f"{url}/v1/models/lm:evict", {})
+    assert code == 400 and "weight pool" in err["error"]
 
 
 def test_oneshot_error_contract(tiny_export, monkeypatch):
@@ -504,17 +508,45 @@ def test_http_greedy_equals_reference_oneshot_server(tiny_export,
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("KFX_LM_MODELS", '{"m": "/x"}')])
-def test_engine_knobs_are_refused(tiny_export, monkeypatch, knob, value):
-    """Every knob of an unported engine extension raises, naming its
-    ROADMAP item (Queue A 5b.8), with the engine on (the default) and
-    off."""
+    ("KFX_LM_MODELS", '{"m0": "{d}", "m1": "file://{d}"}'),
+    ("KFX_LM_MODEL_DEFAULT", "m1"),
+    ("KFX_LM_WEIGHT_SLOTS", "1"),
+    ("KFX_LM_WEIGHT_IDLE_S", "0.5")])
+def test_pool_knobs_take_effect(tiny_export, monkeypatch, knob, value):
+    """The weight pool's knobs (Queue A 1), once refused, load and reach
+    the engine as the reference's do: KFX_LM_MODELS gives it the pool
+    (speculation off), KFX_LM_MODEL_DEFAULT the resident model,
+    KFX_LM_WEIGHT_SLOTS the slot count and KFX_LM_WEIGHT_IDLE_S the idle
+    window. The one-shot path (KFX_LM_ENGINE=0) takes them too and has
+    no engine to give them to, as in the reference."""
     assert knob in ENGINE_KNOBS
-    monkeypatch.setenv(knob, value)
+    d = tiny_export[0]
+    base = {"KFX_LM_MODELS": '{"m0": "{d}", "m1": "{d}"}',
+            "KFX_LM_MODEL_DEFAULT": "m0"}
+    base[knob] = value
+    for k, v in base.items():
+        monkeypatch.setenv(k, v.replace("{d}", d))
     for engine in ("1", "0"):
         monkeypatch.setenv("KFX_LM_ENGINE", engine)
-        with pytest.raises(NotImplementedError, match="Queue A 5b.8"):
-            lm_server.LMPredictor(tiny_export[0], device="cpu")
+        p = lm_server.LMPredictor(d, device="cpu", warm_buckets=[8])
+        p.load()
+        try:
+            if engine == "0":
+                assert p.engine is None and p.pooled_models() == {}
+                continue
+            eng = p.engine
+            assert not eng.spec
+            default = base["KFX_LM_MODEL_DEFAULT"]
+            assert eng.model_default == default
+            assert p.pooled_models() == {"m0": default == "m0",
+                                         "m1": default == "m1"}
+            stats = p.weight_stats()
+            assert stats["slots"] == (1 if knob == "KFX_LM_WEIGHT_SLOTS"
+                                      else 2)
+            assert eng.model_idle_s == (0.5 if knob == "KFX_LM_WEIGHT_IDLE_S"
+                                        else 0.0)
+        finally:
+            p.close()
 
 
 @pytest.mark.parametrize("knob,value,attr,want", [
