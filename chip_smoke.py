@@ -173,7 +173,7 @@ Phases, in order; any failure raises and the process exits non-zero:
    wide-gap f32 weights: (a)'s 8 prompts migrated after 16 tokens, their
    greedy tokens equal to the unmigrated run and the first 64 to (f1)'s
    LMGenerator, one seeded sampled stream equal to its unmigrated one,
-   and one request of 1984 + 64 tokens on the bf16 export (its pages of
+   and one request of 960 + 64 tokens on the bf16 export (its pages of
    98400 bytes a token) equal to its unmigrated run; each leg's export and
    import ms, bytes, pages and GB/s printed, free pages balanced on both
    engines; (m3) kv.transfer:count=1 loses nothing and a corrupt frame is
@@ -190,7 +190,7 @@ Phases, in order; any failure raises and the process exits non-zero:
    export normalized into the f32 pool), each export written once; (n1)
    an engine (8 slots, 8-step chunks, 32-token pages, weight_slots 2,
    model_default m0) takes (a)'s 8 prompts at once, prompt i for model
-   m{i % 3}, 32 greedy tokens each: every completion equal to LMGenerator
+   m{i % 3}, 16 greedy tokens each: every completion equal to LMGenerator
    on its model's weights (gaps held as in (f1)), loads >= 3, evictions
    >= 1, every page and weight slot free after; each swap's split
    printed; (n2) m1 evicted (hbm_bytes()["weights"] and
@@ -209,10 +209,35 @@ Phases, in order; any failure raises and the process exits non-zero:
    503 with Retry-After then a 200, /metrics with the kfx_lm_weight_*
    families and kfx_autoscaler_cold_start_seconds{mode="swap"}; flash
    launches 0/0/0;
+   (o) the Kubeflow compat surface, after phase (i), counters set to 0
+   just before and read just after (0/0/0): (o1) KFServing's pytorch:
+   predictor on BASELINE.json #5's model: (i)'s 224^2 ResNet-50 export in
+   the port's classifier, traced with torch.jit.trace (the ResNet's
+   getattr block lookup does not script) and written as model.pt +
+   config.json, served by python -m kubeflow_tpu_torch.serving.server with
+   no --framework (the sniff must print framework=pytorch, device=cuda):
+   16 seeded images in one request against (i)'s JaxPredictor
+   (predictions equal where its top-two gap exceeds 1e-2, probabilities
+   within 5e-3), then 50 batch-1 :predict requests (p50/p99 beside (i)'s
+   JaxPredictor p50); (o2) the PyTorchJob worker with
+   examples/pytorchjob-mnist.yaml's arguments (mnist, 300 steps, b128):
+   two ranks on the one card with --backend=gloo (rank 0 prints rank=0
+   world=2, both ranks' final loss= and accuracy= equal), then one rank
+   with the default backend (backend=nccl), each run's wall-clock; (o3)
+   examples/mpijob-resnet-cifar10.yaml's launcher command through the
+   port's mpirun shim at -np 2 (mpi_jax_runner, resnet18, cifar10, 20
+   steps, b64) on the card: world=2, backend=gloo, every step= line and
+   the final lines equal on both ranks but for their timing, the
+   wall-clock; (o1)'s server and (o2)'s and (o3)'s processes start side
+   by side (each is mostly start-up), (o1)'s requests after the workers
+   exit. TensorFlow and scikit-learn are not on the card's
+   machine (their predictors and the TFJob worker run on the host, in
+   the reference too), so (o) drives none of them;
 7. one JSON line per kernel set, the serving line, the engine line, the
    spec line, the training line, the classifier line, the int8 line, the
-   chaos line, the lora line, the kv line, the weights line, the card's
-   name and power limit, and the last line {"ok": true, "device": {...}}.
+   chaos line, the lora line, the kv line, the weights line, the compat
+   line, the script's seconds, the card's name and power limit, and the
+   last line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or without the port's package beside it, it exits non-zero
@@ -356,12 +381,14 @@ LORA_PAGED_NEW = 8
 # generate CHAOS_NEW tokens; (m2) hands HANDOFF_ROWS prompts from a prefill
 # server to a decode server; (m4) pushes one prompt of OFFLOAD_PROMPT tokens
 # to the host tier and back. Cut to hold the phase in 150 s: (m2) one
-# prompt, (m3) 32 tokens.
+# prompt, (m3) 32 tokens; and, to hold the script under its limit once
+# phase (o) came, the long request to 1024 tokens (was 2048). The migrated runs keep 192
+# tokens: at 128 one of the 8 requests finished before its transfer.
 RP_SEQ = 512
 RP_NEW = 150
 KV_MIGRATE_AFTER = 16
 KV_MIGRATE_NEW = 192
-KV_LONG_PROMPT = 1984
+KV_LONG_PROMPT = 960
 HANDOFF_ROWS = 1
 CHAOS_NEW = 32
 OFFLOAD_PROMPT = 1024
@@ -375,7 +402,33 @@ OFFLOAD_NEW = 16
 # tokens each, all at once.
 POOL_SEEDS = (0, 1, 2)
 POOL_SLOTS = 2
-POOL_NEW = 32
+POOL_NEW = 16   # cut from 32 to hold the script under its limit
+
+# Compat phase (o), the Kubeflow compat surface at the reference's own
+# configs. (o1) BASELINE.json #5's KFServing predictor: phase (i)'s 224^2
+# ResNet-50 export traced to TorchScript behind the server with no
+# --framework; COMPAT_PARITY seeded images in one request against (i)'s
+# JaxPredictor, then CLS_SEQ batch-1 requests. The parity check
+# (compat_parity) is sized to what it compares: the export is barely
+# trained, so every probability is near 1/1000 and an absolute tolerance
+# would pass zeros. Each row's probabilities agree within COMPAT_REL of
+# the row's largest (the same bf16 convs, but cuDNN may pick another
+# algorithm), each prediction is its own row's argmax, and the
+# predictions are equal wherever the top-two gap exceeds twice the row's
+# error (where the error cannot flip them).
+# (o2) examples/pytorchjob-mnist.yaml's arguments, (o3)
+# examples/mpijob-resnet-cifar10.yaml's launcher command. (o1)'s server
+# and (o2)'s and (o3)'s workers start side by side (each is mostly
+# start-up; this holds the script under its limit), and (o1)'s requests
+# run after the workers exit.
+# TensorFlow and scikit-learn are not on the card's machine, and their
+# predictors and the TFJob worker run on the host in the reference too,
+# so this phase drives none of them (the CPU tests do).
+COMPAT_PARITY = 16
+COMPAT_REL = 1e-2
+PTJOB_ARGV = ["--dataset=mnist", "--steps=300", "--batch-size=128"]
+MPIJOB_ARGV = ["--model=resnet18", "--dataset=cifar10", "--steps=20",
+               "--batch-size=64", "--log-every=10"]
 
 
 def log(msg: str) -> None:
@@ -4096,7 +4149,8 @@ def classifier_serving(torch, export_dir):
                          "images_per_s": CLS_WAVE / batched_s,
                          "wall_s": batched_s,
                          "flush_sizes": [len(p) for _, p in flushes]},
-        "batch1_vs_stacked_agreement": float(agree_seq)})
+        "batch1_vs_stacked_agreement": float(agree_seq),
+        "_pred": pred})
     log(f"classifier (i3) resnet50 224^2 export: load {load_s:.1f} s, "
         f"request {len(bodies[0]) / 1e6:.2f} MB of JSON; batch-1 p50 "
         f"{rec['batch1']['p50_ms']:.1f} ms, p99 "
@@ -4130,6 +4184,290 @@ def classifier_phase(torch, fa, dev, repo):
     check(rec["launches"] == {"flash_fwd": 0, "flash_dq": 0,
                               "flash_dkv": 0},
           f"(i) flash launches {rec['launches']}")
+    return rec
+
+
+# -- (o) the Kubeflow compat surface ------------------------------------------
+
+def compat_env(repo, **extra):
+    """The environment of a compat worker: no rendezvous, checkpoint or
+    chaos variable of this process, the repo on the path."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("KFX_", "OMPI_", "MASTER_"))
+           and k not in ("RANK", "WORLD_SIZE")}
+    return dict(env, PYTHONPATH=repo, **extra)
+
+
+def rank_lines(out, prefixes):
+    """The lines starting with ``prefixes``, sorted, each without the
+    fields that may differ between ranks (its timing)."""
+    return sorted(re.sub(r" (step_time|examples_per_sec|wall_seconds)=\S+",
+                         "", ln) for ln in out.splitlines()
+                  if ln.startswith(prefixes))
+
+
+def compat_export(torch, dev, repo):
+    """(o1)'s export: (i)'s 224^2 ResNet-50 export in the port's
+    classifier, traced (its getattr block lookup won't script) and written
+    as model.pt + config.json. Returns (directory, seconds)."""
+    from kubeflow_tpu_torch.models import get_model
+    from kubeflow_tpu_torch.models.convert import classifier_params_from_jax
+    from kubeflow_tpu_torch.serving.export import load_exported
+    from kubeflow_tpu_torch.serving.torch_server import export_torchscript
+
+    t0 = time.perf_counter()
+    config, payload = load_exported(os.path.join(repo, "build",
+                                                 "cls_export"))
+    shape = tuple(config["input_shape"])
+    model = get_model(config["model"], num_classes=config["num_classes"],
+                      input_shape=shape)
+    model.load_state_dict(classifier_params_from_jax(
+        config["model"], payload["params"], payload.get("batch_stats")))
+    model.to(dev, memory_format=torch.channels_last).eval()
+    out_dir = os.path.join(repo, "build", "torch_export")
+    with torch.no_grad():
+        export_torchscript(out_dir, model, input_shape=shape,
+                           num_classes=config["num_classes"],
+                           example_inputs=torch.zeros((1,) + shape,
+                                                      device=dev))
+    del model
+    torch.cuda.empty_cache()
+    return out_dir, time.perf_counter() - t0
+
+
+def start_procs(repo, jobs):
+    """Start every (argv, env) of ``jobs`` side by side, stdout and stderr
+    to files (so no pipe fills); (processes, log files, start time)."""
+    logs = os.path.join(repo, "build", "compat_logs")
+    os.makedirs(logs, exist_ok=True)
+    files, procs = [], []
+    t0 = time.perf_counter()
+    for i, (argv, env) in enumerate(jobs):
+        f = open(os.path.join(logs, f"worker{i}.log"), "w+")
+        files.append(f)
+        procs.append(subprocess.Popen(argv, stdout=f,
+                                      stderr=subprocess.STDOUT, text=True,
+                                      env=env, cwd=repo))
+    return procs, files, t0
+
+
+def wait_procs(procs, files, t0, timeout=600):
+    """(return codes, outputs, seconds from the start to each one's exit)
+    of start_procs' processes; kills what outlives ``timeout``."""
+    walls = [None] * len(procs)
+    try:
+        while None in walls:
+            check(time.perf_counter() - t0 < timeout,
+                  f"(o) workers still running after {timeout} s")
+            for i, p in enumerate(procs):
+                if walls[i] is None and p.poll() is not None:
+                    walls[i] = time.perf_counter() - t0
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for f in files:
+        f.seek(0)
+        outs.append(f.read())
+        f.close()
+    return [p.returncode for p in procs], outs, walls
+
+
+def compat_jobs(repo):
+    """(o2)'s and (o3)'s processes: the PyTorchJob worker with
+    examples/pytorchjob-mnist.yaml's arguments at two ranks over gloo and
+    one rank with the default backend (nccl), and
+    examples/mpijob-resnet-cifar10.yaml's launcher command through the
+    port's shim (two ranks of mpi_jax_runner), each on the one card."""
+    from kubeflow_tpu_torch.utils.net import free_port
+
+    pt = [sys.executable, "-m", "kubeflow_tpu_torch.runners.torch_runner"]
+    mpi = ([sys.executable, "-m", "kubeflow_tpu_torch.runners.mpi_launcher",
+            "-np", "2", "--allow-run-as-root", sys.executable, "-m",
+            "kubeflow_tpu_torch.runners.mpi_jax_runner"] + MPIJOB_ARGV)
+    port, port1 = str(free_port()), str(free_port())
+    jobs = [(pt + PTJOB_ARGV + ["--backend=gloo"],
+             compat_env(repo, MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                        WORLD_SIZE="2", RANK=str(r))) for r in range(2)]
+    return jobs + [(pt + PTJOB_ARGV,
+                    compat_env(repo, MASTER_ADDR="127.0.0.1",
+                               MASTER_PORT=port1, WORLD_SIZE="1",
+                               RANK="0")),
+                   (mpi, compat_env(repo))]
+
+
+def compat_job_checks(rcs, outs, walls):
+    """(o2) and (o3)'s contracts on compat_jobs' results; their records."""
+    def train_walls(*texts):
+        return [float(v) for o in texts
+                for v in re.findall(r"wall_seconds=(\S+)", o)]
+
+    check(rcs[:2] == [0, 0] and "rank=0 world=2 backend=gloo" in outs[0],
+          f"(o2) two ranks: rc {rcs[:2]}\n{outs[0][-3000:]}\n"
+          f"{outs[1][-3000:]}")
+    finals = [rank_lines(o, ("loss=", "accuracy=")) for o in outs[:2]]
+    check(finals[0] == finals[1] and len(finals[0]) == 2
+          and all(math.isfinite(float(ln.split("=")[1]))
+                  for ln in finals[0]),
+          f"(o2) final lines differ across ranks: {finals}")
+    check(rcs[2] == 0 and "rank=0 world=1 backend=nccl" in outs[2],
+          f"(o2) one rank: rc {rcs[2]}\n{outs[2][-3000:]}")
+    pytorchjob = {
+        "argv": PTJOB_ARGV,
+        "two_ranks_gloo": {"wall_s": max(walls[:2]), "final": finals[0],
+                           "train_wall_s": train_walls(*outs[:2])},
+        "one_rank_nccl": {"wall_s": walls[2],
+                          "final": rank_lines(outs[2],
+                                              ("loss=", "accuracy=")),
+                          "train_wall_s": train_walls(outs[2])}}
+    log(f"compat (o2) PyTorchJob mnist 300 steps b128: two ranks on one "
+        f"card over gloo {max(walls[:2]):.1f} s (training "
+        f"{pytorchjob['two_ranks_gloo']['train_wall_s']} s), final lines "
+        f"equal {finals[0]}; one rank over nccl {walls[2]:.1f} s (training "
+        f"{pytorchjob['one_rank_nccl']['train_wall_s']} s)")
+    out = outs[3]
+    check(rcs[3] == 0 and out.count("world=2") == 4
+          and out.count("process_group backend=gloo") == 2
+          and out.count("platform=cuda") == 2,
+          f"(o3) rc {rcs[3]}\n{out[-4000:]}")
+    steps = rank_lines(out, "step=")
+    finals = rank_lines(out, ("loss=", "accuracy="))
+    check(len(steps) == 4 and steps[0::2] == steps[1::2]
+          and len(finals) == 4 and finals[0::2] == finals[1::2]
+          and all(math.isfinite(float(ln.split("=")[1]))
+                  for ln in finals),
+          f"(o3) rank lines differ: {steps} {finals}")
+    mpijob = {"argv": MPIJOB_ARGV, "wall_s": walls[3], "steps": steps[0::2],
+              "final": finals[0::2],
+              "step_time_s": [float(v) for v in re.findall(
+                  r"step_time=(\S+)", out)],
+              "train_wall_s": train_walls(out)}
+    log(f"compat (o3) MPIJob resnet18 cifar10 20 steps b64, -np 2 on one "
+        f"card over gloo: {walls[3]:.1f} s (training "
+        f"{mpijob['train_wall_s']} s); step lines equal on both ranks "
+        f"{mpijob['steps']}, final {mpijob['final']}")
+    return {"pytorchjob": pytorchjob, "mpijob": mpijob}
+
+
+def compat_parity(p_got, pred_got, p_want, pred_want) -> dict:
+    """(o1)'s parity of the served predictor (``p_got``, ``pred_got``)
+    against the reference's (``p_want``, ``pred_want``) on the same
+    images; fails unless the probabilities are finite rows of the same
+    shape that sum to 1, agree within COMPAT_REL of each row's largest,
+    each prediction is its row's argmax, and the predictions are equal
+    wherever the reference's top-two gap exceeds twice the row's error."""
+    import numpy as np
+
+    check(p_got.shape == p_want.shape == (len(pred_want), p_want.shape[1])
+          and pred_got.shape == pred_want.shape
+          and bool(np.isfinite(p_got).all())
+          and bool((np.abs(p_got.sum(-1) - 1) <= 1e-3).all()),
+          f"(o1) probabilities {p_got.shape} (want {p_want.shape}), "
+          f"row sums {p_got.sum(-1) if p_got.ndim == 2 else '-'}")
+    row_err = np.abs(p_got - p_want).max(-1)
+    rel = float((row_err / p_want.max(-1)).max())
+    top2 = np.sort(p_want, -1)[:, -2:]
+    decided = top2[:, 1] - top2[:, 0] > 2 * row_err
+    same = pred_got == pred_want
+    own = bool((pred_got == p_got.argmax(-1)).all())
+    check(rel <= COMPAT_REL and own and bool(same[decided].all()),
+          f"(o1) probabilities {rel:.3g} of the row's largest (tol "
+          f"{COMPAT_REL}); predictions their rows' argmax: {own}; equal "
+          f"on {int(same[decided].sum())}/{int(decided.sum())} rows whose "
+          f"top-two gap exceeds twice the row's error")
+    return {"parity_n": len(same), "parity_equal": int(same.sum()),
+            "parity_decided": int(decided.sum()),
+            "max_abs_prob_err": float(row_err.max()),
+            "max_prob_err_over_row_max": rel,
+            "top1_prob_max": float(p_want.max())}
+
+
+def compat_predictor(proc, err_path, cls_pred, cls_p50):
+    """(o1) on the server ``proc`` (started on compat_export's directory
+    with no --framework): the sniff, then COMPAT_PARITY images against
+    (i)'s JaxPredictor and CLS_SEQ batch-1 requests."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.data import get_dataset
+
+    line = ""
+    while not line.startswith("server_ready"):
+        line = proc.stdout.readline()
+        if not line and proc.poll() is not None:
+            with open(err_path) as f:
+                check(False, f"(o1) server exited {proc.returncode}: "
+                      f"{f.read()[-3000:]}")
+    fields = dict(re.findall(r"(\w+)=(\{[^}]*\}|\S+)", line))
+    check(fields["framework"] == "pytorch" and fields["device"] == "cuda",
+          f"(o1) {line}")
+    url = f"http://127.0.0.1:{fields['port']}/v1/models/model:predict"
+    images, _ = get_dataset("imagenet-sim", "eval").eval_arrays(
+        COMPAT_PARITY)
+    got, parity_ms = post_raw(url, json.dumps(
+        {"instances": images.tolist(), "probabilities": True}).encode())
+    want = cls_pred.predict(images, probabilities=True)
+    p_got = np.asarray(got["probabilities"])
+    p_want = np.asarray(want["probabilities"])
+    parity = compat_parity(p_got, np.asarray(got["predictions"]), p_want,
+                           np.asarray(want["predictions"]))
+    bodies = [json.dumps({"instances": images[i:i + 1].tolist()}).encode()
+              for i in range(COMPAT_PARITY)]
+    for b in bodies[:3]:
+        post_raw(url, b)   # warm the handler path
+    seq = [post_raw(url, bodies[i % COMPAT_PARITY])[1]
+           for i in range(CLS_SEQ)]
+    rec = {"server_load_s": float(fields["load_seconds"]),
+           "server_ready": line.strip(),
+           **parity, "parity_request_ms": parity_ms,
+           "batch1": {"p50_ms": percentile(seq, 0.5),
+                      "p99_ms": percentile(seq, 0.99), "n": len(seq)},
+           "jax_predictor_batch1_p50_ms": cls_p50}
+    log(f"compat (o1) pytorch predictor, traced ResNet-50 224^2 on cuda: "
+        f"load {fields['load_seconds']} s; {COMPAT_PARITY} images: "
+        f"probabilities max err {parity['max_abs_prob_err']:.3g}, "
+        f"{parity['max_prob_err_over_row_max']:.3g} of the row's largest "
+        f"(tol {COMPAT_REL}; the largest is at most "
+        f"{parity['top1_prob_max']:.3g}); predictions equal on "
+        f"{parity['parity_equal']}, {parity['parity_decided']} of them "
+        f"with a top-two gap over twice the row's error; batch-1 p50 "
+        f"{rec['batch1']['p50_ms']:.1f} "
+        f"ms, p99 {rec['batch1']['p99_ms']:.1f} ms (JaxPredictor p50 "
+        f"{cls_p50:.1f} ms in (i))")
+    return rec
+
+
+def compat_phase(torch, fa, dev, repo, cls_pred, cls_p50):
+    """(o), flash launch counters set to 0 just before and read just after
+    (none of these paths reaches a flash kernel). (o1)'s server and (o2)'s
+    and (o3)'s workers start side by side (each is mostly start-up); (o1)'s
+    requests run after the workers have exited, on an idle card."""
+    t0 = time.perf_counter()
+    fa.reset_launches()
+    out_dir, export_s = compat_export(torch, dev, repo)
+    err_path = os.path.join(repo, "build", "torch_export.stderr")
+    with open(err_path, "w") as err_file:
+        server = subprocess.Popen(
+            [sys.executable, "-m", "kubeflow_tpu_torch.serving.server",
+             "--model-dir", out_dir, "--port", "0"], stdout=subprocess.PIPE,
+            stderr=err_file, text=True, env=compat_env(repo), cwd=repo)
+    try:
+        workers = start_procs(repo, compat_jobs(repo))
+        rcs, outs, walls = wait_procs(*workers)
+        predictor = compat_predictor(server, err_path, cls_pred, cls_p50)
+    finally:
+        server.terminate()
+        server.wait(timeout=60)
+    rec = {"predictor": dict(predictor, export_s=export_s),
+           **compat_job_checks(rcs, outs, walls)}
+    rec["launches"] = dict(fa.LAUNCHES)
+    check(rec["launches"] == {"flash_fwd": 0, "flash_dq": 0,
+                              "flash_dkv": 0},
+          f"(o) flash launches {rec['launches']}")
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"compat (o) {rec['seconds']:.1f} s (the trace {export_s:.1f} s)")
     return rec
 
 
@@ -4494,6 +4832,7 @@ def main() -> int:
         print("usage: python3 chip_smoke.py [--n3-alone]", file=sys.stderr)
         return 2
     alone = sys.argv[1:] == ["--n3-alone"]
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("error: torch.cuda.is_available() is false; chip_smoke.py "
               "runs the port on an NVIDIA GPU", file=sys.stderr)
@@ -4600,6 +4939,14 @@ def main() -> int:
     # 6i. the classifier / JAXJob path
     classifier = classifier_phase(torch, fa, dev, repo)
     chaos_rec["k6"] = classifier.pop("chaos_predict")
+    cls_pred = classifier["serving"].pop("_pred")
+
+    # 6o. the Kubeflow compat surface: the pytorch predictor, the
+    # PyTorchJob and MPIJob workers
+    compat = compat_phase(torch, fa, dev, repo, cls_pred,
+                          classifier["serving"]["batch1"]["p50_ms"])
+    del cls_pred
+    torch.cuda.empty_cache()
 
     # 7. report
     csrc = "kubeflow_tpu_torch/ops/csrc/"
@@ -4639,6 +4986,8 @@ def main() -> int:
     log(json.dumps({"lora": lora}))
     log(json.dumps({"kv": kv}))
     log(json.dumps({"weights": weights}))
+    log(json.dumps({"compat": compat}))
+    log(f"script_seconds={time.perf_counter() - t_script:.1f}")
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

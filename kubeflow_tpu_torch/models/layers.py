@@ -12,7 +12,10 @@ counterpart computes (the reference's models are flax modules):
   BatchNorm  statistics in f32 as flax's "fast variance" (E[x^2] - E[x]^2,
              clipped at 0); the running stats move by ``ra = m * ra +
              (1 - m) * batch`` with the BIASED batch variance (PyTorch's
-             BatchNorm2d uses the unbiased one); f32 output
+             BatchNorm2d uses the unbiased one); f32 output. In training
+             with a ``sync_group`` set (the data-parallel TrainLoop sets
+             it), the statistics are the global batch's, as flax's
+             BatchNorm reduces over the whole sharded array
   LayerNorm  the same statistics over the last axis, eps 1e-6; f32 output
 
 Activations run NCHW in ``channels_last`` memory between convs. Params are
@@ -116,9 +119,29 @@ def _f32_stats(x32: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
     return mean, var
 
 
+def _global_f32_stats(x32: torch.Tensor, dims, group
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_f32_stats`` of NCHW ``x32`` over the global batch of the process
+    group ``group``: the f32 sum, sum of squares and count summed by an
+    all-reduce that autograd differentiates, so the backward carries the
+    other ranks' terms."""
+    from torch.distributed.nn.functional import all_reduce
+
+    c = x32.shape[1]
+    count = torch.full((1,), x32.numel() // c, dtype=torch.float32,
+                       device=x32.device)
+    tot = all_reduce(torch.cat([x32.sum(dims), (x32 * x32).sum(dims),
+                                count]), group=group)
+    mean = tot[:c] / tot[-1]
+    var = torch.clamp(tot[c:2 * c] / tot[-1] - mean * mean, min=0.0)
+    return mean, var
+
+
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(momentum, epsilon, dtype=float32)`` over NCHW
-    channels. Running stats are buffers ``mean`` and ``var``."""
+    channels. Running stats are buffers ``mean`` and ``var``. With
+    ``sync_group`` set to a torch.distributed group, training statistics
+    are that group's global batch's."""
 
     def __init__(self, features: int, momentum: float = 0.9,
                  eps: float = 1e-5, zero_scale: bool = False):
@@ -128,6 +151,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.empty(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.sync_group = None
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None
                          ) -> None:
@@ -139,7 +163,11 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         x32 = x.float()
         if train:
-            mean, var = _f32_stats(x32, (0, 2, 3))
+            if self.sync_group is None:
+                mean, var = _f32_stats(x32, (0, 2, 3))
+            else:
+                mean, var = _global_f32_stats(x32, (0, 2, 3),
+                                              self.sync_group)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.mul_(m).add_(mean, alpha=1 - m)

@@ -17,11 +17,18 @@ drawn after each checkpoint save), ``exported_model dir=``; plus
 ``--data-pipeline auto`` draws synthetic batches on the device on cuda
 and feeds host batches (prefetched on a thread) on the CPU, the
 reference's rule. Steps run in chunks of ``--scan-steps`` with one sync a
-chunk, cut at log, checkpoint and fault boundaries. One process, one
-device: ``KFX_NUM_PROCESSES`` > 1 raises (ROADMAP.md Queue A 6).
-``KFX_CHAOS`` reaches the startup ``rendezvous.delay`` point,
-``runner.crash`` and the checkpointer's points. The reference's step
-spans and profiler server are not ported (Queue A 8).
+chunk, cut at log, checkpoint and fault boundaries. ``KFX_CHAOS`` reaches
+the startup ``rendezvous.delay`` point, ``runner.crash`` and the
+checkpointer's points. The reference's step spans and profiler server are
+not ported (Queue A 8).
+
+Several processes (``KFX_NUM_PROCESSES``, ``KFX_PROCESS_ID``,
+``KFX_COORDINATOR_ADDRESS``, as the JAXJob operator and the mpirun shim
+set them) train data-parallel over ``torch.distributed``
+(``initialize_distributed``): one device a process, ``cuda:{rank %
+device_count}`` on cuda, the global ``--batch-size`` split evenly, every
+rank printing the same ``step=`` lines; the eval set is sharded
+``images[rank::world]`` and only the chief exports.
 """
 
 from __future__ import annotations
@@ -80,6 +87,46 @@ def plan_chunks(start: int, steps: int, k_target: int, log_every: int,
         s += k
 
 
+def log(msg: str) -> None:
+    """Print one stdout line in one write: ranks that share a pipe (the
+    mpirun shim's) then interleave whole lines only."""
+    sys.stdout.write(msg + "\n")
+    sys.stdout.flush()
+
+
+def initialize_distributed(device):
+    """Rendezvous via env; returns this process's device. Calls the
+    startup chaos hook first. For ``KFX_NUM_PROCESSES`` > 1 it starts the
+    torch.distributed group at ``tcp://KFX_COORDINATOR_ADDRESS``: ``nccl``
+    on cuda when the host shows at least as many cards as ranks, else
+    ``gloo`` (on the CPU, and over the card's tensors when ranks share a
+    card, which NCCL refuses). Prints the backend on a line of its own."""
+    import torch
+    import torch.distributed as dist
+
+    from ..runtime.rendezvous import (ENV_COORDINATOR, ENV_NUM_PROCESSES,
+                                      ENV_PROCESS_ID, apply_startup_chaos)
+
+    apply_startup_chaos()
+    num = int(os.environ.get(ENV_NUM_PROCESSES, "1"))
+    if num <= 1:
+        return device
+    coord = os.environ[ENV_COORDINATOR]
+    pid = int(os.environ[ENV_PROCESS_ID])
+    backend = "gloo"
+    if device.type == "cuda":
+        n_cards = torch.cuda.device_count()
+        device = torch.device("cuda", pid % n_cards)
+        torch.cuda.set_device(device)
+        if n_cards >= num:
+            backend = "nccl"
+    dist.init_process_group(backend, init_method=f"tcp://{coord}",
+                            rank=pid, world_size=num)
+    log(f"process_group backend={backend} rank={pid} world={num} "
+        f"coordinator={coord} device={device}")
+    return device
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     import numpy as np
@@ -88,19 +135,16 @@ def main(argv=None) -> int:
     from ..device import resolve_device
     from .. import chaos
     from ..models import get_model
-    from ..runtime.rendezvous import apply_startup_chaos
+    from ..runtime.rendezvous import rank_world
     from ..training import Checkpointer, TrainLoop
 
-    apply_startup_chaos()
-    device = resolve_device(args.device)
-    rank, world = 0, 1
-
-    def log(msg: str) -> None:
-        print(msg, flush=True)
+    device = initialize_distributed(resolve_device(args.device))
+    rank, world = rank_world()
 
     trace_id = os.environ.get("KFX_TRACE_ID", "")
     log(f"runner_start model={args.model} dataset={args.dataset} "
-        f"rank={rank} world={world} devices=1 platform={device.type}"
+        f"rank={rank} world={world} devices={world} "
+        f"platform={device.type}"
         + (f" trace={trace_id}" if trace_id else ""))
 
     dataset = get_dataset(args.dataset, split="train", seed=args.seed)
@@ -210,9 +254,11 @@ def main(argv=None) -> int:
                 sys.stdout.flush()
                 os._exit(137)
 
+    # The final eval on a fixed set, sharded across processes.
     eval_ds = get_dataset(args.dataset, split="eval", seed=args.seed)
     images, labels = eval_ds.eval_arrays(args.eval_samples)
-    metrics = loop.evaluate(state, images, labels)
+    metrics = loop.evaluate(state, images[rank::world],
+                            labels[rank::world])
     wall = time.time() - t_start
     log(f"train_done steps={args.steps} wall_seconds={wall:.2f}")
     log(f"loss={metrics['loss']:.6f}")
@@ -222,14 +268,23 @@ def main(argv=None) -> int:
         ckpt.maybe_save(args.steps, state, force=True)
         ckpt.close()
 
-    if args.export_dir:
+    if args.export_dir and rank == 0:
         from ..serving.export import export_params
 
         export_params(args.export_dir, args.model, dataset.shape,
                       dataset.num_classes, state)
         log(f"exported_model dir={args.export_dir}")
+    if world > 1:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
 
 
 if __name__ == "__main__":
+    # Armed here, not in main: a caller that runs main in its own process
+    # keeps its threads and its process group.
+    from ..runtime.lifetime import install_parent_watch
+
+    install_parent_watch()   # die with the gang supervisor
     sys.exit(main())

@@ -246,4 +246,9 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    # Armed here, not in main: a caller that runs main in its own process
+    # keeps its threads and its process group.
+    from ..runtime.lifetime import install_parent_watch
+
+    install_parent_watch()   # die with the gang supervisor
     sys.exit(main())

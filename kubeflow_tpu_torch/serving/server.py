@@ -55,8 +55,12 @@ once every ``KFX_FLIGHT_SNAP_S`` seconds, default 1, "0" off). The
 and ``/metrics`` carries ``kfx_chaos_injected_total``. ``:evict`` is the
 operator's scale-to-zero push into a weight pool (serving/weights.py):
 best-effort, a slot worn by in-flight requests (or the pinned default)
-stays and the answer says so. The reference's PyTorch, TensorFlow and
-scikit-learn predictors are not ported yet (ROADMAP.md Queue A 9).
+stays and the answer says so. ``--framework auto`` sniffs the export in
+the reference's order (lm, pytorch, tensorflow, sklearn, jax): a
+TorchScript export serves on the card through ``torch_server``, a
+SavedModel and a joblib export on the host through ``tf_server`` and
+``sklearn_server`` (TensorFlow and scikit-learn have no claim on the card,
+as in the reference).
 
     python -m kubeflow_tpu_torch.serving.server --model-dir EXPORT \\
         [--device cpu] [--batcher-max-latency-ms 5]
@@ -1057,9 +1061,6 @@ class ModelServer:
         self.httpd.server_close()
 
 
-_OTHER_FRAMEWORKS = "ROADMAP.md Queue A 9, the other framework predictors"
-
-
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(description="kfx model server (GPU)")
     p.add_argument("--model-dir", required=True,
@@ -1081,32 +1082,47 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--framework", default="auto",
                    choices=["auto", "jax", "pytorch", "tensorflow",
                             "sklearn", "lm"],
-                   help="predict backend; auto serves an LM export as lm "
-                        "and otherwise the classifier export (jax)")
+                   help="predict backend; auto sniffs the export format")
     args = p.parse_args(argv)
 
     from .export import CONFIG_FILE
     from .lm_server import LMPredictor, is_lm_export
+    from .sklearn_server import SKLearnPredictor, is_sklearn_export
+    from .tf_server import TFPredictor, is_tf_export
+    from .torch_server import TorchPredictor, is_torch_export
 
+    sniff = {"lm": is_lm_export, "pytorch": is_torch_export,
+             "tensorflow": is_tf_export, "sklearn": is_sklearn_export,
+             "jax": lambda d: os.path.exists(os.path.join(d, CONFIG_FILE))}
     framework = args.framework
     if framework == "auto":
-        framework = "lm" if is_lm_export(args.model_dir) else "jax"
-    if framework in ("pytorch", "tensorflow", "sklearn"):
-        print(f"error: --framework {framework}: the {framework} predictor "
-              f"is not ported yet ({_OTHER_FRAMEWORKS})", file=sys.stderr)
+        framework = next((fw for fw, has in sniff.items()
+                          if has(args.model_dir)), "jax")
+    if not sniff[framework](args.model_dir):
+        print(f"error: {args.model_dir} holds no export"
+              + ("" if args.framework == "auto"
+                 else f" for --framework {framework}"), file=sys.stderr)
         return 2
-    if framework == "jax" and not os.path.exists(
-            os.path.join(args.model_dir, CONFIG_FILE)):
-        print(f"error: {args.model_dir} holds no export (no {CONFIG_FILE} "
-              "of a classifier, no lm_config.json of an LM)",
-              file=sys.stderr)
-        return 2
+    if framework in ("tensorflow", "sklearn") and args.device not in (
+            "auto", "cpu"):
+        print(f"warning: --device={args.device} ignored ({framework} "
+              f"backend runs CPU here)", flush=True)
     if args.max_batch_size is None:
         args.max_batch_size = 8 if framework == "lm" else 64
     if framework == "lm":
         predictor = LMPredictor(args.model_dir, name=args.name,
                                 max_batch_size=args.max_batch_size,
                                 device=args.device)
+    elif framework == "pytorch":
+        predictor = TorchPredictor(args.model_dir, name=args.name,
+                                   max_batch_size=args.max_batch_size,
+                                   device=args.device)
+    elif framework == "tensorflow":
+        predictor = TFPredictor(args.model_dir, name=args.name,
+                                max_batch_size=args.max_batch_size)
+    elif framework == "sklearn":
+        predictor = SKLearnPredictor(args.model_dir, name=args.name,
+                                     max_batch_size=args.max_batch_size)
     else:
         predictor = JaxPredictor(args.model_dir, name=args.name,
                                  max_batch_size=args.max_batch_size,
@@ -1131,8 +1147,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         line += (f"engine={'on' if engine is not None else 'off'} "
                  f"spec={'on' if engine is not None and engine.spec else 'off'}")
     else:
-        line += (f"placement={json.dumps(predictor.placement)} "
-                 f"probe_ms={json.dumps(predictor.probe_ms)}")
+        line += (f"placement="
+                 f"{json.dumps(getattr(predictor, 'placement', {}))} "
+                 f"probe_ms={json.dumps(getattr(predictor, 'probe_ms', {}))}")
     print(line, flush=True)
     try:
         while True:

@@ -16,6 +16,13 @@ step means a fresh start (``None``, with the reason printed); an I/O
 failure with no readable step raises. Its chaos points carry over too
 (``chaos``): ``checkpoint.save`` (``mode=corrupt``) tears a save after it
 has committed, ``checkpoint.restore`` fails a restore with ``OSError``.
+
+Under a torch.distributed group of several processes (the data-parallel
+TrainLoop, whose state is equal on every rank), rank 0 writes and every
+rank meets the others at a barrier after each save, so a save has
+committed when ``maybe_save`` returns on any rank; rank 0 restores (with
+the quarantine and the chaos points, as at world 1) and every other rank
+then loads the step rank 0 restored.
 """
 
 from __future__ import annotations
@@ -26,8 +33,10 @@ import threading
 from typing import Any, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from .. import chaos
+from ..runtime.rendezvous import rank_world
 
 QUARANTINE_PREFIX = "quarantine-"
 STATE_FILE = "state.pt"
@@ -127,14 +136,22 @@ class Checkpointer:
         self.directory = os.path.abspath(directory)
         self.save_every = save_every
         self.keep = keep
-        self.async_save = async_save
+        self.rank, self.world = rank_world()
+        # Over several ranks rank 0's write completes before the barrier.
+        self.async_save = async_save and self.world == 1
         self._writer: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
-        os.makedirs(self.directory, exist_ok=True)
-        for name in os.listdir(self.directory):
-            if ".tmp-" in name:   # a write a crash interrupted
-                shutil.rmtree(os.path.join(self.directory, name),
-                              ignore_errors=True)
+        if self.rank == 0:
+            os.makedirs(self.directory, exist_ok=True)
+            for name in os.listdir(self.directory):
+                if ".tmp-" in name:   # a write a crash interrupted
+                    shutil.rmtree(os.path.join(self.directory, name),
+                                  ignore_errors=True)
+        self._barrier()
+
+    def _barrier(self) -> None:
+        if self.world > 1:
+            dist.barrier()
 
     # -- listing -----------------------------------------------------------
     def all_steps(self) -> List[int]:
@@ -151,8 +168,15 @@ class Checkpointer:
         if not force and (self.save_every <= 0 or step % self.save_every != 0):
             return False
         self.wait()
+        self._barrier()   # every rank sees the directory before the write
         if step in self.all_steps():
             return False   # this step is already durable
+        if self.rank == 0:
+            self._save(step, state)
+        self._barrier()
+        return True
+
+    def _save(self, step: int, state: Any) -> None:
         tree = state.state_tree() if hasattr(state, "state_tree") else state
         snapshot = _to_cpu(tree)
         if self.async_save:
@@ -171,7 +195,6 @@ class Checkpointer:
             n = corrupt_step_dir(self.directory, step)
             print(f"chaos_corrupt_checkpoint step={step} files={n}",
                   flush=True)
-        return True
 
     def _write_guarded(self, step: int, snapshot: Any) -> None:
         try:
@@ -238,13 +261,51 @@ class Checkpointer:
             let the keep-rotation delete good checkpoints.
         """
         self.wait()
+        if self.world == 1:
+            return self._restore_newest(target)[1]
+        # Rank 0 restores; the others load the step it restored.
+        outcome: List[Any] = [None]
+        restored = error = None
+        if self.rank == 0:
+            try:
+                step, restored = self._restore_newest(target)
+                outcome[0] = ("ok", step)
+            except Exception as e:  # re-raised here, reported to the rest
+                error = e
+                outcome[0] = ("error", f"{type(e).__name__}: {e}")
+        dist.broadcast_object_list(outcome, src=0)
+        kind, detail = outcome[0]
+        if error is not None:
+            raise error
+        if kind == "error":
+            raise RuntimeError(f"rank 0 failed to restore from "
+                               f"{self.directory}: {detail}")
+        if self.rank == 0 or detail is None:
+            return restored
+        return self._load_step(detail, target)
+
+    def _load_step(self, step: int, target: Any) -> Any:
+        """Step ``step`` loaded into ``target`` (raises what torch.load or
+        the structure check raise)."""
+        want = target.state_tree() if hasattr(target, "state_tree") \
+            else target
+        got = torch.load(os.path.join(self.directory, str(step), STATE_FILE),
+                         map_location="cpu", weights_only=True)
+        _check_structure(got, want)
+        if hasattr(target, "load_state_tree"):
+            return target.load_state_tree(got)
+        return _placed_like(got, want)
+
+    def _restore_newest(self, target: Any) -> Tuple[Optional[int], Any]:
+        """(step, restored state) of restore_latest's policy; (None, None)
+        for a fresh start."""
         chaos.fail_or_delay("checkpoint.restore", OSError,
                             f"restore from {self.directory}")
         want = target.state_tree() if hasattr(target, "state_tree") \
             else target
         steps = sorted(self.all_steps(), reverse=True)
         if not steps:
-            return None
+            return None, None
         failed: List[Tuple[int, str]] = []
         all_structural = True
         last_error: Optional[BaseException] = None
@@ -264,8 +325,8 @@ class Checkpointer:
                 for bad_step, why in failed:
                     self._quarantine(bad_step, why)
                 if hasattr(target, "load_state_tree"):
-                    return target.load_state_tree(got)
-                return _placed_like(got, want)
+                    return step, target.load_state_tree(got)
+                return step, _placed_like(got, want)
             failed.append((step, reason))
             print(f"checkpoint_unreadable step={step} tried=[{reason}] "
                   f"— trying older step", flush=True)
@@ -273,7 +334,7 @@ class Checkpointer:
             print(f"checkpoint_restore_incompatible "
                   f"steps={[s for s, _ in failed]} — starting fresh "
                   f"({last_error})", flush=True)
-            return None
+            return None, None
         raise RuntimeError(
             f"no retained checkpoint in {self.directory} is readable "
             f"(steps {[s for s, _ in failed]}); refusing to restart from "

@@ -1,13 +1,27 @@
-"""Classifier training loop on one device — port of
+"""Classifier training loop, data-parallel over processes — port of
 ``kubeflow_tpu/training/loop.py``.
 
 The reference jits one GSPMD step over a device mesh and fuses K steps
-into one dispatch with ``lax.scan``. The port owns one device: a step is
-eager PyTorch (bf16 compute, f32 params, optimizer state and BatchNorm
-statistics), and ``train_steps`` / ``train_steps_device`` run K steps
-with one host sync at the end, the counterpart of the scan's single
-round trip. Params, running stats and optimizer state are updated in
-place; the methods still return the state, as the reference's do.
+into one dispatch with ``lax.scan``. In the port each process owns one
+device: a step is eager PyTorch (bf16 compute, f32 params, optimizer
+state and BatchNorm statistics), and ``train_steps`` /
+``train_steps_device`` run K steps with one host sync at the end, the
+counterpart of the scan's single round trip. Params, running stats and
+optimizer state are updated in place; the methods still return the
+state, as the reference's do.
+
+Across processes (a ``torch.distributed`` group, started by
+``runners/jax_runner.py`` ``initialize_distributed``) the step keeps the
+reference's semantics, in which the jitted step sees one global,
+data-sharded batch. The step's forward runs through
+``DistributedDataParallel``, which starts every rank from rank 0's params
+and buffers and averages the gradients across ranks in buckets before the
+update, so the loss is the global batch's mean and the params stay equal
+on every rank. Each rank feeds its shard of the global batch; BatchNorm
+normalises with the global batch's statistics (the loop sets the
+BatchNorms' ``sync_group``, ``models/layers.py``); the reported loss and
+accuracy are the global batch's, the same on every rank. ``evaluate`` averages each rank's shard over the group, as the
+reference's sharded reduction does.
 
 The optimizers are optax's, written for PyTorch (``OptaxOptimizer``):
 hyperparameters live in the optimizer's ``param_groups`` and travel with
@@ -16,9 +30,6 @@ a checkpoint (optax's ``inject_hyperparams`` keeps them in ``opt_state``);
 state. The reference's ``legacy_checkpoint_layouts`` is not ported: it
 migrates an optax layout from before ``inject_hyperparams`` that no
 checkpoint of the port ever had.
-
-The mesh is one device: ``KFX_NUM_PROCESSES`` > 1 raises (multi-GPU is
-ROADMAP.md Queue A 6).
 """
 
 from __future__ import annotations
@@ -27,14 +38,16 @@ import copy
 import dataclasses
 import os
 import time
-from typing import Any, Dict, List, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..obs.metrics import default_registry
+from ..runtime.rendezvous import ENV_NUM_PROCESSES, rank_world
 
 _HYPER = ("lr", "weight_decay", "momentum")
 
@@ -168,6 +181,10 @@ class TrainState:
     step: int
     model: torch.nn.Module
     optimizer: OptaxOptimizer
+    # The DistributedDataParallel wrapper of ``model`` that the step calls
+    # over several ranks; ``model`` stays unwrapped, so checkpoints and
+    # state_dict keys do not change with the world size.
+    replicated: Optional[torch.nn.Module] = None
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -196,17 +213,20 @@ class TrainState:
 
 
 class TrainLoop:
-    """Builds and runs the step for a classifier of ``models/`` on one
-    device (``cuda`` unless the caller passes ``device="cpu"``)."""
+    """Builds and runs the step for a classifier of ``models/`` on this
+    process's device (``cuda`` unless the caller passes ``device="cpu"``),
+    data-parallel over the process group when one is initialized."""
 
     def __init__(self, model, learning_rate: float = 1e-3,
                  optimizer: str = "adam", weight_decay: float = 0.0,
                  seed: int = 0, device: Union[str, torch.device] = "cuda"):
-        n_proc = int(os.environ.get("KFX_NUM_PROCESSES", "1") or 1)
-        if n_proc > 1:
-            raise NotImplementedError(
-                f"KFX_NUM_PROCESSES={n_proc}: the port's TrainLoop owns one "
-                "device; multi-GPU data parallelism is ROADMAP.md Queue A 6")
+        self.rank, self.world = rank_world()
+        n_proc = int(os.environ.get(ENV_NUM_PROCESSES, "1") or 1)
+        if n_proc > 1 and n_proc != self.world:
+            raise RuntimeError(
+                f"{ENV_NUM_PROCESSES}={n_proc} but the torch.distributed "
+                f"group has {self.world} process(es): call "
+                "runners.jax_runner.initialize_distributed first")
         self.model = model
         self.seed = seed
         self.device = resolve_device(device)
@@ -244,8 +264,24 @@ class TrainLoop:
         model = copy.deepcopy(self.model).cpu()
         model.reset_parameters(torch.Generator().manual_seed(self.seed))
         model.to(self.device, memory_format=torch.channels_last)
-        return TrainState(step=0, model=model,
-                          optimizer=self._make_opt(model.parameters()))
+        state = TrainState(step=0, model=model,
+                           optimizer=self._make_opt(model.parameters()))
+        if self.world > 1:
+            from torch.nn.parallel import DistributedDataParallel
+
+            from ..models.layers import BatchNorm
+
+            for mod in model.modules():
+                if isinstance(mod, BatchNorm):
+                    mod.sync_group = dist.group.WORLD
+            # The constructor broadcasts rank 0's params and buffers; the
+            # running stats stay equal after, as BatchNorm's statistics
+            # are the global batch's on every rank.
+            state.replicated = DistributedDataParallel(
+                model, broadcast_buffers=False,
+                device_ids=([self.device] if self.device.type == "cuda"
+                            else None))
+        return state
 
     def reapply_hyperparams(self, state: TrainState) -> TrainState:
         """Re-assert THIS loop's hyperparams over a restored state:
@@ -260,15 +296,35 @@ class TrainLoop:
     # -- steps -------------------------------------------------------------
     def _step(self, state: TrainState, images: torch.Tensor,
               labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One update; returns (loss, accuracy) as device scalars."""
-        logits = state.model(images, train=True)
+        """One update; returns (loss, accuracy) as device scalars, this
+        rank's shard's (``_global_mean`` makes them the global batch's)."""
+        net = state.model if state.replicated is None else state.replicated
+        logits = net(images, train=True)
         loss = F.cross_entropy(logits, labels)
         acc = (logits.argmax(-1) == labels).to(torch.float32).mean()
+        # Over several ranks DDP averages the gradients in the backward:
+        # with equal shards, the gradient of the global batch's mean loss.
         loss.backward()
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)
         state.step += 1
         return loss.detach(), acc
+
+    def _mean_over_ranks(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` averaged over the process group, in place (gloo has no
+        AVG reduction)."""
+        dist.all_reduce(t)
+        return t.div_(self.world)
+
+    def _global_mean(self, loss: torch.Tensor, acc: torch.Tensor
+                     ) -> Tuple[float, float]:
+        """A step's (loss, accuracy) over the global batch, as floats (a
+        host sync); one collective."""
+        pair = torch.stack([loss.float(), acc])
+        if self.world > 1:
+            self._mean_over_ranks(pair)
+        loss, acc = pair.tolist()
+        return loss, acc
 
     def _put(self, images, labels) -> Tuple[torch.Tensor, torch.Tensor]:
         return (torch.as_tensor(images).to(self.device, torch.float32),
@@ -289,7 +345,7 @@ class TrainLoop:
         x, y = self._put(images, labels)
         for k in range(x.shape[0]):
             loss, acc = self._step(state, x[k], y[k])
-        loss, acc = float(loss), float(acc)  # sync before timing
+        loss, acc = self._global_mean(loss, acc)  # sync before timing
         self._record_steps(time.perf_counter() - t0, images.shape[0],
                            images.shape[1])
         return state, loss, acc
@@ -306,7 +362,14 @@ class TrainLoop:
                            ) -> Tuple[TrainState, float, float]:
         """Run n_steps with batches drawn on the device by ``batch_fn``
         (``data.synthetic.Dataset.device_batch_fn``), one sync at the
-        end."""
+        end. ``batch_size`` is the global batch: every rank draws it from
+        the same seed and trains on its rows, so a run over several ranks
+        sees the stream a single process sees."""
+        if batch_size % self.world:
+            raise ValueError(f"batch_size {batch_size} not divisible by "
+                             f"the {self.world} ranks")
+        per = batch_size // self.world
+        rows = slice(self.rank * per, (self.rank + 1) * per)
         entry = self._device_consts.get(id(batch_fn))
         if entry is None:
             consts = torch.from_numpy(batch_fn.consts).to(self.device)
@@ -318,8 +381,8 @@ class TrainLoop:
         for i in range(n_steps):
             gen.manual_seed(self.step_seed(start_step + i))
             images, labels = batch_fn(consts, gen, batch_size)
-            loss, acc = self._step(state, images, labels)
-        loss, acc = float(loss), float(acc)  # sync before timing
+            loss, acc = self._step(state, images[rows], labels[rows])
+        loss, acc = self._global_mean(loss, acc)  # sync before timing
         self._record_steps(time.perf_counter() - t0, n_steps, batch_size)
         return state, loss, acc
 
@@ -329,18 +392,29 @@ class TrainLoop:
                  ) -> Dict[str, float]:
         """Mean loss and accuracy over the full batches of ``batch_size``
         (a ragged tail is dropped, as the reference's sharded eval drops
-        it); ``count`` is the number of examples seen."""
+        it); ``count`` is the number of examples this process saw. Over
+        several ranks each passes its own shard, and each batch's metrics
+        are averaged over the group, as the reference's sharded reduction
+        averages over the global batch."""
         state.model.eval()
-        losses: List[float] = []
-        accs: List[float] = []
-        count = 0
-        for i in range(0, len(images) - batch_size + 1, batch_size):
-            x, y = self._put(images[i:i + batch_size],
-                             labels[i:i + batch_size])
+        n_batches = len(images) // batch_size
+        if self.world > 1:   # every rank must run the same collectives
+            n = torch.tensor([n_batches], device=self.device)
+            dist.all_reduce(n, op=dist.ReduceOp.MIN)
+            n_batches = int(n)
+        metrics = torch.zeros((n_batches, 2), device=self.device)
+        for i in range(n_batches):
+            lo = i * batch_size
+            x, y = self._put(images[lo:lo + batch_size],
+                             labels[lo:lo + batch_size])
             logits = state.model(x, train=False)
-            losses.append(float(F.cross_entropy(logits, y)))
-            accs.append(float((logits.argmax(-1) == y).float().mean()))
-            count += batch_size
-        return {"loss": float(np.mean(losses)) if losses else float("nan"),
-                "accuracy": float(np.mean(accs)) if accs else float("nan"),
-                "count": count}
+            metrics[i, 0] = F.cross_entropy(logits, y)
+            metrics[i, 1] = (logits.argmax(-1) == y).float().mean()
+        if self.world > 1:
+            self._mean_over_ranks(metrics)
+        metrics = metrics.cpu().numpy().astype(np.float64)
+        return {"loss": float(np.mean(metrics[:, 0])) if n_batches
+                else float("nan"),
+                "accuracy": float(np.mean(metrics[:, 1])) if n_batches
+                else float("nan"),
+                "count": n_batches * batch_size}

@@ -532,10 +532,62 @@ def test_main_serves_an_lm_export(tmp_path):
         proc.wait(timeout=30)
 
 
-def test_main_refuses_unported_frameworks(export_dir, tmp_path, capsys):
-    for fw in ("pytorch", "tensorflow", "sklearn"):
-        assert port_server.main(["--model-dir", export_dir,
-                                 "--framework", fw]) == 2
-        assert "Queue A 9" in capsys.readouterr().err
+def _framework_export(fw, root):
+    """A small export of framework ``fw`` under ``root``: the port's
+    TorchScript and joblib exporters, the reference's SavedModel exporter
+    (jax2tf; the port's is ROADMAP.md Queue A 9b)."""
+    if fw == "pytorch":
+        from kubeflow_tpu_torch.serving.torch_server import export_torchscript
+
+        return export_torchscript(
+            root, torch.nn.Sequential(torch.nn.Flatten(),
+                                      torch.nn.Linear(6, 3)),
+            input_shape=(2, 3), num_classes=3), (2, 3)
+    if fw == "sklearn":
+        from sklearn.linear_model import LogisticRegression
+
+        from kubeflow_tpu_torch.serving.sklearn_server import export_sklearn
+
+        est = LogisticRegression().fit(
+            np.random.default_rng(0).normal(size=(12, 6)), [0, 1, 2] * 4)
+        return export_sklearn(root, est, input_shape=(2, 3),
+                              num_classes=3), (2, 3)
+    pytest.importorskip("tensorflow")
+    from kubeflow_tpu.models import get_model as ref_get_model
+    from kubeflow_tpu.serving.tf_server import export_savedmodel
+    from kubeflow_tpu.training import TrainLoop as RefTrainLoop
+
+    state = RefTrainLoop(ref_get_model("mlp", num_classes=10)).init_state(
+        (28, 28, 1))
+    return export_savedmodel(root, "mlp", (28, 28, 1), 10, state), (28, 28, 1)
+
+
+@pytest.mark.parametrize("fw", ["pytorch", "tensorflow", "sklearn"])
+def test_main_serves_the_other_frameworks(fw, tmp_path):
+    """``--framework pytorch|tensorflow|sklearn`` serves its export (the
+    refusal of Queue A 9 is gone); tensorflow and sklearn run on the host
+    even when ``--device`` names the card."""
+    model_dir, shape = _framework_export(fw, str(tmp_path / fw))
+    host_only = [] if fw == "pytorch" else ["--device", "cuda"]
+    proc, line = _serve(model_dir, "--framework", fw, *host_only)
+    try:
+        assert line.startswith("server_ready"), proc.stderr.read()
+        f = _fields(line)
+        assert f["framework"] == fw and f["device"] == "cpu"
+        status, body = _post(
+            f"http://127.0.0.1:{f['port']}/v1/models/model:predict",
+            {"instances": np.zeros((2,) + shape).tolist()})
+        assert status == 200 and len(body["predictions"]) == 2
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+
+
+def test_main_refuses_a_dir_without_an_export(export_dir, tmp_path, capsys):
     assert port_server.main(["--model-dir", str(tmp_path)]) == 2
     assert "holds no export" in capsys.readouterr().err
+    for fw in ("pytorch", "tensorflow", "sklearn", "lm"):
+        assert port_server.main(["--model-dir", export_dir,
+                                 "--framework", fw]) == 2
+        assert f"holds no export for --framework {fw}" in \
+            capsys.readouterr().err

@@ -924,3 +924,94 @@ def test_eviction_returns_the_slot_bytes_on_cuda(cuda_pool, tmp_path):
         assert alloc0 - torch.cuda.memory_allocated() >= nbytes
     finally:
         eng.close()
+
+
+@pytest.fixture
+def cuda_compat():
+    if not torch.cuda.is_available():
+        pytest.skip("the Kubeflow compat surface on the card (TorchPredictor "
+                    "on cuda, the PyTorchJob worker on NCCL, the MPIJob "
+                    "ranks on one card) needs an NVIDIA GPU; "
+                    "torch.cuda.is_available() is false")
+    return torch.device("cuda")
+
+
+def _compat_env(**extra):
+    import os
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("KFX_", "OMPI_", "MASTER_"))
+           and k not in ("RANK", "WORLD_SIZE")}
+    env["PYTHONPATH"] = os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))
+    env.update(extra)
+    return env
+
+
+def test_torch_predictor_on_cuda_matches_cpu(cuda_compat, tmp_path):
+    """A TorchScript export served on the card by default answers as on
+    the CPU: predictions equal, probabilities within 1e-4 (TF32 off)."""
+    from kubeflow_tpu_torch.serving.torch_server import (
+        TorchPredictor, export_torchscript)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    module = torch.nn.Sequential(
+        torch.nn.Flatten(), torch.nn.Linear(16, 8), torch.nn.ReLU(),
+        torch.nn.Linear(8, 3))
+    export_torchscript(str(tmp_path), module, input_shape=(4, 4),
+                       num_classes=3)
+    x = np.random.default_rng(0).normal(size=(70, 4, 4)).astype(np.float32)
+    got = {}
+    for device in ("auto", "cpu"):
+        p = TorchPredictor(str(tmp_path), device=device)
+        p.load()
+        assert p.device == ("cuda" if device == "auto" else "cpu")
+        got[device] = p.predict(x, probabilities=True)
+    assert got["auto"]["predictions"] == got["cpu"]["predictions"]
+    assert np.abs(np.asarray(got["auto"]["probabilities"])
+                  - np.asarray(got["cpu"]["probabilities"])).max() <= 1e-4
+
+
+def test_torch_runner_world1_on_nccl(cuda_compat):
+    """A one-replica PyTorchJob on the card rendezvouses over NCCL, the
+    default backend on cuda."""
+    import subprocess
+    import sys
+
+    from kubeflow_tpu_torch.utils.net import free_port
+
+    out = subprocess.run(
+        [sys.executable, "-m", "kubeflow_tpu_torch.runners.torch_runner",
+         "--dataset=mnist", "--steps=20", "--batch-size=128",
+         "--log-every=10", "--eval-samples=512"],
+        env=_compat_env(MASTER_ADDR="127.0.0.1",
+                        MASTER_PORT=str(free_port()), WORLD_SIZE="1",
+                        RANK="0"),
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "rank=0 world=1 backend=nccl" in out.stdout
+    assert "train_done steps=20" in out.stdout
+
+
+def test_shim_two_ranks_on_one_card(cuda_compat):
+    """The MPIJob pair at -np 2 on one card: gloo over the card's tensors
+    (NCCL refuses two ranks on one card), the same step= lines on both
+    ranks."""
+    import re
+    import subprocess
+    import sys
+
+    out = subprocess.run(
+        [sys.executable, "-m", "kubeflow_tpu_torch.runners.mpi_launcher",
+         "-np", "2", sys.executable, "-m",
+         "kubeflow_tpu_torch.runners.mpi_jax_runner", "--model=mlp",
+         "--dataset=mnist", "--steps=6", "--batch-size=64", "--log-every=3",
+         "--no-checkpoint"],
+        env=_compat_env(), capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.count("backend=gloo") == 2
+    assert out.stdout.count("platform=cuda") == 2
+    steps = sorted(re.sub(r" (step_time|examples_per_sec)=\S+", "", ln)
+                   for ln in out.stdout.splitlines()
+                   if ln.startswith("step="))
+    assert len(steps) == 4 and steps[0::2] == steps[1::2], steps

@@ -1,7 +1,10 @@
 """The port stands alone: kubeflow_tpu_torch and chip_smoke.py import no
 JAX-family package, no msgpack (the card's machine has none) and nothing
 of kubeflow_tpu, and call no library attention kernel or
-torch.compile."""
+torch.compile. TensorFlow, scikit-learn and joblib (also absent there) are
+imported only inside the host-only predictors' and runner's functions:
+every module, chip_smoke.py and tests/test_torch_cuda.py import with them
+blocked."""
 
 import os
 import pkgutil
@@ -17,10 +20,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "kubeflow_tpu_torch")
 BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
           "kubeflow_tpu")
+HOST_ONLY = ("tensorflow", "sklearn", "joblib")
 
 _BLOCKER = f"""
-import importlib, pkgutil, sys
-BANNED = {BANNED!r}
+import importlib, importlib.util, pkgutil, sys
+BANNED = {BANNED + HOST_ONLY!r}
 
 class Blocker:
     def find_spec(self, name, path=None, target=None):
@@ -39,6 +43,9 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+spec = importlib.util.spec_from_file_location(
+    "test_torch_cuda", {os.path.join(REPO, "tests", "test_torch_cuda.py")!r})
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [m for m in sys.modules if m.split(".")[0] in BANNED]
 assert not bad, bad
 print("imported", len(names))
@@ -57,7 +64,7 @@ def test_every_module_imports_with_jax_blocked():
                          env=env)
     assert res.returncode == 0, res.stderr
     assert f"imported {len(_modules())}" in res.stdout
-    assert len(_modules()) >= 48
+    assert len(_modules()) >= 56
     # The serving engine, its prefix keying, its usage ledger, its KV
     # transfer plane, its weight pool with the storage initializer and
     # its flight recorder are on the list, the classifier / JAXJob path,
@@ -83,7 +90,18 @@ def test_every_module_imports_with_jax_blocked():
             "kubeflow_tpu_torch.training.loop",
             "kubeflow_tpu_torch.training.checkpoint",
             "kubeflow_tpu_torch.runners.jax_runner",
-            "kubeflow_tpu_torch.serving.export"} <= set(_modules())
+            "kubeflow_tpu_torch.serving.export",
+            # the Kubeflow compat surface: the other framework predictors,
+            # the TFJob/PyTorchJob/MPIJob workers and what they share
+            "kubeflow_tpu_torch.serving.torch_server",
+            "kubeflow_tpu_torch.serving.tf_server",
+            "kubeflow_tpu_torch.serving.sklearn_server",
+            "kubeflow_tpu_torch.runners.torch_runner",
+            "kubeflow_tpu_torch.runners.tf_runner",
+            "kubeflow_tpu_torch.runners.mpi_launcher",
+            "kubeflow_tpu_torch.runners.mpi_jax_runner",
+            "kubeflow_tpu_torch.runtime.lifetime",
+            "kubeflow_tpu_torch.utils.net"} <= set(_modules())
 
 
 def _sources():

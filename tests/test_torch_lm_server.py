@@ -676,13 +676,14 @@ def test_predictor_defaults_to_cuda(tiny_export):
 
 
 def test_server_main_refuses_non_lm_exports(tmp_path, capsys):
-    # A directory with neither an LM nor a classifier export, and the
-    # predictors not ported yet (classifier exports serve since the
-    # classifier path landed: tests/test_torch_classifier_server.py).
+    # A directory with no export of any framework (classifier exports
+    # serve since the classifier path landed, the other frameworks' since
+    # their predictors did: tests/test_torch_classifier_server.py).
     assert port_server.main(["--model-dir", str(tmp_path)]) == 2
     assert "holds no export" in capsys.readouterr().err
     assert port_server.main(["--model-dir", str(tmp_path),
                              "--framework", "jax"]) == 2
     assert port_server.main(["--model-dir", str(tmp_path),
                              "--framework", "pytorch"]) == 2
-    assert "Queue A 9" in capsys.readouterr().err
+    assert "holds no export for --framework pytorch" in \
+        capsys.readouterr().err
