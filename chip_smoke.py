@@ -46,6 +46,23 @@ Phases, in order; any failure raises and the process exits non-zero:
    step's peak memory with and without loss_chunk on the same batch;
    (h4) the runner with --experts 8 (top-2, capacity 1.25) and
    save_flash_full, b4: finite losses, and the aux term printed;
+5c. (p) the LM trainer across ranks, right after the main path, two
+   ranks sharing the card over gloo (NCCL refuses that; each rank's
+   process_group line must name the host-staged transport): (p1) the main
+   path's runner command at --tp 2, each rank this script with
+   --p1-rank, its launch counters set to 0 just before the runner and
+   read just after: flash 120/96/96 on each rank, q holding 8 of the 16
+   heads, the step-2 loss within 2e-3 of the main path's (the first
+   update has learning rate 0) and steps 3-4 and the eval loss within
+   1e-2; each rank's step time, peak memory and the time of one tp
+   all-reduce of [4, 2048, 1024] bf16 (times the 4L + 2 a step); (p2)
+   parallel/spmd_check.py's tp_fsdp, cp, ep and pp variants at the base
+   width cut to 4 layers, S 2048, f32 (flash on FMA), batch 4, two ranks
+   each (the four side by side), against the same loops at world 1
+   in this process (RTOL 2e-3), then the main path's runner command at
+   two ranks (dp2) with --collective-overlap on against LMTrainLoop at
+   world 1 on the same global batch (2e-3), its collective_allreduce
+   line and its train.collective span;
 6. serving, with the launch counters set to 0 just before and read just
    after (the decode path reaches no flash kernel, as in the reference):
    (a) that export loaded by LMPredictor on the card behind an in-process
@@ -155,10 +172,11 @@ Phases, in order; any failure raises and the process exits non-zero:
    fallback "base" serves the base's tokens, counts one fallback, then
    heals; (l4) the bf16 export behind ModelServer with KFX_LM_ADAPTERS
    (9 artifacts over 8 slots, KFX_LM_SPEC=0): 8 concurrent :generate
-   requests each with its own adapter against the same on a base-only
-   server (aggregate tokens/s), hbm_bytes() of both and their ratio, the
-   kfx_lm_adapter_* families on /metrics, the chunk at 8 slots with and
-   without adapters (ms, kernels, host enqueue, busy share), and with
+   requests each with its own adapter (aggregate tokens/s, against (f2)'s
+   base-only wave on the same export), hbm_bytes() and its ratio to the
+   total without the adapter stacks, the kfx_lm_adapter_* families on
+   /metrics, the chunk at 8 slots with adapters (ms, kernels, host
+   enqueue, busy share; against (f3)'s base-only chunk), and with
    fallback "error" the ninth adapter's failed load answers 503 with
    Retry-After, then serves; flash launches 0/0/0 in (l1)-(l5);
    (m) the request plane and the KV transfer plane: (m0) one-slot engines
@@ -236,7 +254,7 @@ Phases, in order; any failure raises and the process exits non-zero:
 7. one JSON line per kernel set, the serving line, the engine line, the
    spec line, the training line, the classifier line, the int8 line, the
    chaos line, the lora line, the kv line, the weights line, the compat
-   line, the script's seconds, the card's name and power limit, and the
+   line, the ranks line, each phase's seconds, the script's seconds, the card's name and power limit, and the
    last line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
@@ -273,7 +291,8 @@ MAIN_ARGV = ["--preset", "base", "--dataset", "lm-small", "--steps", "4",
 MAIN_STEPS = 4
 
 # Serving phase: the :generate request (8 prompts whose lengths are drawn
-# from a seed in [64, 512], the longest 512, greedy, 64 new tokens), the
+# from a seed in [64, 512], the longest 512, greedy, 64 new tokens: at 32
+# the 8 no longer outgrow (f)'s small pool, which must preempt), the
 # cache-vs-recompute check (prompts of 17, 64 and 100 tokens, 16 new) and
 # its wide-gap weights (bench.py's _spec_benchable_params: lm_head tied to
 # the embedding, attn.out and mlp.wo scaled by 0.35).
@@ -318,6 +337,24 @@ KEEPS_FLASH = ("save_flash", "save_flash_min", "save_flash_full")
 TOL_REMAT_F32 = 1e-5   # remat vs no remat grads, f32, rel. to each max
 LOSS_CHUNK = 256
 MOE_EXPERTS = 8
+
+# Phase (p), the LM trainer across ranks, two ranks on the one card over
+# gloo (NCCL refuses two ranks on one card). (p1) the main path's runner
+# command at --tp 2. Its step-2 loss comes after the first update, whose
+# learning rate is 0 (warmup 1), so only the order of the reductions
+# differs from the main path's: held to 2e-3 relative. Steps 3-4 and the
+# eval loss follow updates from grads whose bf16 partial sums were
+# all-reduced in bf16: held to 1e-2 (the bar set before the first run;
+# PERF.md has the measured values). (p2) spmd_check's variants at the
+# base width, 4 layers, S 2048, f32 (flash on FMA), the four variants side
+# by side (eight ranks, ~6 GB each), and dp2 with --collective-overlap on.
+P1_ARGV = MAIN_ARGV + ["--tp", "2"]
+P1_FIRST_RTOL = 2e-3
+P1_LATER_RTOL = 1e-2
+P_TP_ELEMS = 4 * 2048 * 1024     # one tp all-reduce: [b, S, d]
+P_TP_REPS = 10
+P2_CONFIG = "base-l4"
+P2_SIDE_BY_SIDE = 4
 
 # Classifier phase (i): ResNet-50 through the JAXJob runner at the
 # reference's own points (bench.py _bench_resnet50: the MPIJob config,
@@ -712,7 +749,9 @@ def main_path_phase(torch, fa, export_dir):
         f"tokens_per_s={tps:.0f} mfu={mfu:.4f} "
         f"peak_memory_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
         f"launches={json.dumps(launches)}")
-    return launches, step_time
+    return launches, step_time, {"losses": losses,
+                                 "final": float(final.group(1)),
+                                 "step_time": step_time}
 
 
 def _grads(torch, model, tokens):
@@ -2924,7 +2963,8 @@ def lora_finetune(torch, fa, export_dir, out_dir, dev, base_step):
     return rec, flat
 
 
-def lora_phase(torch, fa, export_dir, gap_cfg, prompts, f1, dev, base_step):
+def lora_phase(torch, fa, export_dir, gap_cfg, prompts, f1, dev, base_step,
+               base_served):
     """(l) multi-tenant LoRA at the base preset's full width; see the
     module docstring. ``f1`` holds phase (f1)'s LMGenerator tokens on the
     wide-gap f32 base weights. Returns the {"lora": ...} record."""
@@ -3132,95 +3172,87 @@ def lora_phase(torch, fa, export_dir, gap_cfg, prompts, f1, dev, base_step):
     lap("l5a")
 
     # (l4) the bf16 export behind the server with KFX_LM_ADAPTERS (the
-    # eight, plus a ninth over 8 slots for (l5b)), then base-only.
+    # eight, plus a ninth over 8 slots for (l5b)). The base-only side of
+    # its comparisons is (f2)'s wave and (f3)'s chunk on the same export
+    # (``base_served``), and the base engine's HBM its own total less the
+    # adapter stacks (the base-only server this phase ran before was cut
+    # to make room for phase (p)).
     fa.reset_launches()
-    one = lambda p, n=None: dict(
-        {"prompt_tokens": [p], "max_new_tokens": SERVE_NEW},
-        **({} if n is None else {"adapter": n}))
-    served = {}
-    for tag, env in (
-            ("adapters", {
-                "KFX_LM_ADAPTERS": json.dumps(
-                    {n: "file://" + d for n, d in sources.items()}),
-                "KFX_LM_ADAPTER_SLOTS": str(LORA_ADAPTERS),
-                "KFX_LM_ADAPTER_FALLBACK": "error", "KFX_LM_SPEC": "0"}),
-            ("base", {"KFX_LM_SPEC": "0"})):
-        os.environ.update(env)
+    one = lambda p, n: {"prompt_tokens": [p], "max_new_tokens": SERVE_NEW,
+                        "adapter": n}
+    env = {"KFX_LM_ADAPTERS": json.dumps(
+               {n: "file://" + d for n, d in sources.items()}),
+           "KFX_LM_ADAPTER_SLOTS": str(LORA_ADAPTERS),
+           "KFX_LM_ADAPTER_FALLBACK": "error", "KFX_LM_SPEC": "0"}
+    os.environ.update(env)
+    try:
+        pred = LMPredictor(export_dir, name="lm", device=dev.type)
+        pred.load()
+    finally:
+        for k in env:
+            del os.environ[k]
+    pred._warm_thread.join(600)
+    server = ModelServer(port=0)
+    server.register(pred)
+    server.start()
+    url = f"http://127.0.0.1:{server.port}"
+    gen_url = f"{url}/v1/models/lm:generate"
+    try:
+        # Page every adapter in (a one-token prompt, no prefix shared
+        # with the wave) so the timed wave is decode, as on the base.
+        run_threads(lambda n: http_json(gen_url, {
+            "prompt_tokens": [[1]], "max_new_tokens": 1, "adapter": n}),
+            names)
+        t0 = time.perf_counter()
+        bodies = run_threads(lambda a: http_json(gen_url, one(*a)),
+                             list(zip(prompts, names)))
+        wall = time.perf_counter() - t0
+        toks = [b["generated_tokens"][0] for b in bodies]
+        check(all(len(t) == SERVE_NEW for t in toks),
+              f"(l4) answers {[len(t) for t in toks]}")
+        blk = http_json(f"{url}/metrics?format=json")["engine"]["lm"]
+        text = http_json(f"{url}/metrics")
+        missing = [f for f in (
+            "kfx_lm_adapter_slots", "kfx_lm_adapter_slots_free",
+            "kfx_lm_adapter_loads_total", "kfx_lm_adapter_evictions_total",
+            "kfx_lm_adapter_fallbacks_total",
+            "kfx_lm_adapter_requests_total") if f not in text]
+        check(not missing, f"(l4) adapter families missing: {missing}")
+        check(blk.get("adapter_slots") == LORA_ADAPTERS,
+              f"(l4) engine block {blk}")
+        # (l5b) fallback "error": the ninth adapter's load fails once ->
+        # 503 + Retry-After, then it serves.
+        chaos.install(chaos.ChaosPlan(
+            [chaos.Rule("engine.adapter_load", p=1.0, count=1)], seed=1))
         try:
-            pred = LMPredictor(export_dir, name="lm", device=dev.type)
-            pred.load()
+            code, _, hdr = post_status(gen_url, one(prompts[0], spare))
         finally:
-            for k in env:
-                del os.environ[k]
-        pred._warm_thread.join(600)
-        server = ModelServer(port=0)
-        server.register(pred)
-        server.start()
-        url = f"http://127.0.0.1:{server.port}"
-        gen_url = f"{url}/v1/models/lm:generate"
-        mine = names if tag == "adapters" else [None] * len(names)
-        try:
-            # Page every adapter in (a one-token prompt, no prefix shared
-            # with the wave) so the timed wave is decode, as on the base.
-            run_threads(lambda n: http_json(gen_url, {
-                "prompt_tokens": [[1]], "max_new_tokens": 1,
-                **({} if n is None else {"adapter": n})}), mine)
-            t0 = time.perf_counter()
-            bodies = run_threads(lambda a: http_json(gen_url, one(*a)),
-                                 list(zip(prompts, mine)))
-            wall = time.perf_counter() - t0
-            toks = [b["generated_tokens"][0] for b in bodies]
-            check(all(len(t) == SERVE_NEW for t in toks),
-                  f"(l4) {tag} answers {[len(t) for t in toks]}")
-            blk = http_json(f"{url}/metrics?format=json")["engine"]["lm"]
-            text = http_json(f"{url}/metrics")
-            has = all(f in text for f in (
-                "kfx_lm_adapter_slots", "kfx_lm_adapter_slots_free",
-                "kfx_lm_adapter_loads_total",
-                "kfx_lm_adapter_evictions_total",
-                "kfx_lm_adapter_fallbacks_total",
-                "kfx_lm_adapter_requests_total"))
-            check(has == (tag == "adapters"),
-                  f"(l4) {tag}: adapter families present: {has}")
-            if tag == "adapters":
-                check(blk.get("adapter_slots") == LORA_ADAPTERS,
-                      f"(l4) engine block {blk}")
-                # (l5b) fallback "error": the ninth adapter's load fails
-                # once -> 503 + Retry-After, then it serves.
-                chaos.install(chaos.ChaosPlan(
-                    [chaos.Rule("engine.adapter_load", p=1.0, count=1)],
-                    seed=1))
-                try:
-                    code, _, hdr = post_status(gen_url,
-                                               one(prompts[0], spare))
-                finally:
-                    chaos.install(None)
-                check(code == 503 and hdr.get("Retry-After") is not None,
-                      f"(l5) fallback error answered {code} {dict(hdr)}")
-                ok = http_json(gen_url, one(prompts[0], spare))
-                check(len(ok["generated_tokens"][0]) == SERVE_NEW,
-                      "(l5) the ninth adapter did not heal")
-                rec["chaos"] = {"fallback_base": "base tokens, 1 counted, "
-                                "healed", "fallback_error": code}
-        finally:
-            server.stop()
-        eng = pred.engine
-        eng.close()
-        chunk_ms, enq, prof = chunk_by_hand(
-            torch, eng, prompts, names if tag == "adapters" else None)
-        busy = prof.get("kernel_ms")
-        served[tag] = {
-            "tokens_per_s": len(prompts) * SERVE_NEW / wall,
-            "wave_seconds": wall, "hbm_bytes": eng.hbm_bytes(),
-            "chunk_ms": chunk_ms, "host_enqueue_ms": enq,
-            "kernels": prof.get("kernels"), "kernel_ms": busy,
-            "busy_share": busy / chunk_ms if busy else None,
-            "top_kernels_ms": prof.get("top_kernels_ms")}
-        del pred, eng, server
-        torch.cuda.empty_cache()
-    a, b = served["adapters"], served["base"]
-    rec["served"] = served
-    rec["hbm_ratio"] = a["hbm_bytes"]["total"] / b["hbm_bytes"]["total"]
+            chaos.install(None)
+        check(code == 503 and hdr.get("Retry-After") is not None,
+              f"(l5) fallback error answered {code} {dict(hdr)}")
+        ok = http_json(gen_url, one(prompts[0], spare))
+        check(len(ok["generated_tokens"][0]) == SERVE_NEW,
+              "(l5) the ninth adapter did not heal")
+        rec["chaos"] = {"fallback_base": "base tokens, 1 counted, healed",
+                        "fallback_error": code}
+    finally:
+        server.stop()
+    eng = pred.engine
+    eng.close()
+    chunk_ms, enq, prof = chunk_by_hand(torch, eng, prompts, names)
+    busy = prof.get("kernel_ms")
+    a = {"tokens_per_s": len(prompts) * SERVE_NEW / wall,
+         "wave_seconds": wall, "hbm_bytes": eng.hbm_bytes(),
+         "chunk_ms": chunk_ms, "host_enqueue_ms": enq,
+         "kernels": prof.get("kernels"), "kernel_ms": busy,
+         "busy_share": busy / chunk_ms if busy else None,
+         "top_kernels_ms": prof.get("top_kernels_ms")}
+    del pred, eng, server
+    torch.cuda.empty_cache()
+    b = base_served
+    base_hbm = a["hbm_bytes"]["total"] - a["hbm_bytes"]["adapters"]
+    rec["served"] = {"adapters": a, "base_f2_f3": b}
+    rec["hbm_ratio"] = a["hbm_bytes"]["total"] / base_hbm
     rec["chunk_ratio"] = a["chunk_ms"] / b["chunk_ms"]
     rec["tokens_per_s_ratio"] = a["tokens_per_s"] / b["tokens_per_s"]
     rec["flash_launches"] = dict(fa.LAUNCHES)
@@ -3229,14 +3261,13 @@ def lora_phase(torch, fa, export_dir, gap_cfg, prompts, f1, dev, base_step):
     lap("l4_l5b")
     log(f"lora (l4) bf16 export, {LORA_ADAPTERS} concurrent :generate x "
         f"{SERVE_NEW}, each its own adapter: {a['tokens_per_s']:.1f} "
-        f"tokens/s against base-only {b['tokens_per_s']:.1f}; HBM "
+        f"tokens/s against (f2)'s base-only {b['tokens_per_s']:.1f}; HBM "
         f"{a['hbm_bytes']['total'] / 1e9:.3f} GB vs "
-        f"{b['hbm_bytes']['total'] / 1e9:.3f} GB (ratio "
+        f"{base_hbm / 1e9:.3f} GB without the stacks (ratio "
         f"{rec['hbm_ratio']:.4f}); chunk at {ENGINE_SLOTS} slots "
         f"{a['chunk_ms']:.2f} ms ({a['kernels']} kernels, enqueue "
-        f"{a['host_enqueue_ms']:.2f} ms, busy {a['busy_share']}) vs "
-        f"{b['chunk_ms']:.2f} ms ({b['kernels']} kernels, enqueue "
-        f"{b['host_enqueue_ms']:.2f} ms, busy {b['busy_share']}); (l5) "
+        f"{a['host_enqueue_ms']:.2f} ms, busy {a['busy_share']}) vs (f3)'s "
+        f"{b['chunk_ms']:.2f} ms; (l5) "
         f"{rec['chaos']}; flash launches {rec['flash_launches']}; "
         f"seconds {json.dumps(rec['seconds'])}")
     return rec
@@ -4471,6 +4502,251 @@ def compat_phase(torch, fa, dev, repo, cls_pred, cls_p50):
     return rec
 
 
+# -- (p) the LM trainer across ranks ------------------------------------------
+
+def _rank_lines(out, prefix):
+    return [json.loads(ln[ln.index("{"):]) for ln in out.splitlines()
+            if ln.startswith(prefix)]
+
+
+def p1_rank() -> int:
+    """One rank of (p1) (``--p1-rank``, started by ``p1_phase`` with the
+    rendezvous env): the runner at --tp 2 in this process, then this
+    rank's flash launches, the shape of its first q, its peak memory,
+    and the time of one tp all-reduce of [b, S, d] bf16 over the group
+    the runner used."""
+    import torch
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.models import transformer as TR
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.runners import lm_runner
+
+    seen = {}
+    cuda = "--device" not in P1_ARGV   # the runner's default: the card
+    destroy = dist.destroy_process_group
+    dist.destroy_process_group = lambda *a, **k: None   # for the probe
+    fa.reset_launches()
+    try:
+        with TR.activation_probe(
+                lambda name, x: seen.setdefault(name, list(x.shape))):
+            rc = lm_runner.main(P1_ARGV)
+    finally:
+        dist.destroy_process_group = destroy
+    launches = dict(fa.LAUNCHES)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    x = torch.ones(P_TP_ELEMS, dtype=torch.bfloat16,
+                   device="cuda" if cuda else "cpu")
+    dist.all_reduce(x)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(P_TP_REPS):
+        dist.all_reduce(x)
+    sync()
+    ms = (time.perf_counter() - t0) / P_TP_REPS * 1e3
+    print("p1_rank " + json.dumps({
+        "rank": dist.get_rank(), "launches": launches,
+        "q_shape": seen.get("attn_q"), "residual_shape": seen.get(
+            "residual"), "peak_memory_gb": peak / 1e9,
+        "tp_allreduce_ms": ms}), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return rc
+
+
+def _losses(out):
+    steps = [float(x) for x in re.findall(r"^step=\d+ loss=(\S+)", out,
+                                          re.M)]
+    final = re.search(r"^loss=(\S+)$", out, re.M)
+    return steps, (float(final.group(1)) if final else None)
+
+
+def p1_phase(torch, repo, main):
+    """(p1): the main path's runner command at --tp 2 over two ranks on
+    the one card (gloo), against the main path's losses; see the module
+    docstring (5c)."""
+    from kubeflow_tpu_torch.models.transformer import preset_config
+    from kubeflow_tpu_torch.parallel.spmd_check import run_ranks
+
+    t0 = time.perf_counter()
+    outs = run_ranks([sys.executable, os.path.join(repo, "chip_smoke.py"),
+                      "--p1-rank"], 2, timeout=900, cwd=repo)
+    wall = time.perf_counter() - t0
+    base = preset_config("base")
+    L, H = base.n_layers, base.n_heads
+    want = {"flash_fwd": L * MAIN_STEPS + L, "flash_dq": L * MAIN_STEPS,
+            "flash_dkv": L * MAIN_STEPS}
+    ranks = []
+    for r, (_, out, _) in enumerate(outs):
+        rec = _rank_lines(out, "p1_rank ")[0]
+        check(" plan=pp1/dp1/tp2 " in out, f"(p1) rank {r} plan:\n{out}")
+        m = re.search(r"^process_group backend=(\S+) rank=(\d) world=2 .* "
+                      r"(transport=\S+)$", out, re.M)
+        check(m is not None and m.group(1) == "gloo" and
+              m.group(3).startswith("transport=host_staged("),
+              f"(p1) rank {r} process group line")
+        check(rec["launches"] == want,
+              f"(p1) rank {r} launches {rec['launches']} != {want}")
+        check(rec["q_shape"][2] == H // 2,
+              f"(p1) rank {r} q shape {rec['q_shape']}: not {H // 2} of "
+              f"{H} heads")
+        steps, final = _losses(out)
+        check(len(steps) == MAIN_STEPS - 1 and final is not None,
+              f"(p1) rank {r} lacks the step/loss lines:\n{out}")
+        rel = [abs(a - b) / abs(b) for a, b in
+               zip(steps + [final], main["losses"] + [main["final"]])]
+        check(rel[0] <= P1_FIRST_RTOL,
+              f"(p1) rank {r} step-2 loss {steps[0]} vs the main path's "
+              f"{main['losses'][0]}: rel {rel[0]:.2e} > {P1_FIRST_RTOL}")
+        check(max(rel[1:]) <= P1_LATER_RTOL,
+              f"(p1) rank {r} losses {steps} + {final} vs {main}: rel "
+              f"{rel} > {P1_LATER_RTOL}")
+        times = sorted(float(t) for t in re.findall(r"step_time=(\S+)",
+                                                    out))
+        rec.update(losses=steps, final=final, rel=rel,
+                   step_time=times[len(times) // 2],
+                   tp_allreduces_a_step=4 * L + 2)
+        rec["tp_collective_ms_a_step_est"] = \
+            rec["tp_allreduce_ms"] * rec["tp_allreduces_a_step"]
+        ranks.append(rec)
+    out = {"ranks": ranks, "seconds": wall,
+           "main_path_step_time": main["step_time"]}
+    r0 = ranks[0]
+    log(f"ranks (p1) base lm-small b4 --tp 2 at 2 ranks on one card: step "
+        f"{r0['step_time']} s (main path {main['step_time']}), losses "
+        f"{r0['losses']} + {r0['final']} rel {[f'{x:.2e}' for x in r0['rel']]}"
+        f", q {r0['q_shape']}, tp all-reduce {r0['tp_allreduce_ms']:.3f} ms "
+        f"x {r0['tp_allreduces_a_step']} a step, peak "
+        f"{[round(x['peak_memory_gb'], 2) for x in ranks]} GB, launches "
+        f"{json.dumps(r0['launches'])}, {wall:.1f} s")
+    return out
+
+
+def p2_phase(torch, repo, dev):
+    """(p2): the spmd_check variants at base width, 4 layers, S 2048, f32,
+    two ranks each on the one card (``P2_SIDE_BY_SIDE`` variants at once),
+    against world 1 in this process; then dp2 with --collective-overlap on
+    through the runner against world 1 on the same global batch."""
+    import threading
+
+    import numpy as np
+
+    from kubeflow_tpu_torch.data.lm import get_lm_dataset
+    from kubeflow_tpu_torch.models.transformer import preset_config
+    from kubeflow_tpu_torch.parallel import spmd_check as sc
+    from kubeflow_tpu_torch.parallel.lm_train import (LMHyperParams,
+                                                      LMTrainLoop)
+
+    work = os.path.join(repo, "build", "p2")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    multi, errors, seconds = {}, [], {}
+    slots = threading.Semaphore(P2_SIDE_BY_SIDE)
+
+    def run(v):
+        with slots:
+            t = time.perf_counter()
+            try:
+                multi[v] = sc.cross_process_losses(
+                    v, work, n_processes=2, device=dev.type,
+                    config=P2_CONFIG, timeout=900)
+            except Exception as e:  # reported below, fails the phase
+                errors.append(f"{v}: {e}")
+            seconds[v] = time.perf_counter() - t
+
+    threads = [threading.Thread(target=run, args=(v,)) for v in sc.VARIANTS]
+    for t in threads:
+        t.start()
+    single = {}
+    for v in sc.VARIANTS:
+        single[v] = sc.run_losses(v, 1, dev, P2_CONFIG, like=2)
+        torch.cuda.empty_cache()
+    for t in threads:
+        t.join(1200)
+    check(not any(t.is_alive() for t in threads) and not errors,
+          f"(p2) spmd_check ranks failed: {errors}")
+    rec = {"variants": {}}
+    for v in sc.VARIANTS:
+        sc.assert_close(single[v], multi[v])
+        rec["variants"][v] = {
+            "world1": single[v], "multi": multi[v], "seconds": seconds[v],
+            "max_rel": max(abs(a - b) / abs(a)
+                           for a, b in zip(single[v], multi[v]))}
+    # dp2 with --collective-overlap on: the runner at 2 ranks; world 1 on
+    # the same global batch (shard 0 || shard 1 of each step) meanwhile.
+    spans = os.path.join(work, "spans-dp2")
+    got = {}
+
+    def dp2():
+        try:
+            got["outs"] = sc.run_ranks(
+                [sys.executable, "-m", "kubeflow_tpu_torch.runners.lm_runner",
+                 *MAIN_ARGV, "--collective-overlap", "on", "--device",
+                 dev.type], 2,
+                env={"KFX_WORKDIR": spans}, timeout=900, cwd=repo)
+        except Exception as e:  # reported below, fails the phase
+            got["error"] = str(e)
+
+    t1 = time.perf_counter()
+    th = threading.Thread(target=dp2)
+    th.start()
+    ds = get_lm_dataset("lm-small", seed=0)
+    its = [ds.batches(4, shard_index=d, num_shards=2) for d in (0, 1)]
+    loop = LMTrainLoop(preset_config("base", vocab_size=ds.vocab_size,
+                                     max_seq_len=ds.seq_len),
+                       LMHyperParams(warmup_steps=1, total_steps=MAIN_STEPS),
+                       dev)
+    loop.init_state()
+    want = []
+    for _ in range(MAIN_STEPS):
+        want.append(loop.train_step(np.concatenate(
+            [next(it) for it in its]))[0])
+    del loop
+    torch.cuda.empty_cache()
+    th.join(1200)
+    check("outs" in got, f"(p2) dp2 runner ranks failed: {got.get('error')}")
+    out = got["outs"][0][1]
+    check(" plan=pp1/dp2/tp1 " in out, f"(p2) dp2 plan:\n{out}")
+    m = re.search(r"^collective_allreduce axis=data ways=2 grad_bytes=(\d+) "
+                  r"est_seconds_per_step=(\S+)$", out, re.M)
+    check(m is not None, f"(p2) no collective_allreduce line:\n{out}")
+    steps, _ = _losses(out)
+    rel = [abs(a - b) / abs(b) for a, b in zip(steps, want[1:])]
+    check(len(steps) == MAIN_STEPS - 1 and max(rel) <= sc.RTOL,
+          f"(p2) dp2 losses {steps} vs world 1 {want[1:]}: rel {rel}")
+    names = set()
+    for f in os.listdir(os.path.join(spans, "spans")):
+        with open(os.path.join(spans, "spans", f)) as fh:
+            names |= {json.loads(ln)["name"] for ln in fh}
+    check("train.collective" in names, f"(p2) spans recorded: {names}")
+    times = sorted(float(t) for t in re.findall(r"step_time=(\S+)", out))
+    rec["dp2_overlap"] = {
+        "losses": steps, "world1": want[1:], "rel": rel,
+        "grad_bytes": int(m.group(1)),
+        "collective_est_seconds_a_step": float(m.group(2)),
+        "step_time": times[len(times) // 2], "spans": sorted(names),
+        "seconds": time.perf_counter() - t1}
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"ranks (p2) spmd_check {P2_CONFIG} at 2 ranks vs world 1: " +
+        ", ".join(f"{v} max rel {r['max_rel']:.2e} ({r['seconds']:.1f} s)"
+                  for v, r in rec["variants"].items()) +
+        f"; dp2 --collective-overlap on: losses rel "
+        f"{[f'{x:.2e}' for x in rel]}, collective est "
+        f"{float(m.group(2)):.4f} s a step for {m.group(1)} bytes, step "
+        f"{rec['dp2_overlap']['step_time']} s; {rec['seconds']:.1f} s")
+    return rec
+
+
+def ranks_phase(torch, repo, dev, main):
+    """(p): see the module docstring (5c)."""
+    t0 = time.perf_counter()
+    rec = {"p1": p1_phase(torch, repo, main)}
+    rec["p2"] = p2_phase(torch, repo, dev)
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
 # -- (n) the multi-model weight pool ------------------------------------------
 
 def pool_exports(torch, gap_cfg, dev, root):
@@ -4828,7 +5104,7 @@ def pool_phase(torch, fa, gap_cfg, prompts, f1, dev, repo):
 def main() -> int:
     import torch
 
-    if sys.argv[1:] not in ([], ["--n3-alone"]):
+    if sys.argv[1:] not in ([], ["--n3-alone"], ["--p1-rank"]):
         print("usage: python3 chip_smoke.py [--n3-alone]", file=sys.stderr)
         return 2
     alone = sys.argv[1:] == ["--n3-alone"]
@@ -4846,6 +5122,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    if sys.argv[1:] == ["--p1-rank"]:
+        return p1_rank()
 
     if alone:
         card = card_line()
@@ -4857,6 +5135,13 @@ def main() -> int:
     # 1. the card
     card = card_line()
     log(f"card: {card}")
+    phase_seconds = {}
+    t_lap = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_seconds[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
 
     # 2. build
     from kubeflow_tpu_torch.ops import build
@@ -4883,18 +5168,27 @@ def main() -> int:
     large_recs = kernel_phase(torch, fa, (2, 2048, 16, 128), torch.bfloat16,
                               seed=2)
     torch.cuda.empty_cache()
+    lap("build_kernels")
 
     # 4. model
     model_phase(torch, dev)
+    lap("model")
 
     # 5. main path
     export_dir = os.path.join(repo, "build", "serve_export")
-    launches, base_step = main_path_phase(torch, fa, export_dir)
+    launches, base_step, main = main_path_phase(torch, fa, export_dir)
     torch.cuda.empty_cache()
+    lap("main_path")
+
+    # 5c. the LM trainer across ranks
+    ranks = ranks_phase(torch, repo, dev, main)
+    torch.cuda.empty_cache()
+    lap("p")
 
     # 5b. training options: remat policies, chunked CE, MoE
     training = training_phase(torch, fa, dev)
     torch.cuda.empty_cache()
+    lap("h")
 
     # 6. serving
     from kubeflow_tpu_torch.models.transformer import preset_config
@@ -4903,12 +5197,15 @@ def main() -> int:
                             attn_impl="naive")
     serving, prompts = serving_phase(torch, fa, export_dir, gap_cfg, dev)
     torch.cuda.empty_cache()
+    lap("a_serving")
     engine = engine_phase(torch, fa, export_dir, gap_cfg, prompts, dev)
     f1, f2_tokens = engine.pop("_f1"), engine.pop("_f2_tokens")
     torch.cuda.empty_cache()
+    lap("f_engine")
     spec = spec_phase(torch, fa, export_dir, gap_cfg, prompts, f1, f2_tokens,
                       dev)
     torch.cuda.empty_cache()
+    lap("g_spec")
 
     # 6j. int8 serving; 6k. the chaos points (k6 rides phase (i))
     int8 = int8_phase(torch, fa, export_dir, gap_cfg, prompts, f1, dev)
@@ -4921,25 +5218,32 @@ def main() -> int:
     check(all(v == 0 for v in chaos_rec["flash_launches"].values()),
           f"(k) flash launches {chaos_rec['flash_launches']}")
     torch.cuda.empty_cache()
+    lap("j_k")
 
     # 6l. multi-tenant LoRA: the fine-tune through the flash kernels, then
     # the adapter pool in the engine and the server
     lora = lora_phase(torch, fa, export_dir, gap_cfg, prompts, f1, dev,
-                      base_step)
+                      base_step, {
+                          "tokens_per_s": engine["engine_tokens_per_second"],
+                          "chunk_ms": engine["chunk"]["chunk_ms"]})
     torch.cuda.empty_cache()
+    lap("l")
 
     # 6m. the request plane and the KV transfer plane
     kv = kv_phase(torch, fa, export_dir, gap_cfg, prompts, f1, dev)
     torch.cuda.empty_cache()
+    lap("m")
 
     # 6n. the multi-model weight pool
     weights = pool_phase(torch, fa, gap_cfg, prompts, f1, dev, repo)
     torch.cuda.empty_cache()
+    lap("n")
 
     # 6i. the classifier / JAXJob path
     classifier = classifier_phase(torch, fa, dev, repo)
     chaos_rec["k6"] = classifier.pop("chaos_predict")
     cls_pred = classifier["serving"].pop("_pred")
+    lap("i")
 
     # 6o. the Kubeflow compat surface: the pytorch predictor, the
     # PyTorchJob and MPIJob workers
@@ -4947,6 +5251,7 @@ def main() -> int:
                           classifier["serving"]["batch1"]["p50_ms"])
     del cls_pred
     torch.cuda.empty_cache()
+    lap("o")
 
     # 7. report
     csrc = "kubeflow_tpu_torch/ops/csrc/"
@@ -4987,6 +5292,8 @@ def main() -> int:
     log(json.dumps({"kv": kv}))
     log(json.dumps({"weights": weights}))
     log(json.dumps({"compat": compat}))
+    log(json.dumps({"ranks": ranks}))
+    log(json.dumps({"phase_seconds": phase_seconds}))
     log(f"script_seconds={time.perf_counter() - t_script:.1f}")
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 """Decoder-only transformer LM — PyTorch port of
 ``kubeflow_tpu/models/transformer.py`` (training with or without remat,
-dense or MoE FFN, dense KV-cache decode, the engine's paged KV-cache
-decode and the layer-truncated speculative draft).
+on one device or sharded over a mesh of ranks (``TransformerLM.shard``:
+tp, sp, cp, fsdp, ep), dense or MoE FFN, dense KV-cache decode, the
+engine's paged KV-cache decode and the layer-truncated speculative
+draft).
 
 Same math and the same precision rules as the flax reference:
 
@@ -69,14 +71,9 @@ from torch import nn
 from torch.utils import checkpoint as _ckpt
 
 from ..ops import flash_attention as flash_ops
+from ..parallel import comm
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-# Fields this slice does not implement -> the ROADMAP item that brings them.
-_NOT_IN_SLICE = (
-    ("cp", lambda c: c.cp > 1, "Queue A 6, multi-GPU"),
-    ("sp", lambda c: c.sp, "Queue A 6, multi-GPU"),
-)
 
 
 def _as_dtype(x: Any) -> torch.dtype:
@@ -173,12 +170,6 @@ class TransformerConfig:
                 "lora_rank targets the dense FFN (mlp.wi/wo); MoE "
                 "expert weights are not LoRA targets — fine-tune a "
                 "dense config or set lora_rank=0")
-        for name, used, item in _NOT_IN_SLICE:
-            if used(self):
-                raise NotImplementedError(
-                    f"TransformerConfig.{name}={getattr(self, name)!r} is not "
-                    f"ported yet (ROADMAP.md, {item}); the port has "
-                    "single-device training and decode")
 
     @property
     def qkv_features(self) -> int:
@@ -405,6 +396,189 @@ def flash_window_ok(cfg: TransformerConfig, seq_len: int) -> bool:
     return cfg.flash_max_seq <= 0 or seq_len < cfg.flash_max_seq
 
 
+# ---------------------------------------------------------------------------
+# Meshes: the model's params cut over a RankMesh, and the collectives
+# ---------------------------------------------------------------------------
+#
+# ``TransformerLM.shard`` keeps this rank's slice of every param, as
+# ``parallel/mesh.py``'s rules cut it, and gives every module the
+# ``ModelParallel`` it runs under. The forward then inserts the
+# collectives GSPMD inserts for the reference (parallel/comm.py):
+#   * tp: heads of q/k/v/out, the FFN hidden (column- then row-parallel)
+#     and the vocab of the embedding and the lm_head are cut over "model";
+#     a tensor-parallel region is entered with ``enter`` and left with
+#     ``exit`` (an all-reduce; under sp a reduce-scatter of the sequence,
+#     whose inverse all-gather is ``enter``). The vocab-parallel loss is
+#     parallel/lm_train.py's;
+#   * sp: between those regions the residual stream is cut on S over
+#     "model" (the reference's ``Block.sp_shard``);
+#   * cp: S is cut over "ctx" for the whole stack, with global positions;
+#     attention is the ring (parallel/ring_attention.py); the MoE layer
+#     gathers the sequence (its routing groups are whole rows);
+#   * fsdp: dims named "embed" are cut over "data" at rest and gathered
+#     before each use (``ModelParallel.use``), grads reduce-scattered;
+#   * ep: the experts are cut over "data"; token buffers move by
+#     all-to-all.
+# The SwiGLU kernels' hidden dim is gate || up: a rank keeps the matching
+# slices of both halves, so its SwiGLU is local (``_PAIRED``).
+
+_AXES_BY_SUFFIX: Dict[str, Tuple[Optional[str], ...]] = {
+    "embed.embedding": ("vocab", "embed"),
+    "attn.query.kernel": ("embed", "heads", "kv"),
+    "attn.key.kernel": ("embed", "heads", "kv"),
+    "attn.value.kernel": ("embed", "heads", "kv"),
+    "attn.out.kernel": ("heads", "kv", "embed"),
+    "mlp.wi.kernel": ("embed", "mlp"),
+    "mlp.wo.kernel": ("mlp", "embed"),
+    "moe.gate.kernel": ("embed", None),
+    "moe.wi": ("expert", "embed", "expert_mlp"),
+    "moe.wo": ("expert", "expert_mlp", "embed"),
+    "lm_head.kernel": ("embed", "vocab"),
+}
+# Params whose last dim is gate || up (split per half).
+_PAIRED = ("mlp.wi.kernel", "moe.wi")
+# Dims tensor parallelism must cut (the Megatron layout has no
+# replicated variant of these regions here).
+_TP_AXES = ("vocab", "heads", "mlp", "expert_mlp")
+
+
+def _suffix(name: str, suffixes) -> Optional[str]:
+    for suf in suffixes:
+        if name == suf or name.endswith("." + suf):
+            return suf
+    return None
+
+
+def param_logical_axes(shapes: Dict[str, Tuple[int, ...]]
+                       ) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Logical axis names of every param of a ``state_dict`` ({name:
+    shape} -> {name: axes}), the reference's ``param_logical_axes`` over
+    the port's names: norms and anything unmatched are replicated. The
+    port's layers are separate modules, so there is no "layers" axis."""
+    out = {}
+    for name, shape in shapes.items():
+        suf = _suffix(name, _AXES_BY_SUFFIX)
+        axes = _AXES_BY_SUFFIX[suf] if suf else (None,) * len(shape)
+        if len(axes) != len(shape):
+            raise ValueError(f"{name}: axes {axes} for shape {shape}")
+        out[name] = axes
+    return out
+
+
+def local_shard(name: str, full: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's slice of the full param ``name`` cut as ``spec`` (a
+    mesh axis or None per dim) says; "stage" is not a tensor cut."""
+    x = full
+    for dim, ax in enumerate(spec):
+        if ax is None or ax == "stage" or mesh.shape[ax] == 1:
+            continue
+        n, i = mesh.shape[ax], mesh.index(ax)
+        if _suffix(name, _PAIRED) and dim == x.dim() - 1:
+            x = x.unflatten(dim, (2, -1)).chunk(n, dim + 1)[i].flatten(
+                dim, dim + 1)
+        else:
+            x = x.chunk(n, dim)[i]
+    return x.clone()
+
+
+def full_from_shards(name: str, local: torch.Tensor, spec, mesh
+                     ) -> torch.Tensor:
+    """Inverse of ``local_shard``: the full param, all-gathered over the
+    axes that cut it (collective over those axes' groups); always a new
+    tensor."""
+    x = local.clone()
+    for dim, ax in enumerate(spec):
+        if ax is None or ax == "stage" or mesh.shape[ax] == 1:
+            continue
+        n = mesh.shape[ax]
+        g = comm.raw_all_gather(x, mesh, ax, dim)
+        if _suffix(name, _PAIRED) and dim == x.dim() - 1:
+            g = g.unflatten(dim, (n, 2, -1)).transpose(dim, dim + 1) \
+                .flatten(dim, dim + 2)
+        x = g
+    return x
+
+
+class ModelParallel:
+    """The mesh a sharded ``TransformerLM`` runs on (``shard``)."""
+
+    def __init__(self, mesh, cfg: "TransformerConfig"):
+        self.mesh = mesh
+        self.tp = mesh.shape["model"]
+        self.dp = mesh.shape["data"]
+        self.cp = mesh.shape["ctx"]
+        self.sp = cfg.sp and self.tp > 1
+        self.ep = False   # experts cut over "data" (set by shard)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """Into a tensor-parallel region: identity (all-reduce of the
+        grad), or under sp the all-gather of the sequence."""
+        if self.tp == 1:
+            return x
+        if self.sp:
+            return comm.gather_from(x, self.mesh, "model", 1)
+        return comm.copy_to(x, self.mesh, "model")
+
+    def exit(self, y: torch.Tensor) -> torch.Tensor:
+        """Out of a tensor-parallel region: the all-reduce of the partial
+        sums, or under sp their reduce-scatter over the sequence."""
+        if self.tp == 1:
+            return y
+        if self.sp:
+            return comm.scatter_to(y, self.mesh, "model", 1)
+        return comm.reduce_from(y, self.mesh, "model")
+
+    def use(self, p: torch.Tensor) -> torch.Tensor:
+        """``p`` whole along its fsdp dim (all-gathered over "data";
+        the grad reduce-scattered back)."""
+        dim = getattr(p, "kfx_fsdp_dim", None)
+        return p if dim is None else comm.gather_from(p, self.mesh, "data",
+                                                      dim)
+
+
+def _partial_axes(name: str, spec, mesh, cfg: "TransformerConfig"
+                  ) -> Tuple[str, ...]:
+    """The mesh axes over which ``name``'s grad is a partial sum that
+    the train loop all-reduces after the backward: "data" unless the
+    param is cut on it (fsdp's reduce-scatter and ep's all-to-all sum
+    there), "ctx" always (each rank holds a slice of the sequence),
+    "model" for the norms under sp (they see a slice of the sequence)
+    and the MoE router under tp (it weighs partial expert outputs)."""
+    out = []
+    if mesh.shape["data"] > 1 and "data" not in spec:
+        out.append("data")
+    if mesh.shape["ctx"] > 1:
+        out.append("ctx")
+    if mesh.shape["model"] > 1 and "model" not in spec and (
+            name.endswith("moe.gate.kernel")
+            or (cfg.sp and name.endswith("scale"))):
+        out.append("model")
+    return tuple(out)
+
+
+# Attention activations probe (the reference's ``activation_probe``):
+# ``fn(name, tensor)`` sees q/k/v, the attention mix and each layer's
+# residual input; parallel/spmd_check.py's replication check reads them.
+_ACTIVATION_PROBE: "contextvars.ContextVar[Optional[Callable]]" = \
+    contextvars.ContextVar("kfx_activation_probe", default=None)
+
+
+def _probe(name: str, x: torch.Tensor) -> None:
+    fn = _ACTIVATION_PROBE.get()
+    if fn is not None:
+        fn(name, x)
+
+
+@contextlib.contextmanager
+def activation_probe(fn: Callable):
+    """Scope ``fn(name, tensor)`` as the activation probe."""
+    tok = _ACTIVATION_PROBE.set(fn)
+    try:
+        yield
+    finally:
+        _ACTIVATION_PROBE.reset(tok)
+
+
 def _lecun_normal_(w: torch.Tensor, fan_in: int,
                    generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax's lecun_normal: truncated normal at +-2 std, variance 1/fan_in
@@ -433,12 +607,18 @@ class Dense(nn.Module):
         with torch.no_grad():
             _lecun_normal_(self.kernel, math.prod(self.in_shape), generator)
 
+    par: Optional[ModelParallel] = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n_in, n_out = math.prod(self.in_shape), math.prod(self.out_shape)
-        lead = x.shape[:x.dim() - len(self.in_shape)]
-        w = self.kernel.to(self.dtype).reshape(n_in, n_out)
+        kernel = self.kernel if self.par is None else self.par.use(
+            self.kernel)
+        in_shape, out_shape = kernel.shape[:len(self.in_shape)], \
+            kernel.shape[len(self.in_shape):]
+        n_in, n_out = math.prod(in_shape), math.prod(out_shape)
+        lead = x.shape[:x.dim() - len(in_shape)]
+        w = kernel.to(self.dtype).reshape(n_in, n_out)
         y = torch.matmul(x.to(self.dtype).reshape(*lead, n_in), w)
-        return y.reshape(*lead, *self.out_shape)
+        return y.reshape(*lead, *out_shape)
 
 
 # ---------------------------------------------------------------------------
@@ -725,6 +905,8 @@ class _LoraFactors:
 
 
 class Attention(_LoraFactors, nn.Module):
+    par: Optional[ModelParallel] = None
+
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.cfg = cfg
@@ -762,7 +944,9 @@ class Attention(_LoraFactors, nn.Module):
                 write_locations: Optional[torch.Tensor] = None,
                 lora=None, adapter_ids: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
-        cfg = self.cfg
+        cfg, par = self.cfg, self.par
+        if par is not None:
+            x = par.enter(x)
         B, S, _ = x.shape
         tag = _tagger(cfg)
         # LoRA corrections land at the projection OUTPUT, before rope and
@@ -780,11 +964,20 @@ class Attention(_LoraFactors, nn.Module):
         q = rope(q, pos)
         k = rope(k, pos)
         q = q / math.sqrt(cfg.head_dim)
+        _probe("attn_q", q)
+        _probe("attn_k", k)
+        _probe("attn_v", v)
         if kv is not None and block_tables is not None:
             out = self._paged_attend(q, k, v, positions, kv, block_tables,
                                      write_locations)
         elif kv is not None:
             out = self._decode_attend(q, k, v, positions, kv, cursor)
+        elif par is not None and par.cp > 1:
+            # S cut over "ctx": exact causal ring attention in f32 (the
+            # reference's shard_map around ring_attention), local heads.
+            from ..parallel.ring_attention import ring_attention
+
+            out = ring_attention(q, k, v, par.mesh)
         elif self._use_flash(S, x.device):
             # The forward op's outputs carry the flash_o / flash_lse tags,
             # so a save_flash* policy keeps them and the backward runs only
@@ -801,9 +994,11 @@ class Attention(_LoraFactors, nn.Module):
             scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
             probs = torch.softmax(scores.to(torch.float32), -1)
             out = torch.einsum("bhqk,bkhd->bqhd", probs.to(cfg.dtype), v)
+        _probe("attn_mix", out)
         with tag("attn_out"):
             y = self.out(out)
-        return self._lora("out", y, out, lora, adapter_ids)
+        y = self._lora("out", y, out, lora, adapter_ids)
+        return y if par is None else par.exit(y)
 
     def _decode_attend(self, q, k, v, positions, kv: LayerKV,
                        cursor: torch.Tensor) -> torch.Tensor:
@@ -903,6 +1098,8 @@ def _no_scope(*names: str):
 
 
 class DenseFFN(_LoraFactors, nn.Module):
+    par: Optional[ModelParallel] = None
+
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.cfg = cfg
@@ -915,6 +1112,8 @@ class DenseFFN(_LoraFactors, nn.Module):
     def forward(self, x: torch.Tensor, lora=None,
                 adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         tag = _tagger(self.cfg)
+        if self.par is not None:
+            x = self.par.enter(x)
         with tag("mlp_wi"):
             h = self.wi(x)
         h = self._lora("wi", h, x, lora, adapter_ids)
@@ -922,7 +1121,8 @@ class DenseFFN(_LoraFactors, nn.Module):
         act = F.silu(gate) * up  # SwiGLU
         with tag("mlp_wo"):
             y = self.wo(act)
-        return self._lora("wo", y, act, lora, adapter_ids)
+        y = self._lora("wo", y, act, lora, adapter_ids)
+        return y if self.par is None else self.par.exit(y)
 
 
 class MoEFFN(nn.Module):
@@ -939,7 +1139,15 @@ class MoEFFN(nn.Module):
     is 0). k is folded before the slot one-hot, so the largest tensor is
     [B, S, E, C]. With C == S nothing drops and it equals ``"dense"``, the
     masked exact oracle. ``forward`` returns (y, the Switch aux loss
-    E * sum(me * ce))."""
+    E * sum(me * ce)).
+
+    Under a mesh the routing groups stay whole rows (cp gathers the
+    sequence first), ``me`` and ``ce`` are means over the global batch
+    (all-reduced over "data"), and with the experts cut over "data" (ep)
+    each data rank runs its E/dp experts on every rank's buffers for them,
+    exchanged by all-to-all."""
+
+    par: Optional[ModelParallel] = None
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -961,18 +1169,42 @@ class MoEFFN(nn.Module):
 
     def _experts(self, xe: torch.Tensor) -> torch.Tensor:
         """xe: [E, B, T, d] per-expert token buffers -> [E, B, T, d]."""
-        cfg = self.cfg
+        cfg, par = self.cfg, self.par
         tag = _tagger(cfg)
+        wi, wo = self.wi, self.wo
+        if par is not None:
+            wi, wo = par.use(wi), par.use(wo)
+        if par is not None and par.ep:
+            xe = self._exchange(xe, back=False)
         with tag("moe_wi"):
-            h = torch.einsum("ebtd,edf->ebtf", xe, self.wi.to(cfg.dtype))
+            h = torch.einsum("ebtd,edf->ebtf", xe, wi.to(cfg.dtype))
         gate_h, up = torch.chunk(h, 2, dim=-1)
         with tag("moe_wo"):
-            return torch.einsum("ebtf,efd->ebtd", F.silu(gate_h) * up,
-                                self.wo.to(cfg.dtype))
+            ye = torch.einsum("ebtf,efd->ebtd", F.silu(gate_h) * up,
+                              wo.to(cfg.dtype))
+        if par is not None and par.ep:
+            ye = self._exchange(ye, back=True)
+        return ye
+
+    def _exchange(self, xe: torch.Tensor, back: bool) -> torch.Tensor:
+        """ep: every data rank's [E, B, T, d] buffers to the owners of
+        their experts, as [E/dp, dp * B, T, d] (rows in data-rank order);
+        ``back`` is the inverse."""
+        par = self.par
+        n = par.dp
+        if not back:
+            got = comm.all_to_all(xe, par.mesh, "data")
+            return got.unflatten(0, (n, -1)).transpose(0, 1).flatten(1, 2)
+        out = xe.unflatten(1, (n, -1)).transpose(0, 1).flatten(0, 1)
+        return comm.all_to_all(out.contiguous(), par.mesh, "data")
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        cfg = self.cfg
+        cfg, par = self.cfg, self.par
+        if par is not None:
+            x = par.enter(x)
+            if par.cp > 1:
+                x = comm.gather_from(x, par.mesh, "ctx", 1)
         B, S, _ = x.shape
         E, K, dt = cfg.n_experts, cfg.expert_top_k, cfg.dtype
         probs = torch.softmax(self.gate(x.to(torch.float32)), -1)
@@ -1011,9 +1243,17 @@ class MoEFFN(nn.Module):
                 "(expected 'capacity' or 'dense')")
         # Load-balancing auxiliary loss (Switch-style) over the first
         # choices.
-        me = one_hot[..., 0, :].to(torch.float32).mean((0, 1))
-        ce = probs.mean((0, 1))
-        return y, E * torch.sum(me * ce)
+        if par is None:
+            me = one_hot[..., 0, :].to(torch.float32).mean((0, 1))
+            ce = probs.mean((0, 1))
+            return y, E * torch.sum(me * ce)
+        n = B * S * par.dp
+        me = comm.raw_all_reduce(one_hot[..., 0, :].to(torch.float32).sum(
+            (0, 1)), par.mesh, "data") / n
+        ce = comm.all_reduce_sum(probs.sum((0, 1)), par.mesh, "data") / n
+        if par.cp > 1:
+            y = y.chunk(par.cp, 1)[par.mesh.index("ctx")]
+        return par.exit(y), E * torch.sum(me * ce)
 
 
 class Block(nn.Module):
@@ -1043,6 +1283,7 @@ class Block(nn.Module):
         """``lora`` is this layer's serving stacks (``lora_layers``) and
         ``adapter_ids`` [B] each row's slot in them."""
         lora = lora or {}
+        _probe("residual", x)
         x = x + self.attn(self.ln1(x), positions, kv, cursor, block_tables,
                           write_locations, lora.get("attn"), adapter_ids)
         h = self.ln2(x)
@@ -1065,7 +1306,11 @@ def _layer_with_aux(layer: Block, x: torch.Tensor, positions: torch.Tensor
 
 
 class Embed(nn.Module):
-    """flax ``nn.Embed``: the table is cast to ``dtype`` for the lookup."""
+    """flax ``nn.Embed``: the table is cast to ``dtype`` for the lookup.
+    With the vocab cut over "model", each rank looks up the tokens of its
+    rows (zeros for the others) and the region's exit sums them."""
+
+    par: Optional[ModelParallel] = None
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -1080,11 +1325,26 @@ class Embed(nn.Module):
                             generator=generator)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens, self.embedding).to(self.dtype)
+        par = self.par
+        if par is None:
+            return F.embedding(tokens, self.embedding).to(self.dtype)
+        table = par.use(self.embedding)
+        if par.tp == 1:
+            return F.embedding(tokens, table).to(self.dtype)
+        rows = table.shape[0]
+        lo = par.mesh.index("model") * rows
+        mine = (tokens >= lo) & (tokens < lo + rows)
+        x = F.embedding(torch.where(mine, tokens - lo, 0), table) \
+            * mine[..., None]
+        return par.exit(x.to(self.dtype))
 
 
 class TransformerLM(nn.Module):
-    """Returns f32 logits [B, S, vocab]. Call with int tokens [B, S]."""
+    """Returns f32 logits [B, S, vocab]. Call with int tokens [B, S].
+    After ``shard`` it runs on a mesh: tokens are this rank's rows (and,
+    under cp, its slice of the sequence) and the logits its vocab slice."""
+
+    par: Optional[ModelParallel] = None
 
     def __init__(self, cfg: TransformerConfig,
                  device: Optional[torch.device] = None,
@@ -1164,7 +1424,10 @@ class TransformerLM(nn.Module):
                 f"exceed max_seq_len {cfg.max_seq_len}")
         x = self.embed(tokens)
         if positions is None:
-            positions = torch.arange(S, device=tokens.device,
+            # Global positions: under cp this rank holds slice i of S.
+            lo = 0 if self.par is None else \
+                self.par.mesh.index("ctx") * S
+            positions = torch.arange(lo, lo + S, device=tokens.device,
                                      dtype=torch.int32).expand(tokens.shape)
         layers_kv = cache.layers if cache is not None else None
         if lora and adapter_ids is None:
@@ -1178,14 +1441,7 @@ class TransformerLM(nn.Module):
                           block_tables, write_locations, aux_out,
                           lora[i], adapter_ids)
             elif cache is None:
-                if remat:
-                    # No randomness in a layer: no RNG state to keep.
-                    x, aux = _ckpt.checkpoint(
-                        _layer_with_aux, layer, x, positions,
-                        use_reentrant=False, preserve_rng_state=False,
-                        **self._remat_kw)
-                else:
-                    x, aux = _layer_with_aux(layer, x, positions)
+                x, aux = self.run_layer(layer, x, positions, remat)
                 if aux is not None and aux_out is not None:
                     aux_out.append(aux)
             elif paged:
@@ -1197,9 +1453,61 @@ class TransformerLM(nn.Module):
             cache.cursor += S
             cache.length += S
         x = self.ln_f(x)
+        if self.par is not None:
+            x = self.par.enter(x)   # the vocab-parallel head's region
         if return_hidden:
             return x
         return self.lm_head(x).to(torch.float32)
+
+    def run_layer(self, layer: Block, x: torch.Tensor,
+                  positions: torch.Tensor, remat: bool
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """One training-path layer: (x, its MoE aux or None), under
+        ``torch.utils.checkpoint`` with the remat policy when ``remat``."""
+        if remat:
+            # No randomness in a layer: no RNG state to keep.
+            return _ckpt.checkpoint(
+                _layer_with_aux, layer, x, positions, use_reentrant=False,
+                preserve_rng_state=False, **self._remat_kw)
+        return _layer_with_aux(layer, x, positions)
+
+    def shard(self, mesh, plan) -> "TransformerLM":
+        """Keep this rank's slice of every param as ``parallel/mesh.py``'s
+        rules cut it under ``plan`` on ``mesh``, and run every module
+        under the mesh from here on. Each param records its cut
+        (``kfx_spec``), its fsdp dim (``kfx_fsdp_dim``) and the axes its
+        grad is summed over after the backward (``kfx_partial``)."""
+        from ..parallel.mesh import param_sharding_rules, tree_shardings
+
+        cfg = self.cfg
+        if cfg.lora_rank or cfg.quant or cfg.decode:
+            raise ValueError("a sharded TransformerLM trains: no LoRA "
+                             "factors, int8 weights or decode caches")
+        par = ModelParallel(mesh, cfg)
+        named = dict(self.named_parameters())
+        shapes = {n: tuple(p.shape) for n, p in named.items()}
+        axes = param_logical_axes(shapes)
+        specs = tree_shardings(mesh, axes, param_sharding_rules(plan),
+                               shapes)
+        for name, p in named.items():
+            spec = specs[name]
+            for dim, (logical, ax) in enumerate(zip(axes[name], spec)):
+                if par.tp > 1 and logical in _TP_AXES and ax is None:
+                    raise ValueError(
+                        f"tp={par.tp} does not divide {name} dim {dim} "
+                        f"({logical}, {shapes[name][dim]})")
+            with torch.no_grad():
+                p.data = local_shard(name, p.data, spec, mesh)
+            p.kfx_spec = spec
+            p.kfx_fsdp_dim = next(
+                (d for d, (logical, ax) in enumerate(zip(axes[name], spec))
+                 if ax == "data" and logical == "embed"), None)
+            p.kfx_partial = _partial_axes(name, spec, mesh, cfg)
+            if name.endswith("moe.wi"):
+                par.ep = spec[0] == "data"
+        for mod in self.modules():
+            mod.par = par
+        return self
 
 
 def truncate_layers(model: TransformerLM, n_layers: int,

@@ -100,7 +100,9 @@ def initialize_distributed(device):
     torch.distributed group at ``tcp://KFX_COORDINATOR_ADDRESS``: ``nccl``
     on cuda when the host shows at least as many cards as ranks, else
     ``gloo`` (on the CPU, and over the card's tensors when ranks share a
-    card, which NCCL refuses). Prints the backend on a line of its own."""
+    card, which NCCL refuses). Prints the backend on a line of its own,
+    with the transport of its collectives (``parallel/comm.py``: gloo
+    stages the ops it cannot run on CUDA tensors through host memory)."""
     import torch
     import torch.distributed as dist
 
@@ -122,8 +124,11 @@ def initialize_distributed(device):
             backend = "nccl"
     dist.init_process_group(backend, init_method=f"tcp://{coord}",
                             rank=pid, world_size=num)
+    from ..parallel.comm import transport_line
+
     log(f"process_group backend={backend} rank={pid} world={num} "
-        f"coordinator={coord} device={device}")
+        f"coordinator={coord} device={device} "
+        f"{transport_line(backend, device.type)}")
     return device
 
 

@@ -18,11 +18,13 @@ failure with no readable step raises. Its chaos points carry over too
 has committed, ``checkpoint.restore`` fails a restore with ``OSError``.
 
 Under a torch.distributed group of several processes (the data-parallel
-TrainLoop, whose state is equal on every rank), rank 0 writes and every
-rank meets the others at a barrier after each save, so a save has
-committed when ``maybe_save`` returns on any rank; rank 0 restores (with
-the quarantine and the chaos points, as at world 1) and every other rank
-then loads the step rank 0 restored.
+TrainLoop, whose state is equal on every rank, and the sharded
+LMTrainLoop, whose ``state_tree`` gathers the full tree and is therefore
+called on every rank), rank 0 writes and every rank meets the others at
+a barrier after each save, so a save has committed when ``maybe_save``
+returns on any rank; rank 0 restores (with the quarantine and the chaos
+points, as at world 1) and every other rank then loads the step rank 0
+restored.
 """
 
 from __future__ import annotations
@@ -171,13 +173,14 @@ class Checkpointer:
         self._barrier()   # every rank sees the directory before the write
         if step in self.all_steps():
             return False   # this step is already durable
+        # Every rank builds the tree: for a sharded state it is a gather.
+        tree = state.state_tree() if hasattr(state, "state_tree") else state
         if self.rank == 0:
-            self._save(step, state)
+            self._save(step, tree)
         self._barrier()
         return True
 
-    def _save(self, step: int, state: Any) -> None:
-        tree = state.state_tree() if hasattr(state, "state_tree") else state
+    def _save(self, step: int, tree: Any) -> None:
         snapshot = _to_cpu(tree)
         if self.async_save:
             self._writer = threading.Thread(
@@ -261,14 +264,17 @@ class Checkpointer:
             let the keep-rotation delete good checkpoints.
         """
         self.wait()
+        # Every rank builds the structure: for a sharded state a gather.
+        want = target.state_tree() if hasattr(target, "state_tree") \
+            else target
         if self.world == 1:
-            return self._restore_newest(target)[1]
+            return self._restore_newest(target, want)[1]
         # Rank 0 restores; the others load the step it restored.
         outcome: List[Any] = [None]
         restored = error = None
         if self.rank == 0:
             try:
-                step, restored = self._restore_newest(target)
+                step, restored = self._restore_newest(target, want)
                 outcome[0] = ("ok", step)
             except Exception as e:  # re-raised here, reported to the rest
                 error = e
@@ -282,13 +288,11 @@ class Checkpointer:
                                f"{self.directory}: {detail}")
         if self.rank == 0 or detail is None:
             return restored
-        return self._load_step(detail, target)
+        return self._load_step(detail, target, want)
 
-    def _load_step(self, step: int, target: Any) -> Any:
-        """Step ``step`` loaded into ``target`` (raises what torch.load or
-        the structure check raise)."""
-        want = target.state_tree() if hasattr(target, "state_tree") \
-            else target
+    def _load_step(self, step: int, target: Any, want: Any) -> Any:
+        """Step ``step`` loaded into ``target``, whose tree is ``want``
+        (raises what torch.load or the structure check raise)."""
         got = torch.load(os.path.join(self.directory, str(step), STATE_FILE),
                          map_location="cpu", weights_only=True)
         _check_structure(got, want)
@@ -296,13 +300,12 @@ class Checkpointer:
             return target.load_state_tree(got)
         return _placed_like(got, want)
 
-    def _restore_newest(self, target: Any) -> Tuple[Optional[int], Any]:
-        """(step, restored state) of restore_latest's policy; (None, None)
-        for a fresh start."""
+    def _restore_newest(self, target: Any, want: Any
+                        ) -> Tuple[Optional[int], Any]:
+        """(step, restored state) of restore_latest's policy, ``want``
+        being ``target``'s tree; (None, None) for a fresh start."""
         chaos.fail_or_delay("checkpoint.restore", OSError,
                             f"restore from {self.directory}")
-        want = target.state_tree() if hasattr(target, "state_tree") \
-            else target
         steps = sorted(self.all_steps(), reverse=True)
         if not steps:
             return None, None

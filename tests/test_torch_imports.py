@@ -64,7 +64,7 @@ def test_every_module_imports_with_jax_blocked():
                          env=env)
     assert res.returncode == 0, res.stderr
     assert f"imported {len(_modules())}" in res.stdout
-    assert len(_modules()) >= 56
+    assert len(_modules()) >= 62
     # The serving engine, its prefix keying, its usage ledger, its KV
     # transfer plane, its weight pool with the storage initializer and
     # its flight recorder are on the list, the classifier / JAXJob path,
@@ -101,7 +101,14 @@ def test_every_module_imports_with_jax_blocked():
             "kubeflow_tpu_torch.runners.mpi_launcher",
             "kubeflow_tpu_torch.runners.mpi_jax_runner",
             "kubeflow_tpu_torch.runtime.lifetime",
-            "kubeflow_tpu_torch.utils.net"} <= set(_modules())
+            "kubeflow_tpu_torch.utils.net",
+            # the LM trainer across ranks
+            "kubeflow_tpu_torch.parallel.mesh",
+            "kubeflow_tpu_torch.parallel.comm",
+            "kubeflow_tpu_torch.parallel.ring_attention",
+            "kubeflow_tpu_torch.parallel.pipeline",
+            "kubeflow_tpu_torch.parallel.overlap",
+            "kubeflow_tpu_torch.parallel.spmd_check"} <= set(_modules())
 
 
 def _sources():

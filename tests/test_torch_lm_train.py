@@ -3,6 +3,7 @@ lm_train.py, runners/lm_runner.py) against the reference's LMTrainLoop on
 the same init and the same data batches."""
 
 import re
+import sys
 
 import numpy as np
 import pytest
@@ -148,24 +149,84 @@ def test_runner_cuda_without_gpu_raises():
                         "--batch-size", "2"])
 
 
-@pytest.mark.parametrize("argv,env", [
+# Refused by earlier slices; now each takes the reference's path at one
+# device: a plan that needs more devices fails the factorisation with the
+# reference's ValueError (exit 1), --sp and --fsdp train (no-ops at one
+# device). --collective-overlap on is the exception: the reference sets
+# its TPU XLA flags and XLA:CPU aborts on them; the port trains.
+FLAG_CASES = [
     (["--tp", "2"], {}), (["--pp", "2"], {}), (["--cp", "2"], {}),
     (["--sp"], {}), (["--fsdp"], {}),
     ([], {"KFX_PARALLELISM": '{"pipeline": 2}'}),
     (["--collective-overlap", "on"], {}),
-    # KFX_CHECKPOINT_DIR is served since the Checkpointer landed
-    # (tests/test_torch_train_loop.py resumes the runner); this case now
-    # asks for context parallelism through the operator's env.
     ([], {"KFX_PARALLELISM": '{"context": 2}'}),
     ([], {"KFX_PARALLELISM": '{"tensor": 2}'}),
-])
-def test_runner_rejects_unported_flags(argv, env, monkeypatch, capsys):
+    # The reference's own error exits (2), before and after the mesh.
+    (["--sp", "--pp", "2"], {}), (["--cp", "2", "--sp"], {}),
+    ([], {"KFX_PARALLELISM": '{"data": 2}'}),
+]
+FLAG_BASE = ["--preset", "tiny", "--steps", "1", "--batch-size", "2",
+             "--seq-len", "64"]
+
+
+def _case_id(case):
+    argv, env = case
+    return "_".join(argv + list(env.values())) or "default"
+
+
+@pytest.fixture(scope="module")
+def reference_runs(tmp_path_factory):
+    """The reference runner on one XLA:CPU device for every case, the
+    processes side by side: (exit code, stdout, stderr) by case id."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = {}
+    for argv, extra in FLAG_CASES:
+        env = {k: v for k, v in os.environ.items()
+               if k != "KFX_PARALLELISM"}
+        env.update(JAX_PLATFORMS="cpu", PYTHONPATH=repo,
+                   XLA_FLAGS="--xla_force_host_platform_device_count=1",
+                   **extra)
+        procs[_case_id((argv, extra))] = subprocess.Popen(
+            [sys.executable, "-m", "kubeflow_tpu.runners.lm_runner",
+             *FLAG_BASE, *argv], env=env, cwd=str(tmp_path_factory.mktemp(
+                 "ref")), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+    out = {}
+    for key, p in procs.items():
+        o, e = p.communicate(timeout=300)
+        out[key] = (p.returncode, o, e)
+    return out
+
+
+@pytest.mark.parametrize("argv,env", FLAG_CASES,
+                         ids=[_case_id(c) for c in FLAG_CASES])
+def test_runner_flags_match_reference_at_one_device(argv, env, monkeypatch,
+                                                   capsys, reference_runs):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    rc = lm_runner.main(["--device", "cpu", *argv])
-    assert rc == 2
-    assert "ROADMAP" in capsys.readouterr().err or \
-        argv == ["--collective-overlap", "on"]
+    try:
+        rc = lm_runner.main(["--device", "cpu", *FLAG_BASE, *argv])
+    except ValueError as e:   # uncaught in a process: exit 1, traceback
+        rc = 1
+        print(f"ValueError: {e}", file=sys.stderr)
+    out, err = capsys.readouterr()
+    err_line = (err.strip().splitlines() or [""])[-1]
+    ref_rc, ref_out, ref_err = reference_runs[_case_id((argv, env))]
+    if argv == ["--collective-overlap", "on"]:
+        assert ref_rc != 0 and "Unknown flags in XLA_FLAGS" in ref_err
+        assert rc == 0 and "train_done" in out
+        return
+    assert rc == ref_rc, ref_err
+    if rc:
+        assert err_line == ref_err.strip().splitlines()[-1]
+        assert ("does not divide" in err_line) == (rc == 1)
+    else:
+        plan = re.search(r" (plan=\S+) ", ref_out).group(1)
+        assert f" {plan} " in out and "train_done" in out
 
 
 @pytest.mark.parametrize("argv,plan", [

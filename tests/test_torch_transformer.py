@@ -134,13 +134,12 @@ def test_config_validation_matches_reference(kw):
     assert str(got.value) == str(want.value)
 
 
-UNPORTED = [
-    dict(cp=2), dict(sp=True),
-]
 # Refused by earlier slices, ported since: each constructs as in the
-# reference, and a training loop takes it.
+# reference, and a training loop takes it (cp=2 as the reference's
+# does: a one-device loop refuses it with the reference's message, the
+# cp=2 mesh trains it, tests/test_torch_parallel.py).
 NOW_ACCEPTED = [dict(n_experts=2), dict(remat=True), dict(loss_chunk=128),
-                dict(lora_rank=4)]
+                dict(lora_rank=4), dict(cp=2), dict(sp=True)]
 # The paged cache is ported (the engine's pool): these construct, with
 # the reference's field values.
 PAGED = [
@@ -154,15 +153,10 @@ PAGED = [
 ]
 
 
-@pytest.mark.parametrize("kw", UNPORTED, ids=lambda kw: ",".join(kw))
-def test_unported_fields_raise_not_implemented(kw):
-    ref.TransformerConfig(**kw)  # valid in the reference
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.TransformerConfig(**kw)
-
-
 @pytest.mark.parametrize("kw", NOW_ACCEPTED, ids=lambda kw: ",".join(kw))
 def test_ported_training_fields_are_accepted(kw):
+    from kubeflow_tpu.parallel.lm_train import LMTrainLoop as RefLoop
+    from kubeflow_tpu.parallel.mesh import make_mesh
     from kubeflow_tpu_torch.parallel.lm_train import LMTrainLoop
 
     want = ref.TransformerConfig(**kw)
@@ -170,6 +164,14 @@ def test_ported_training_fields_are_accepted(kw):
                                   dtype="float32")
     for f in kw:
         assert getattr(cfg, f) == getattr(want, f), f
+    if cfg.cp > 1:
+        mesh, plan = make_mesh(1)
+        with pytest.raises(ValueError) as ref_err:
+            RefLoop(ref.TransformerConfig(**{**SMALL, **kw}), mesh, plan)
+        with pytest.raises(ValueError) as err:
+            LMTrainLoop(cfg, device="cpu")
+        assert str(err.value) == str(ref_err.value)
+        return
     loop = LMTrainLoop(cfg, device="cpu")
     loop.init_state()
     tokens = np.random.default_rng(0).integers(
