@@ -236,8 +236,8 @@ Phases, in order; any failure raises and the process exits non-zero:
    storageUri pointed at (i)'s 224^2 ResNet-50 export (jax:, maxReplicas
    2, targetConcurrency 1): Ready, its replica's server_ready line says
    framework=jax device=cuda, 16 seeded images through status.url answer
-   JaxPredictor's predictions, then CLS_SEQ batch-1 requests through
-   status.url and CLS_SEQ straight to the replica's port (from its
+   JaxPredictor's predictions, then R_SEQ batch-1 requests through
+   status.url and R_SEQ straight to the replica's port (from its
    server_ready line), in turns: p50/p99 of each, their p50 difference
    the router hop, printed beside (i)'s p50 (whose ModelServer runs in
    this process); (r2) (o1),
@@ -248,7 +248,7 @@ Phases, in order; any failure raises and the process exits non-zero:
    canary's line framework=pytorch device=cuda), R_CANARY_REQUESTS
    requests of the 16 images each pass compat_parity against (i)'s
    JaxPredictor and the router's per-revision counters show both
-   answering, then CLS_SEQ batch-1 requests straight to the canary's
+   answering, then R_SEQ batch-1 requests straight to the canary's
    replica (the pytorch: predictor's p50/p99, (o1)'s latency); (r3) without the canary, R_CLIENTS concurrent batch-1
    clients scale the default revision from 1 to 2 (status.autoscaling,
    the scheduler's serving grant and two endpoints), then a
@@ -271,11 +271,39 @@ Phases, in order; any failure raises and the process exits non-zero:
    the env (the workers' device defaults to cuda), this process's
    counters set to 0 just before and read just after (0/0/0), every job
    side by side (each is mostly start-up; every step time in (q) is taken
-   under that contention): (q1) `python -m kubeflow_tpu_torch.cli --home
-   <tmp> run -f examples/torch/mnist-jaxjob.yaml` in its own process
-   (Succeeded, its runner_start line says platform=cuda; the seconds from
-   apply to Succeeded and the runner's own), and in a journaled
-   ControlPlane in this process: (s1) the train-then-serve Pipeline of
+   under that contention): (t) the apiserver, kfctl and the profiler, on a
+   thread that starts only processes: (t1) `python -m
+   kubeflow_tpu_torch.cli --home build/t server --port <free>` in its own
+   process with no KFX_ variable in its env, ready when its marker's URL
+   answers /healthz, holding no CUDA context (nvidia-smi lists no compute
+   app of its pid and its address space maps no libcuda, read while its
+   job trains); (t2) in build/t, `kfx init` scaffolds a KfDef whose one
+   application is the main path's runner command (this script with
+   --lm-worker, as (s1)'s train step) as a JAXJob with --steps
+   ${param.steps} = T_STEPS, `kfx generate` renders the Profile then the
+   JAXJob, and once (s1)'s train step has ended its training (its
+   train_done line: with both base-preset LM jobs at once the card's
+   memory in use reached 80.8 of 85.0 GB) `KFX_SERVER=<url> kfx run -f
+   kfdef.yaml` applies it through the remote client (the admin token
+   rides: the URL is the marker's): the Profile and the JAXJob created in the KfDef's namespace
+   with its labels, the job Succeeded with runner_start device=cuda,
+   finite losses and flash launches of L x T_STEPS + L / L x T_STEPS /
+   L x T_STEPS in its worker, the seconds from apply to Succeeded beside
+   the runner's own; while it trains, GET / and the job's dashboard page
+   200 with its state, /metrics a valid exposition, `KFX_SERVER=<url> kfx
+   get` and `kfx logs` answer; (t3) once the worker's log shows its first step=
+   line, `kfx --home build/t profile jaxjob` with no KFX_SERVER (a passive
+   plane on the server's home) captures T_PROFILE_MS: one
+   .pt.trace.json.gz under <logdir>/plugins/profile/<run>/ that parses,
+   whose kernel events name flash_fwd_wgmma_kernel, flash_dq_wgmma_kernel
+   and flash_dkv_wgmma_kernel and which holds aten:: ops of the worker's
+   main thread; a {"profile": ...} line gives each flash kernel's
+   launches in the window and mean device us beside the kernel table's
+   CUDA-event ms, the window's five kernels by device time, its busy
+   share and the runner's step times inside and outside the window; (t4)
+   `KFX_SERVER=<url> kfx delete -f kfdef.yaml` removes the job then the
+   Profile, and SIGTERM stops the server with rc 0, its marker gone. In
+   a journaled ControlPlane in this process: (s1) the train-then-serve Pipeline of
    examples/torch/lm-train-serve-pipeline.yaml, its train step (q2)'s job:
    the main path's runner command (--no-checkpoint, as the main path
    writes none) plus the example's --export-dir into the pipeline's
@@ -320,7 +348,7 @@ Phases, in order; any failure raises and the process exits non-zero:
    runner's first line (read off the member logs every 20 ms); Katib:
    (q7) BASELINE.json #4, `python -m kubeflow_tpu_torch.cli --home
    build/q7 run -f examples/torch/experiment-random-mnist.yaml` in its own
-   process as (q1), started before (j) and running beside (j)-(l) and
+   process, started before (j) and running beside (j)-(l) and
    (m)/(n)'s child (its trials are mostly start-up, and those phases are
    host-bound), checked after (l): the Experiment Succeeded with 6 of 6
    trials succeeded and a `best trial:` line, every trial's runner_start
@@ -347,7 +375,7 @@ Phases, in order; any failure raises and the process exits non-zero:
    spec line, the training line, the classifier line, the int8 line, the
    chaos line, the lora line, the kv line, the weights line, the compat
    line, the ranks line, the plane line, the pipelines line, the hpo
-   line, the serving-tier line, each
+   line, the profile line, the serving-tier line, each
    phase's seconds (m_beside, n_beside, j5_beside and beside_wall the child's,
    m_n_wait the wait for it after (l), q7_wait the wait for (q7) after
    that), the script's seconds, the card's
@@ -570,12 +598,14 @@ COMPAT_PARITY = 16
 COMPAT_REL = 1e-2
 
 # Serving-tier phase (r): BASELINE.json #5 as an InferenceService. (r1)
-# sends CLS_SEQ batch-1 requests through status.url and CLS_SEQ straight
-# to the replica's own port, in turns; (r2) sends R_CANARY_REQUESTS
-# parity requests at canaryTrafficPercent 50, then CLS_SEQ batch-1
-# requests straight to the canary's replica; (r3) R_CLIENTS concurrent
-# batch-1 clients (targetConcurrency 1) until the killed replica is
-# back, then R_AFTER_S more.
+# sends R_SEQ batch-1 requests through status.url and R_SEQ straight to
+# the replica's own port, in turns; (r2) sends R_CANARY_REQUESTS parity
+# requests at canaryTrafficPercent 50, then R_SEQ batch-1 requests
+# straight to the canary's replica; (r3) R_CLIENTS concurrent batch-1
+# clients (targetConcurrency 1) until the killed replica is back, then
+# R_AFTER_S more. R_SEQ is half of (i)'s CLS_SEQ, to hold the script
+# inside its time budget (ROADMAP.md).
+R_SEQ = 25
 R_CANARY_REQUESTS = 6
 R_CLIENTS = 8
 R_AFTER_S = 1.0
@@ -618,6 +648,19 @@ S2_SLO = {"apiVersion": "obs.kubeflow.org/v1alpha1", "kind": "SLO",
 S3_NS = "s3-team"
 S3_ENV = "KFX_S3_INJECTED"
 S3_IDLE_S = 6
+# The apiserver, kfctl and the profiler, in (q)'s wave: (t) a KfDef whose
+# one application is the main path's LM as a JAXJob of T_STEPS steps
+# (long enough to profile beside (q)'s jobs: ~0.25 s a step there),
+# applied through `kfx server`; a T_PROFILE_MS trace of its worker.
+T_PLATFORM = "t-platform"
+T_NS = "t-team"
+T_JOB = "t-lm"
+T_LABELS = {"team": "t"}
+T_STEPS = 40
+T_PROFILE_MS = 2000
+FLASH_SYMBOLS = {"flash_fwd": "flash_fwd_wgmma_kernel",
+                 "flash_dq": "flash_dq_wgmma_kernel",
+                 "flash_dkv": "flash_dkv_wgmma_kernel"}
 
 
 def log(msg: str) -> None:
@@ -4599,8 +4642,8 @@ def r_replica_url(ready_line, name):
 
 
 def r_hop(url, direct, bodies):
-    """CLS_SEQ batch-1 requests to ``direct`` (a replica's own port) and,
-    unless ``url`` is None, CLS_SEQ to ``url`` (through the router), in
+    """R_SEQ batch-1 requests to ``direct`` (a replica's own port) and,
+    unless ``url`` is None, R_SEQ to ``url`` (through the router), in
     turns (the first of each pair alternates), after 3 warm requests to
     each: {"direct": {p50_ms, p99_ms, n}, "router": ..., "hop_p50_ms":
     router p50 less direct p50}."""
@@ -4611,7 +4654,7 @@ def r_hop(url, direct, bodies):
             post_raw(u, b)
     ms = {k: [] for k in urls}
     order = list(urls)
-    for i in range(CLS_SEQ):
+    for i in range(R_SEQ):
         for k in (order if i % 2 == 0 else order[::-1]):
             ms[k].append(post_raw(urls[k], bodies[i % len(bodies)])[1])
     out = {k: {"p50_ms": percentile(v, 0.5), "p99_ms": percentile(v, 0.99),
@@ -4852,7 +4895,7 @@ def r_phase(torch, fa, dev, repo, cls_pred, cls_p50):
         f"(i)'s ResNet-50 224^2: apply to Ready {rec['apply_to_ready_s']:.1f}"
         f" s, replica device=cuda, predictions equal JaxPredictor's "
         f"(probabilities max err {r1['max_abs_prob_err']:.3g}); batch-1 "
-        f"over {CLS_SEQ} requests each, in turns: through status.url p50 "
+        f"over {R_SEQ} requests each, in turns: through status.url p50 "
         f"{b1['router']['p50_ms']:.1f} ms p99 {b1['router']['p99_ms']:.1f} "
         f"ms, straight to the replica p50 {b1['direct']['p50_ms']:.1f} ms "
         f"p99 {b1['direct']['p99_ms']:.1f} ms, the router hop "
@@ -4886,14 +4929,18 @@ class RunnerStarts:
     ``runner_start`` line of each attempt (the gang heads each attempt's
     output with ``==== attempt N``). The gap from an attempt's gang.spawn
     span to that stamp is the worker's start-up (the interpreter, torch,
-    the card's context), read to the poll's 20 ms. It gates nothing."""
+    the card's context), read to the poll's 20 ms. It also stamps every
+    ``step=`` line, in ``steps[(gang, member)]`` as (stamp, line): (t)
+    waits on the first and places each step inside or outside a profile's
+    window; and each member's ``train_done`` line, in ``done``, on which
+    (t)'s job waits."""
 
     POLL_S = 0.02
 
     def __init__(self, roots):
         import threading
 
-        self.roots, self.stamps = roots, {}
+        self.roots, self.stamps, self.steps, self.done = roots, {}, {}, {}
         self._files = {}   # path: [offset, unfinished line, attempt]
         self._stop = threading.Event()
         self._th = threading.Thread(target=self._run, daemon=True)
@@ -4923,6 +4970,13 @@ class RunnerStarts:
                     elif ln.startswith(b"runner_start"):
                         member = os.path.basename(path)[:-len(".log")]
                         self.stamps.setdefault((gang, member, st[2]), now)
+                    elif ln.startswith(b"step="):
+                        member = os.path.basename(path)[:-len(".log")]
+                        self.steps.setdefault((gang, member), []).append(
+                            (now, ln.decode()))
+                    elif ln.startswith(b"train_done"):
+                        member = os.path.basename(path)[:-len(".log")]
+                        self.done.setdefault((gang, member), now)
 
     def _run(self):
         while not self._stop.wait(self.POLL_S):
@@ -4933,8 +4987,8 @@ class RunnerStarts:
         self._th.join(timeout=5)
 
 
-def plane_spans(home, jobs, starts):
-    """For each ``(kind, name)`` of ``jobs`` (namespace default), the
+def plane_spans(home, jobs, starts, ns="default"):
+    """For each ``(kind, name)`` of ``jobs`` (namespace ``ns``), the
     spans the plane wrote to ``<home>/spans/plane-*.jsonl``: the admission
     span of the apply that created the job, its reconciles (how many, their
     total and the longest), its sched.admit spans and each attempt's
@@ -4958,12 +5012,12 @@ def plane_spans(home, jobs, starts):
 
     out = {}
     for kind, name in jobs:
-        key = f"default/{name}"
+        key = f"{ns}/{name}"
         rec = [r for r in named("reconcile", "key", key)
                if r["attrs"].get("kind") == kind]
         traces = {r["trace"] for r in rec}
         spawns = named("gang.spawn", "gang", name)
-        gang = f"{kind.lower()}_default_{name}"
+        gang = f"{kind.lower()}_{ns}_{name}"
         gaps = []
         for sp in spawns:
             seen = [t for (g, _, a), t in starts.stamps.items()
@@ -5009,17 +5063,16 @@ def q_jaxjob(name, command, env=None, backoff=3, parallelism=None):
             "spec": spec}
 
 
-def q1_start(repo, home, example="mnist-jaxjob.yaml"):
-    """(q1), and (q7) with its example: `kfx run` of examples/torch/
-    ``example`` in a process of its own, its output read on a thread that
-    stamps each line."""
+def cli_start(repo, home, argv, **env):
+    """`python -m kubeflow_tpu_torch.cli --home HOME ARGV` in a process of
+    its own (compat_env plus ``env``: no KFX_ variable of this process),
+    its output read on a thread that stamps each line."""
     import threading
 
     proc = subprocess.Popen(
-        [sys.executable, "-m", "kubeflow_tpu_torch.cli", "--home", home,
-         "run", "-f", os.path.join(repo, "examples", "torch", example)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        env=compat_env(repo), cwd=repo)
+        [sys.executable, "-m", "kubeflow_tpu_torch.cli", "--home", home]
+        + argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=compat_env(repo, **env), cwd=repo)
     lines = []
 
     def read():
@@ -5032,7 +5085,7 @@ def q1_start(repo, home, example="mnist-jaxjob.yaml"):
 
 
 def q_proc_lines(proc, th, lines, timeout):
-    """Wait for a q1_start process (killed after ``timeout`` s); its output
+    """Wait for a cli_start process (killed after ``timeout`` s); its output
     and each line's stamp."""
     try:
         proc.wait(timeout=timeout)
@@ -5042,27 +5095,6 @@ def q_proc_lines(proc, th, lines, timeout):
             proc.wait()
     th.join(timeout=30)
     return "\n".join(ln for _, ln in lines), {ln: t for t, ln in lines}
-
-
-def q1_finish(proc, th, lines, timeout=300):
-    """(q1)'s checks: created, the runner on cuda, succeeded; the seconds
-    from apply to Succeeded and the runner's own."""
-    out, stamp = q_proc_lines(proc, th, lines, timeout)
-    check(proc.returncode == 0 and "jaxjob/mnist created" in stamp
-          and "jaxjob/mnist succeeded" in stamp,
-          f"(q1) kfx run rc {proc.returncode}:\n{out[-4000:]}")
-    start = re.search(r"^runner_start .*$", out, re.M)
-    check(start is not None and " platform=cuda " in start.group(0) + " "
-          and "train_done steps=600" in out,
-          f"(q1) runner lines:\n{out[-4000:]}")
-    train = float(re.search(r"train_done steps=600 wall_seconds=(\S+)",
-                            out).group(1))
-    times = sorted(float(t) for t in re.findall(r"step_time=(\S+)", out))
-    return {"apply_to_succeeded_s": stamp["jaxjob/mnist succeeded"]
-            - stamp["jaxjob/mnist created"],
-            "runner_train_s": train, "step_time": times[len(times) // 2],
-            "runner_start": start.group(0),
-            "final": rank_lines(out, ("loss=", "accuracy="))}
 
 
 def chief_exit_0(job):
@@ -5198,7 +5230,8 @@ def q7_start(repo):
 
     home = os.path.join(repo, "build", "q7")
     shutil.rmtree(home, ignore_errors=True)
-    return q1_start(repo, home, Q7_EXAMPLE) + (home,)
+    return cli_start(repo, home, ["run", "-f", os.path.join(
+        repo, "examples", "torch", Q7_EXAMPLE)]) + (home,)
 
 
 def q7_finish(proc, th, lines, home, timeout=600):
@@ -5588,13 +5621,349 @@ def s4_trace(repo, home):
             "train_spans": len(train),
             "waterfall_head": runs[1].stdout.splitlines()[:24]}
 
+# -- (t) the apiserver, kfctl and the profiler --------------------------------
 
-def q_phase(torch, fa, repo, main_launches, main):
+def t_kfx(repo, home, argv, cwd=None, timeout=300, **env):
+    """One `kfx --home HOME ARGV` to its end, with compat_env plus ``env``:
+    (return code, stdout and stderr)."""
+    r = subprocess.run(
+        [sys.executable, "-m", "kubeflow_tpu_torch.cli", "--home", home]
+        + argv, capture_output=True, text=True, env=compat_env(repo, **env),
+        cwd=cwd or repo, timeout=timeout)
+    return r.returncode, r.stdout + r.stderr
+
+
+def t_server_start(repo, home):
+    """(t1): `kfx server` on a free port in its own process, with no KFX_
+    variable in its env; waits for its marker and /healthz (the home's
+    live_server_url). (process, url, seconds to ready)."""
+    from kubeflow_tpu_torch.apiserver import live_server_url
+    from kubeflow_tpu_torch.utils.net import free_port
+
+    port = free_port()
+    t0 = time.perf_counter()
+    with open(os.path.join(home, "server.log"), "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "kubeflow_tpu_torch.cli", "--home", home,
+             "server", "--port", str(port)], stdout=f,
+            stderr=subprocess.STDOUT, text=True, env=compat_env(repo),
+            cwd=repo)
+    url = None
+    while url is None and proc.poll() is None \
+            and time.perf_counter() - t0 < 60:
+        url = live_server_url(home)
+        time.sleep(0.05)
+    check(url == f"http://127.0.0.1:{port}",
+          f"(t1) kfx server rc {proc.poll()} url {url}:\n"
+          f"{open(os.path.join(home, 'server.log')).read()[-3000:]}")
+    return proc, url, time.perf_counter() - t0
+
+
+def t_no_cuda(pid):
+    """(t1): the server process holds no CUDA context while its job
+    trains: nvidia-smi lists no compute app of its pid, and its address
+    space maps no libcuda."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout
+    pids = [int(x) for x in smi.split() if x.strip().isdigit()]
+    with open(f"/proc/{pid}/maps") as f:
+        maps = f.read()
+    check(pid not in pids and "libcuda" not in maps,
+          f"(t1) the server (pid {pid}) on the card: compute apps {pids}, "
+          f"libcuda mapped {'libcuda' in maps}")
+    return {"compute_app_pids": pids, "server_pid": pid,
+            "server_maps_libcuda": False}
+
+
+def t_kfdef(repo, root, home, lm_worker_cmd):
+    """(t2): `kfx init` scaffolds kfdef.yaml; its one application is the
+    main path's LM command as a JAXJob with ``--steps ${param.steps}``;
+    `kfx generate` renders it in apply order, the Profile first."""
+    import yaml
+
+    rc, out = t_kfx(repo, home, ["init", T_PLATFORM, "--platform-namespace",
+                                 T_NS], cwd=root)
+    path = os.path.join(root, "kfdef.yaml")
+    check(rc == 0 and "wrote kfdef.yaml" in out, f"(t2) kfx init: {out}")
+    with open(path) as f:
+        doc = yaml.safe_load(f)
+    check(doc["kind"] == "KfDef" and doc["spec"]["namespace"] == T_NS
+          and doc["spec"]["applications"] == [], f"(t2) scaffold {doc}")
+    cmd = list(lm_worker_cmd)
+    cmd[cmd.index("--steps") + 1] = "${param.steps}"
+    job = q_jaxjob(T_JOB, cmd, backoff=0)
+    del job["metadata"]["namespace"]   # the KfDef stamps its own
+    doc["spec"]["commonLabels"].update(T_LABELS)
+    doc["spec"]["applications"] = [{"name": "lm", "resource": job,
+                                    "parameters": {"steps": T_STEPS}}]
+    with open(path, "w") as f:
+        yaml.safe_dump(doc, f, sort_keys=False)
+    rc, out = t_kfx(repo, home, ["generate", "-f", path, "-o",
+                                 os.path.join(root, "manifests")], cwd=root)
+    files = [os.path.basename(ln) for ln in out.split()]
+    check(rc == 0 and files == [f"00-profile-{T_NS}.yaml",
+                                f"01-jaxjob-{T_JOB}.yaml"],
+          f"(t2) kfx generate rc {rc}: {out}")
+    return path, files
+
+
+def t_first_step(starts, timeout=300):
+    """Wait for the first step= line of (t)'s worker; the seconds waited."""
+    member = (f"jaxjob_{T_NS}_{T_JOB}", "worker-0")
+    t0 = time.perf_counter()
+    while not starts.steps.get(member):
+        check(time.perf_counter() - t0 < timeout,
+              f"(t3) no step= line from {member} in {timeout} s")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def t_profile(repo, root, home):
+    """(t3): `kfx profile` of the running job with no KFX_SERVER (a passive
+    plane on the server's home, as the reference routes it): rc 0 and one
+    trace path under <logdir>/plugins/profile/<run>/. (path, seconds of
+    the verb)."""
+    from kubeflow_tpu_torch.profiling import TRACE_SUFFIX
+
+    logdir = os.path.join(root, "profile")
+    t0 = time.perf_counter()
+    rc, out = t_kfx(repo, home, ["-n", T_NS, "profile", "jaxjob", T_JOB,
+                                 "--duration-ms", str(T_PROFILE_MS),
+                                 "--logdir", logdir])
+    paths = [ln for ln in out.splitlines() if ln.endswith(TRACE_SUFFIX)]
+    check(rc == 0 and len(paths) == 1 and os.path.dirname(os.path.dirname(
+        paths[0])) == os.path.join(logdir, "plugins", "profile"),
+        f"(t3) kfx profile rc {rc}:\n{out[-3000:]}")
+    return paths[0], time.perf_counter() - t0
+
+
+def _busy_us(events):
+    """Microseconds of the union of the events' [ts, ts + dur)."""
+    total, end = 0.0, None
+    for e in sorted(events, key=lambda e: e["ts"]):
+        lo, hi = e["ts"], e["ts"] + e["dur"]
+        if end is None or lo > end:
+            total += hi - lo
+            end = hi
+        elif hi > end:
+            total += hi - end
+            end = hi
+    return total
+
+
+def t_trace_kernels(path, kernel_ms):
+    """(t3)'s checks on the trace: it parses; its kernel events name the
+    three flash kernels, each at least once; it holds aten:: ops of the
+    worker's main thread (where the runner trains; the capture ran on
+    another). Per flash kernel its launches in the window and mean device
+    us, beside the kernel table's CUDA-event ms; the window's five kernels
+    with the most device time; the device's busy share in the window."""
+    from kubeflow_tpu_torch.profiling import load_trace
+
+    trace = load_trace(path)
+    head, ev = trace["kfxCapture"], trace["traceEvents"]
+    kernels = [e for e in ev if e.get("cat") == "kernel"]
+    flash = {}
+    for name, sym in FLASH_SYMBOLS.items():
+        durs = [e["dur"] for e in kernels if sym in e["name"]]
+        flash[name] = {"symbol": sym, "launches": len(durs),
+                       "mean_us": sum(durs) / len(durs) if durs else None,
+                       "table_ms": kernel_ms[name]}
+    aten = [e for e in ev if e.get("cat") == "cpu_op"
+            and e.get("name", "").startswith("aten::")]
+    main = [e for e in aten if e.get("tid") == head["main_tid"]]
+    check(all(r["launches"] for r in flash.values()) and main
+          and "CUDA" in head["activities"],
+          f"(t3) trace {path}: flash {flash}, aten:: ops {len(aten)} "
+          f"({len(main)} on the main thread), {head}")
+    by_name = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    window_s = head["end"] - head["start"]
+    return {"trace": path, "window_s": window_s, "events": len(ev),
+            "flash": flash,
+            "top5": [{"kernel": n[:160], "us": round(us, 1),
+                      "launches": sum(1 for e in kernels if e["name"] == n)}
+                     for n, us in top],
+            "busy_share": _busy_us(kernels) / (window_s * 1e6),
+            "aten_ops": {"main_thread": len(main),
+                         "other_threads": len(aten) - len(main)},
+            "_head": head}
+
+
+def t_trace_steps(rec, steps):
+    """The runner's step times inside the window, after it while the
+    profiler stops and exports (kfxCapture's stop_s + export_s), and
+    outside both (the profiler's overhead), a step placed by its
+    midpoint; ``rec`` is t_trace_kernels' record."""
+    import statistics
+
+    head = rec.pop("_head")
+    ready = head["end"] + head["stop_s"] + head["export_s"]
+    inside, export, outside = [], [], []
+    for stamp, line in steps[1:]:   # the first step pays the warm-up
+        st = float(re.search(r"step_time=(\S+)", line).group(1))
+        mid = stamp - st / 2
+        (inside if head["start"] <= mid <= head["end"] else export
+         if head["end"] < mid <= ready else outside).append(st)
+    check(inside and outside, f"(t3) steps inside {inside}, outside "
+          f"{outside} the window {head['start']}..{head['end']}")
+    return dict(rec, stop_s=head["stop_s"], export_s=head["export_s"],
+
+                step_time_in_window=inside, step_time_during_export=export,
+                step_time_outside=outside,
+                median_in=statistics.median(inside),
+                median_out=statistics.median(outside))
+
+
+def t_http(repo, home, url):
+    """(t2)'s dashboard, metrics and remote-CLI checks, made while the job
+    trains: GET / and the job's page 200 with the job's state, /metrics a
+    valid exposition, `KFX_SERVER=<url> kfx get jaxjobs` and `kfx logs`
+    answer with the job and its step= lines."""
+    from kubeflow_tpu_torch.api.base import display_state
+    from kubeflow_tpu_torch.apiserver import Client
+    from kubeflow_tpu_torch.utils.prom import validate_exposition
+
+    job = Client(url).get("jaxjob", T_NS, T_JOB)
+    state = display_state(job.get("status", {}).get("conditions", []))
+    out = {}
+    for path in ("/", f"/ui/jaxjob/{T_NS}/{T_JOB}", "/metrics"):
+        with urllib.request.urlopen(url + path, timeout=60) as r:
+            out[path] = (r.status, r.read().decode())
+    root, page, metrics = (out[p] for p in out)
+    errors = validate_exposition(metrics[1])
+    check(root[0] == page[0] == metrics[0] == 200 and T_JOB in root[1]
+          and state in ("Running", "Succeeded") and state in root[1]
+          and state in page[1] and not errors
+          and "kfx_reconcile_duration_seconds" in metrics[1],
+          f"(t2) dashboard and /metrics ({state}): "
+          f"{[(p, c) for p, (c, _) in out.items()]} exposition errors "
+          f"{errors[:5]}")
+    for argv, want_text in ((["-n", T_NS, "get", "jaxjobs"], T_JOB),
+                            (["-n", T_NS, "logs", "jaxjob", T_JOB],
+                             "step=")):
+        rc, text = t_kfx(repo, home, argv, KFX_SERVER=url)
+        check(rc == 0 and want_text in text,
+              f"(t2) KFX_SERVER kfx {' '.join(argv)} rc {rc}:\n{text}")
+    return {"state": state, "dashboard": 200, "job_page": 200,
+            "metrics_lines": metrics[1].count("\n")}
+
+
+def t_open_gate(starts, gang, gate, timeout=600):
+    """Set ``gate`` once ``gang``'s worker-0 has printed train_done (a
+    RunnerStarts ``starts`` reads it); left unset after ``timeout``."""
+    t0 = time.perf_counter()
+    while (gang, "worker-0") not in starts.done:
+        if time.perf_counter() - t0 > timeout:
+            return
+        time.sleep(0.05)
+    gate.set()
+
+
+def t_phase(repo, lm_worker_cmd, starts, kernel_ms, layers, gate):
+    """(t): `kfx server`, a KfDef through the remote CLI, and `kfx profile`
+    of its LM job (see the module docstring); runs on a thread of (q) and
+    starts only processes, which it stops. Its home, build/t, must not
+    exist: ``starts`` would read an earlier run's logs there. The KfDef is
+    applied once ``gate`` is set, when (s1)'s train step has ended its
+    training (its train_done line; its eval batch and export follow, and
+    this job's first step comes 20 s or more after its apply): with both
+    base-preset LM jobs, (q6)'s two ranks and the rest of (q) on the card
+    at once, the card's memory in use reached 80.8 of 85.0 GB."""
+    import signal
+    import statistics
+
+    from kubeflow_tpu_torch.apiserver import SERVER_MARKER, Client
+
+    t0 = time.perf_counter()
+    root = home = os.path.join(repo, "build", "t")   # emptied by q_phase
+    os.makedirs(root)
+    rec = {}
+    server, url, rec["server_ready_s"] = t_server_start(repo, home)
+    run = None
+    try:
+        path, rec["generated"] = t_kfdef(repo, root, home, lm_worker_cmd)
+        t1 = time.perf_counter()
+        check(gate.wait(timeout=600), "(t2) (s1)'s train step never ended")
+        rec["gate_wait_s"] = time.perf_counter() - t1
+        run = cli_start(repo, home, ["run", "-f", path, "--timeout", "600"],
+                        KFX_SERVER=url)
+        rec["apply_to_first_step_s"] = t_first_step(starts)
+        rec["no_cuda"] = t_no_cuda(server.pid)
+        trace, verb_s = t_profile(repo, root, home)
+        traced = t_trace_kernels(trace, kernel_ms)   # while the job trains
+        rec["http"] = t_http(repo, home, url)
+        out, stamp = q_proc_lines(*run, timeout=600)
+        check(run[0].returncode == 0
+              and all(ln in stamp for ln in (
+                  f"profile/{T_NS} created", f"jaxjob/{T_JOB} created",
+                  f"jaxjob/{T_JOB} succeeded"))
+              and "note: admin token withheld" not in out,
+              f"(t2) KFX_SERVER kfx run rc {run[0].returncode}:\n"
+              f"{out[-4000:]}")
+        start = re.search(r"^runner_start .*$", out, re.M)
+        got = _rank_lines(out, "lm_worker ")
+        steps, final = _losses(out)
+        L = layers
+        want = {"flash_fwd": L * T_STEPS + L, "flash_dq": L * T_STEPS,
+                "flash_dkv": L * T_STEPS}
+        check(start is not None and " device=cuda" in start.group(0)
+              and got and got[-1]["launches"] == want
+              and len(steps) == T_STEPS - 1 and final is not None
+              and all(math.isfinite(x) for x in steps + [final]),
+              f"(t2) the job's log (launches want {want}):\n{out[-4000:]}")
+        client = Client(url)
+        job = client.get("jaxjob", T_NS, T_JOB)
+        prof = client.get("profile", "default", T_NS)
+        labels = job["metadata"].get("labels", {})
+        check(job["metadata"]["namespace"] == T_NS
+              and labels.get("team") == "t"
+              and labels.get("app.kubernetes.io/part-of") == T_PLATFORM
+              and prof["spec"]["owner"]["name"] == f"{T_PLATFORM}@kfdef",
+              f"(t2) stored: {job['metadata']} {prof}")
+        rec["profile"] = t_trace_steps(
+            traced, starts.steps[(f"jaxjob_{T_NS}_{T_JOB}", "worker-0")])
+        rec["profile"]["verb_seconds"] = verb_s
+        rc, text = t_kfx(repo, home, ["delete", "-f", path], KFX_SERVER=url)
+        check(rc == 0 and text.find(f"jaxjob/{T_JOB} deleted")
+              < text.find(f"profile/{T_NS} deleted")
+              and f"jaxjob/{T_JOB} deleted" in text
+              and not client.list("jaxjob", T_NS),
+              f"(t4) KFX_SERVER kfx delete -f rc {rc}:\n{text}")
+        server.send_signal(signal.SIGTERM)
+        rc = server.wait(timeout=60)
+        check(rc == 0 and not os.path.exists(os.path.join(
+            home, SERVER_MARKER)), f"(t4) kfx server after SIGTERM: rc {rc}")
+        rec.update(
+            launches=got[-1]["launches"], losses=steps, final=final,
+            runner_start=start.group(0),
+            card_used_gb_max=got[-1].get("card_used_gb_max"),
+            apply_to_succeeded_s=stamp[f"jaxjob/{T_JOB} succeeded"]
+            - stamp[f"jaxjob/{T_JOB} created"],
+            runner_train_s=float(re.search(
+                r"train_done steps=\d+ wall_seconds=(\S+)", out).group(1)),
+            step_time=statistics.median(float(x) for x in re.findall(
+                r"step_time=(\S+)", out)),
+            seconds=time.perf_counter() - t0)
+    finally:
+        for p in (server, run[0] if run else None):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+    return rec
+
+
+def q_phase(torch, fa, repo, main_launches, main, kernel_ms):
     """(q): the training control plane on the card, its workers on cuda
     with no device env set, every job side by side (each is mostly
     start-up, and every step time here is taken under that contention):
-    (q1) `kfx run` of the mnist example in its own process, and in a
-    journaled plane in this process (s1) the train-then-serve Pipeline,
+    (t) on a thread (t_phase: `kfx server` in its own process, a KfDef of
+    the main path's LM through the remote CLI, `kfx profile` of its
+    worker; kernel_ms, the kernel table's ms, sits beside the in-job
+    times), and in a journaled plane in this process (s1) the train-then-serve Pipeline,
     whose train step is (q2)'s job: the main path's LM command as a
     one-Worker JAXJob, and whose serve step serves its export on the card
     ((s2) an SLO on that service; s1_checks, s2_checks), (q3) tests/test_chaos.py's crash story as a JAXJob (the runner corrupts
@@ -5613,9 +5982,10 @@ def q_phase(torch, fa, repo, main_launches, main):
     (plane_spans) and, once the plane has stopped, (s4) `kfx trace` of
     (s1)'s train step.
     Flash launch counters of this process set to 0 just before and read
-    just after (0/0/0: the kernels run in the workers of (s1)'s train step
-    and (q6), which report their own)."""
+    just after (0/0/0: the kernels run in the workers of (s1)'s train step,
+    (q6) and (t), which report their own)."""
     import shutil
+    import threading
     from concurrent.futures import ThreadPoolExecutor
 
     from kubeflow_tpu_torch.api.base import from_manifest
@@ -5629,17 +5999,20 @@ def q_phase(torch, fa, repo, main_launches, main):
     root = os.path.join(repo, "build", "q")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
-    homes = {"cli": os.path.join(root, "cli_home"),
-             "plane": os.path.join(root, "plane")}
+    homes = {"plane": os.path.join(root, "plane"),
+             "t": os.path.join(repo, "build", "t")}
+    shutil.rmtree(homes["t"], ignore_errors=True)
     starts = RunnerStarts([os.path.join(h, "gangs") for h in homes.values()])
     examples = os.path.join(repo, "examples", "torch")
     lm_worker_cmd = [sys.executable, os.path.join(repo, "chip_smoke.py"),
                      "--lm-worker"] + MAIN_ARGV + ["--no-checkpoint"]
     rec = {}
     s1 = s1_pipeline(examples, lm_worker_cmd)
-    q1 = q1_start(repo, homes["cli"])
+    pool = ThreadPoolExecutor(2)
+    t_gate = threading.Event()
+    t = pool.submit(t_phase, repo, lm_worker_cmd, starts, kernel_ms,
+                    main_launches["flash_dq"] // MAIN_STEPS, t_gate)
     o2 = start_procs(repo, compat_jobs(repo))
-    pool = ThreadPoolExecutor(1)
     i2 = pool.submit(classifier_resume_check, repo)
     try:
         with ControlPlane(home=homes["plane"], journal=True) as cp:
@@ -5664,11 +6037,13 @@ def q_phase(torch, fa, repo, main_launches, main):
             cp.apply([from_manifest(s1), from_manifest(S2_SLO),
                       from_manifest(q3), pt, mpi, from_manifest(q6)] + nas
                      + [from_manifest(q8_random_arm(e)) for e in nas])
+            threading.Thread(target=t_open_gate, args=(
+                starts, f"jaxjob_default_{S1_TRAIN}", t_gate),
+                daemon=True).start()
             s3 = s3_start(cp, examples)
             done = {n: q_wait(cp, k, n) for k, n in jobs}
             rec["q8"] = {e.name: q8_checks(cp, e) for e in nas}
             rec["wave_s"] = time.perf_counter() - t0
-            rec["q1"] = q1_finish(*q1)
 
             f3, log3 = done["q3-resume"]
             rc3 = exit_codes(exits, "q3-resume", "worker-0")
@@ -5739,17 +6114,18 @@ def q_phase(torch, fa, repo, main_launches, main):
                      "created_to_completed_s": rec.pop("q2_s")}
         rec["o2"] = compat_job_checks(*wait_procs(*o2))["pytorchjob"]
         rec["i2"] = i2.result()
+        rec["t"] = t.result()   # (t)'s tail overlaps the plane's
     finally:
         starts.stop()
         pool.shutdown(wait=True)
-        for p in o2[0] + [q1[0]]:
+        for p in o2[0]:
             if p.poll() is None:
                 p.kill()
                 p.wait()
         os.environ.update(saved)
     rec["spans"] = dict(plane_spans(homes["plane"], jobs, starts),
-                        **plane_spans(homes["cli"], [("JAXJob", "mnist")],
-                                      starts))
+                        **plane_spans(homes["t"], [("JAXJob", T_JOB)],
+                                      starts, ns=T_NS))
     check(all(s["gang_spawn_ms"] and s["reconciles"] and s["admission_ms"]
               for s in rec["spans"].values()),
           f"(q) a job without its plane spans: {rec['spans']}")
@@ -5758,10 +6134,12 @@ def q_phase(torch, fa, repo, main_launches, main):
                               "flash_dkv": 0},
           f"(q) flash launches in this process {rec['launches']}")
     rec["seconds"] = time.perf_counter() - t0
-    q1r, q2r, q6r = rec["q1"], rec["s1"]["train"], rec["q6"]["ranks"][0]
-    log(f"plane (q1) kfx run mnist-jaxjob on cuda: apply to Succeeded "
-        f"{q1r['apply_to_succeeded_s']:.1f} s, the runner's training "
-        f"{q1r['runner_train_s']} s (step {q1r['step_time']} s); (s1) LM "
+    tr, q2r, q6r = rec["t"], rec["s1"]["train"], rec["q6"]["ranks"][0]
+    log(f"plane (t) the KfDef's LM job through kfx server (Ready "
+        f"{tr['server_ready_s']:.1f} s, no CUDA context) on cuda: apply to "
+        f"Succeeded {tr['apply_to_succeeded_s']:.1f} s, the runner's "
+        f"training {tr['runner_train_s']} s (step {tr['step_time']} s), "
+        f"launches {json.dumps(tr['launches'])}; (s1) LM "
         f"base b4 4 steps as the Pipeline's train step: step "
         f"{q2r['step_time']} s (main "
         f"path {q2r['main_path_step_time']} s, alone), launches "
@@ -5801,6 +6179,17 @@ def q_phase(torch, fa, repo, main_launches, main):
         f"{s4['train_spans']} train spans")
     for ln in s4["waterfall_head"]:
         log(f"  (s4) {ln}")
+    pr = tr["profile"]
+    log(f"profile (t3) kfx profile of {T_JOB} ({T_PROFILE_MS} ms, the verb "
+        f"{pr['verb_seconds']:.1f} s): " + "; ".join(
+            f"{n} {r['launches']} launches, {r['mean_us']:.1f} us each "
+            f"(table {r['table_ms'] * 1e3:.1f} us alone)"
+            for n, r in pr["flash"].items())
+        + f"; busy share {pr['busy_share']:.3f}; step {pr['median_in']} s "
+        f"in the window, {pr['step_time_during_export']} s while the "
+        f"profiler stopped ({pr['stop_s']:.1f} s) and exported "
+        f"({pr['export_s']:.1f} s), {pr['median_out']} s outside; card in "
+        f"use at most {tr['card_used_gb_max']:.1f} GB")
     return rec
 
 
@@ -5816,9 +6205,13 @@ def lm_worker(argv) -> int:
     their JAXJobs' command): the LM runner with ARGV in this process, its flash launch
     counters set to 0 just before and read just after, then one
     ``lm_worker {...}`` line: its rank, its launches, the shapes of its
-    first q and residual, its peak memory, and where the runner made a
-    process group, the time of one tp all-reduce of [b, S, d] bf16 over
-    that group."""
+    first q and residual, its peak memory, the most memory in use on the
+    whole card while it ran (``torch.cuda.mem_get_info`` every 0.25 s once
+    the runner has a CUDA context: what every process beside it holds
+    too), and where the runner made a process group, the time of one tp
+    all-reduce of [b, S, d] bf16 over that group."""
+    import threading
+
     import torch
     import torch.distributed as dist
 
@@ -5830,6 +6223,17 @@ def lm_worker(argv) -> int:
     install_parent_watch()
     seen = {}
     cuda = lm_runner.parse_args(argv).device == "cuda"
+    used, stop = [0.0], threading.Event()
+
+    def sample():
+        while not stop.wait(0.25):
+            if torch.cuda.is_initialized():
+                free, total = torch.cuda.mem_get_info()
+                used[0] = max(used[0], (total - free) / 1e9)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    if cuda:
+        sampler.start()
     destroy = dist.destroy_process_group
     dist.destroy_process_group = lambda *a, **k: None   # for the probe
     fa.reset_launches()
@@ -5839,11 +6243,13 @@ def lm_worker(argv) -> int:
             rc = lm_runner.main(argv)
     finally:
         dist.destroy_process_group = destroy
+        stop.set()
     rec = {"rank": 0, "launches": dict(fa.LAUNCHES),
            "q_shape": seen.get("attn_q"),
            "residual_shape": seen.get("residual"),
            "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
-                              if cuda else 0.0)}
+                              if cuda else 0.0),
+           "card_used_gb_max": used[0]}
     if dist.is_initialized():
         sync = torch.cuda.synchronize if cuda else (lambda: None)
         x = torch.ones(P_TP_ELEMS, dtype=torch.bfloat16,
@@ -6620,7 +7026,8 @@ def main() -> int:
 
     # 6q. the training control plane: kfx run, the gang runtime and the
     # four training operators launching the port's runners on the card
-    plane = q_phase(torch, fa, repo, launches, main)
+    plane = q_phase(torch, fa, repo, launches, main,
+                    {r["name"]: r["ms"] for r in main_recs})
     chaos_rec["k7"] = dict(plane["q3"], through="the control plane, (q3)")
     compat = {"predictor": dict(serving_tier["r2"],
                                 through="the serving tier's canary, (r2)"),
@@ -6632,6 +7039,7 @@ def main() -> int:
 
     hpo.update(q8=plane.pop("q8"), grpc=grpc.__version__)
     pipelines = {k: plane.pop(k) for k in ("s1", "s2", "s3", "s4")}
+    profile = plane["t"].pop("profile")
     lap("q")
 
     # 7. report
@@ -6676,6 +7084,7 @@ def main() -> int:
     log(json.dumps({"ranks": ranks}))
     log(json.dumps({"plane": plane}))
     log(json.dumps({"pipelines": pipelines}))
+    log(json.dumps({"profile": profile}))
     log(json.dumps({"hpo": hpo}))
     log(json.dumps({"serving_tier": serving_tier}))
     log(json.dumps({"phase_seconds": phase_seconds}))

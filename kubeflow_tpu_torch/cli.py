@@ -1,32 +1,40 @@
 """kfx — the platform CLI (kubectl+kfctl-shaped UX, SURVEY.md §7); the
-port's copy of ``kubeflow_tpu/cli.py``, local mode.
+port's copy of ``kubeflow_tpu/cli.py``.
 
-**run mode** (`kfx run -f job.yaml`) embeds a control plane, applies the
-manifests, waits for every training job and Experiment in them to finish,
-streams the chief log of each job (an Experiment prints its `best trial:`
-line), and exits 0/1 on Succeeded/Failed:
+Two modes:
 
-    python -m kubeflow_tpu_torch.cli --home /tmp/kfx run \\
-        -f examples/torch/mnist-jaxjob.yaml
-    python -m kubeflow_tpu_torch.cli --home /tmp/kfx run \\
-        -f examples/torch/experiment-random-mnist.yaml
+* **run mode** (`kfx run -f job.yaml`) embeds a control plane, applies the
+  manifests, waits for every training job and Experiment in them to
+  finish, streams the chief log of each job (an Experiment prints its
+  `best trial:` line), and exits 0/1 on Succeeded/Failed:
 
-Its workers run the port's runners on the card; ``KFX_WORKER_PLATFORM=
-cpu`` (or ``ControlPlane(worker_platform="cpu")``) pins them to the CPU
-(``operators/training.py``).
+      python -m kubeflow_tpu_torch.cli --home /tmp/kfx run \\
+          -f examples/torch/mnist-jaxjob.yaml
 
-Verbs: apply, run, get, describe, delete, logs, events, trace, top,
-query, alerts, slo, usage, queue, rollout, postmortem, flight,
-kill-replica, version. The parser keeps every verb of the reference, so
-``--help`` lists the same surface; the verbs whose machinery is not
-ported yet (profile, server, init, generate) and the ``KFX_SERVER``
-client mode exit 1 with a message naming their ROADMAP.md Queue A item
-(``DEFERRED_VERBS``), and ``apply`` refuses a kind no ported controller
-reconciles (``controlplane.UNPORTED_KINDS``: KfDef).
+* **server mode** (`kfx server`, ``apiserver.py``): a persistent control
+  plane behind a REST apiserver and dashboard; other kfx invocations
+  with ``KFX_SERVER=http://host:port`` become thin HTTP clients (the
+  kubectl model), and a local mutation against a home a live server owns
+  is routed through it:
 
-An InferenceService applied here serves while this process lives, as in
-the reference's local mode: ``apply`` without a server returns at once
-and its replicas stop with the plane.
+      python -m kubeflow_tpu_torch.cli --home /tmp/kfx server --port 8134
+      KFX_SERVER=http://127.0.0.1:8134 python -m kubeflow_tpu_torch.cli \\
+          run -f kfdef.yaml
+
+A KfDef document expands client-side (``kfctl.py``; `kfx init` scaffolds
+one, `kfx generate` writes what it renders), and `kfx profile` captures a
+trace of a running worker (``profiling.py``). The workers run the port's
+runners on the card; ``KFX_WORKER_PLATFORM=cpu`` (or
+``ControlPlane(worker_platform="cpu")``) pins them to the CPU
+(``operators/training.py``). The CLI and ``kfx server`` import no torch.
+
+Verbs: apply, run, get, describe, delete, logs, events, profile, trace,
+top, queue, rollout, query, alerts, slo, usage, postmortem, flight,
+kill-replica, init, generate, server, version.
+
+An InferenceService applied in local mode serves while that process
+lives: ``apply`` without a server returns at once and its replicas stop
+with the plane.
 """
 
 from __future__ import annotations
@@ -40,19 +48,7 @@ from typing import Dict, List, Optional, Tuple
 
 from .api.base import Resource, resource_class
 from .api.training import TrainingJob
-from .controlplane import (
-    ControlPlane,
-    HomeBusy,
-    default_home,
-    not_ported,
-    refuse_unported_kind,
-)
-
-# Verbs whose machinery a later slice ports: the Queue A item of each.
-DEFERRED_VERBS = {
-    "profile": "8.6",
-    "server": "8.4", "init": "8.4", "generate": "8.4",
-}
+from .controlplane import ControlPlane, HomeBusy, default_home, resolve_home
 
 
 def _fmt_age(created: str) -> str:
@@ -100,8 +96,8 @@ def _print_table(rows: List[List[str]], headers: List[str]) -> None:
 
 
 class KfxCLI:
-    """CLI against an embedded ControlPlane (the reference's remote
-    client, ``apiserver.Client``, is Queue A 8.4)."""
+    """CLI against a ControlPlane (embedded, or remote when KFX_SERVER is
+    set — see kubeflow_tpu_torch.apiserver.Client, which matches this surface)."""
 
     def __init__(self, cp: ControlPlane):
         self.cp = cp
@@ -109,12 +105,14 @@ class KfxCLI:
     # -- verbs --------------------------------------------------------------
     def apply(self, paths: List[str]) -> List[Resource]:
         from .api.base import from_manifest
+        from .kfctl import expand_manifest_file
 
         out = []
         for path in paths:
-            # The reference expands KfDef documents client-side (kfctl);
-            # the port refuses them (Queue A 8.4) before storing anything.
-            resources = [from_manifest(d) for d in _manifest_docs(path)]
+            # KfDef documents expand client-side into their rendered
+            # platform resources (kfctl model; see kubeflow_tpu_torch.kfctl).
+            resources = [from_manifest(d)
+                         for d in expand_manifest_file(path)]
             for obj, verb in self.cp.apply(resources):
                 print(f"{obj.KIND.lower()}/{obj.name} {verb}")
                 out.append(obj)
@@ -244,9 +242,9 @@ class KfxCLI:
         return 0
 
     def delete_files(self, paths: List[str]) -> int:
-        """kfctl-delete model: tear down everything the manifests hold,
-        in REVERSE apply order so dependents go before what they hang
-        off."""
+        """kfctl-delete model: tear down everything the manifests (or a
+        KfDef) render, in REVERSE apply order so dependents go before
+        the profiles/defaults they hang off."""
         from .core.store import NotFound
 
         def delete(kind: str, name: str, ns: str) -> bool:
@@ -384,6 +382,8 @@ class KfxCLI:
         points (or the raw result dict with ``--json`` — scriptable
         incident tooling; rc semantics identical). Shares the /query
         endpoint's semantics exactly."""
+        from .apiserver import parse_label_selector
+
         try:
             sel = parse_label_selector(labels)
             res = self.cp.telemetry.query(family, fn, sel or None,
@@ -400,9 +400,8 @@ class KfxCLI:
         # equally to SLO-generated burn rules (same engine).
         if self.cp.alerts.last_eval == 0:
             print("note: rules have never been evaluated in this "
-                  "process (passive plane) — they run in the process "
-                  "that owns the plane; the reference's `kfx server` "
-                  "and KFX_SERVER client are ROADMAP.md Queue A 8.4",
+                  "process (passive plane) — run inside `kfx server` "
+                  "or set KFX_SERVER to query the live plane",
                   file=sys.stderr)
 
     def alerts(self, as_json: bool = False) -> int:
@@ -541,6 +540,51 @@ class KfxCLI:
         else:
             isvcs = self.cp.store.list("InferenceService", namespace)
         return _print_rollouts(isvcs)
+
+    def profile(self, kind: str, name: str, namespace: str, replica: str,
+                duration_ms: int, logdir: str) -> int:
+        """Capture a torch.profiler trace from a running replica (SURVEY.md
+        §5.1: `kfx profile <job>` → a ``.pt.trace.json.gz`` under
+        TensorBoard's ``plugins/profile/<run>/`` layout, where the
+        reference writes an xplane dump; ``profiling.py``).
+
+        Works cross-process: the workdir where workers advertise their
+        profiler ports is derived from the store, so a passive kfx
+        invocation can profile a job owned by `kfx server` (or another
+        `kfx run`) on the same host."""
+        from .profiling import capture_trace, replica_port
+
+        cls = resource_class(kind)
+        job = self.cp.store.get(cls.KIND, name, namespace)
+        key = f"{cls.KIND.lower()}/{namespace}/{name}"
+        gang = self.cp.gangs.get(key)
+        workdir = gang.workdir if gang else self.cp.gangs.workdir_for(key)
+        if not replica:
+            if gang is not None:
+                chief = gang.chief_replica_type
+            elif isinstance(job, TrainingJob):
+                chief = job.chief_replica_type()
+            else:
+                chief = "worker"
+            replica = f"{chief.lower()}-0"
+        port = replica_port(workdir, replica)
+        if port is None:
+            print(f"replica {replica} of {key} has not advertised a "
+                  f"profiler port (job not running, started with "
+                  f"KFX_PROFILE=0, or still initialising?)",
+                  file=sys.stderr)
+            return 1
+        out = logdir or os.path.join(workdir, "profiler", "traces")
+        try:
+            paths = capture_trace(f"localhost:{port}", out, duration_ms)
+        except RuntimeError as e:  # the worker's answer: busy, no ops
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        for p in paths:
+            print(p)
+        print(f"trace captured: point tensorboard --logdir at {out}, or "
+              f"open the file in ui.perfetto.dev")
+        return 0
 
     def kill_replica(self, kind: str, name: str, namespace: str,
                      replica: str) -> int:
@@ -764,6 +808,20 @@ def _local_rates_fn(cp, window_s: float):
     return rates
 
 
+def _selector_dict(text: str) -> dict:
+    from .apiserver import parse_label_selector
+
+    return parse_label_selector(text)
+
+
+def _remote_rates_fn(client, window_s: float):
+    def rates(namespace, isvc, revision):
+        return _revision_window_rates(
+            lambda fam, fn, sel, since: client.query(fam, fn, sel, since),
+            namespace, isvc, revision, window_s)
+    return rates
+
+
 _SPARK_BLOCKS = "▁▂▃▄▅▆▇█"
 
 
@@ -837,8 +895,7 @@ def _print_query(res: dict, as_json: bool = False) -> int:
               f"span {span:.0f}s")
     if value is None and not pts:
         print("  no samples in the window (is the scraper running? "
-              "`kfx query` reads the history of the process that owns "
-              "the plane)")
+              "`kfx query` needs a live `kfx server` or embedded plane)")
         return 1
     return 0
 
@@ -1021,23 +1078,6 @@ def _training_kinds() -> List[str]:
     return out
 
 
-def parse_label_selector(text: str) -> dict:
-    """``k=v,k2=v2`` -> dict (the `kfx query -l` label selector; the
-    reference keeps it in ``apiserver.py``, Queue A 8.4). Empty input ->
-    {}. A clause without '=' raises."""
-    out = {}
-    for clause in (text or "").split(","):
-        clause = clause.strip()
-        if not clause:
-            continue
-        k, sep, v = clause.partition("=")
-        if not sep or not k.strip():
-            raise ValueError(f"bad label selector clause {clause!r} "
-                             f"(want key=value)")
-        out[k.strip()] = v.strip()
-    return out
-
-
 def _telemetry_cells(text: str) -> List[str]:
     """[step, loss, step_time, rate] display cells from a chief log tail
     (shared by local and remote `kfx top`)."""
@@ -1217,7 +1257,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("replica")
 
     sp = sub.add_parser(
-        "profile", help="capture a jax.profiler trace from a running job")
+        "profile", help="capture a torch.profiler trace from a running job")
     sp.add_argument("kind")
     sp.add_argument("name")
     sp.add_argument("--replica", default="",
@@ -1258,7 +1298,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         if isinstance(e, (ValidationError, NotFound, Conflict, AlreadyExists,
                           KeyError, FileNotFoundError, TimeoutError,
-                          NotImplementedError, yaml.YAMLError)):
+                          yaml.YAMLError)):
             msg = e.args[0] if e.args else str(e)
             print(f"error: {msg}", file=sys.stderr)
             return 1
@@ -1272,34 +1312,90 @@ def _main(argv: Optional[List[str]] = None) -> int:
 
         print(f"kfx {__version__}")
         return 0
-    item = DEFERRED_VERBS.get(args.cmd)
-    if item is not None:
-        print(f"error: {not_ported(f'`kfx {args.cmd}`', item)}",
+    if args.cmd == "init":
+        from .kfctl import init_scaffold
+
+        if os.path.exists(args.output):
+            print(f"error: {args.output} already exists", file=sys.stderr)
+            return 1
+        with open(args.output, "w") as f:
+            f.write(init_scaffold(args.name, args.platform_namespace))
+        print(f"wrote {args.output}")
+        return 0
+    if args.cmd == "generate":
+        from .kfctl import generate
+
+        for p in generate(args.filename, args.output):
+            print(p)
+        return 0
+    _REMOTE_VERBS = ("apply", "run", "get", "describe", "delete", "logs",
+                     "events", "top", "queue", "rollout", "query",
+                     "alerts", "slo", "usage")
+    if os.environ.get("KFX_SERVER") and args.cmd in _REMOTE_VERBS:
+        return _remote_main(args)
+    if os.environ.get("KFX_SERVER") and args.cmd in ("trace",
+                                                     "postmortem",
+                                                     "flight"):
+        # Falling through to a local passive plane would diagnose "not
+        # found" against the LOCAL home while the job lives on the
+        # server — a misleading answer. Span files, postmortem bundles
+        # and flight snapshots are host-local; run the verb where the
+        # server's home is.
+        print(f"error: `kfx {args.cmd}` reads files from the server's "
+              f"home on its own host and is not supported in "
+              f"KFX_SERVER client mode; run it on the host of "
+              f"{os.environ['KFX_SERVER']} (unset KFX_SERVER there)",
               file=sys.stderr)
         return 1
-    if os.environ.get("KFX_SERVER"):
-        # The reference becomes a thin HTTP client of the `kfx server`
-        # named there; the port has no apiserver yet, and a local plane
-        # would answer for another home than the server's.
-        print(f"error: {not_ported('KFX_SERVER client mode', '8.4')}; "
-              f"unset KFX_SERVER to use the local plane", file=sys.stderr)
-        return 1
+    if args.cmd == "server":
+        try:
+            from .apiserver import serve_forever
+        except ImportError:
+            print("error: server mode is not available in this build",
+                  file=sys.stderr)
+            return 1
+        return serve_forever(home=args.home, port=args.port)
+
+    # A running `kfx server` owns its home: its in-memory store, watches
+    # and gangs are authoritative, and a local-mode mutation (apply /
+    # delete) against the same sqlite would silently diverge — the server
+    # never observes it, and its next status write resurrects the row.
+    # Detect the owner (health-checked marker it wrote at startup) and
+    # route through it.
+    server_url = _detect_server(args.home)
+    if server_url is not None:
+        if args.cmd in _REMOTE_VERBS:
+            print(f"note: routing through the running kfx server at "
+                  f"{server_url} (it owns this home)", file=sys.stderr)
+            return _remote_main(args, url=server_url)
+        if args.cmd == "kill-replica":
+            print(f"error: this home is owned by the kfx server at "
+                  f"{server_url}; kill-replica must run in the owning "
+                  f"process (its gangs are not visible here)",
+                  file=sys.stderr)
+            return 1
+        # profile is read-only cross-process (profiler ports are
+        # advertised on disk) and safe to run locally.
 
     # Verbs that don't launch work must never reconcile: a second control
     # plane on the same home would adopt Running jobs and spawn duplicate
     # gangs next to their owner. kill-replica only acts on gangs this
-    # process owns; delete is store-only.
-    passive = args.cmd in ("get", "describe", "logs", "events", "delete",
-                           "kill-replica", "top", "trace", "queue",
-                           "rollout", "query", "alerts", "slo", "usage",
-                           "postmortem", "flight")
+    # process owns; delete without a live server is store-only and the
+    # finished/ownerless gang case is the only one left after the routing
+    # above.
+    passive = args.cmd in ("get", "describe", "logs", "events", "profile",
+                           "delete", "kill-replica", "top", "trace",
+                           "queue", "rollout", "query", "alerts",
+                           "slo", "usage", "postmortem", "flight")
     try:
         plane = ControlPlane(home=args.home, journal=True, passive=passive)
     except HomeBusy:
-        # Another local `kfx run` owns the home: refuse rather than
+        # Owner without a marker (e.g. another local `kfx run`, or a
+        # server that hasn't finished startup): refuse rather than
         # reconcile the same sqlite twice.
         print("error: this home's reconcile loops are owned by another "
-              "live kfx process; re-run when it exits", file=sys.stderr)
+              "live kfx process; re-run when it exits, or start a "
+              "`kfx server` and use client mode", file=sys.stderr)
         return 1
     with plane as cp:
         cli = KfxCLI(cp)
@@ -1322,7 +1418,7 @@ def _main(argv: Optional[List[str]] = None) -> int:
                 jobs.append(o)
             if jobs:
                 print("note: no kfx server running; waiting for "
-                      "applied jobs (use `kfx run`)")
+                      "applied jobs (use `kfx run` or `kfx server`)")
                 return _wait_jobs(cli, jobs, args.timeout)
             return 0
         if args.cmd == "run":
@@ -1373,36 +1469,24 @@ def _main(argv: Optional[List[str]] = None) -> int:
         if args.cmd == "kill-replica":
             return cli.kill_replica(args.kind, args.name, args.namespace,
                                     args.replica)
+        if args.cmd == "profile":
+            return cli.profile(args.kind, args.name, args.namespace,
+                               args.replica, args.duration_ms, args.logdir)
     return 0
 
 
-def _manifest_docs(path: str) -> List[dict]:
-    """The documents of a manifest file, refusing a kind that no ported
-    controller reconciles (a KfDef included) before anything is stored."""
-    import yaml
-
-    from .api.base import ValidationError
-
-    with open(path) as f:
-        docs = [d for d in yaml.safe_load_all(f) if d is not None]
-    for i, doc in enumerate(docs):
-        if not isinstance(doc, dict):
-            raise ValidationError(f"document[{i}]",
-                                  "manifest must be a mapping")
-        refuse_unported_kind(str(doc.get("kind", "")))
-    return docs
-
-
 def _delete_rendered(paths: List[str], delete) -> int:
-    """The `delete -f` engine: read each manifest, normalize kinds
-    through the registry —
+    """Shared `delete -f` engine (local store and remote client modes):
+    expand each manifest/KfDef, normalize kinds through the registry —
     the apply path accepts lowercase/plural spellings, so delete must
     too, or a `kind: jaxjob` manifest would "delete" nothing while
     reporting success — and remove in reverse apply order.
     ``delete(kind, name, ns) -> bool`` returns False for already-gone."""
+    from .kfctl import expand_manifest_file
+
     docs: List[dict] = []
     for path in paths:
-        docs.extend(_manifest_docs(path))
+        docs.extend(expand_manifest_file(path))
     for doc in reversed(docs):
         raw_kind = str(doc.get("kind", ""))
         try:
@@ -1418,6 +1502,332 @@ def _delete_rendered(paths: List[str], delete) -> int:
         else:
             print(f"{kind.lower()}/{name} not found (already gone)")
     return 0
+
+
+def _dict_state(obj: dict) -> str:
+    from .api.base import display_state
+
+    return display_state(obj.get("status", {}).get("conditions", []))
+
+
+def _same_server(a: str, b: str) -> bool:
+    """URL equivalence for the admin-token gate: canonical scheme/host
+    (lowercased, default ports filled) and path. No DNS — `localhost`
+    vs `127.0.0.1` intentionally does NOT match (fail closed; the
+    withheld-token note tells the user which spelling the marker has).
+    """
+    from urllib.parse import urlsplit
+
+    def canon(u):
+        s = urlsplit(u if "//" in u else f"//{u}", scheme="http")
+        port = s.port or {"http": 80, "https": 443}.get(s.scheme, 0)
+        return (s.scheme.lower(), (s.hostname or "").lower(), port,
+                s.path.rstrip("/"))
+
+    try:
+        return canon(a) == canon(b)
+    except ValueError:
+        return False
+
+
+def _detect_server(home: Optional[str]) -> Optional[str]:
+    """URL of a live `kfx server` owning this home, else None."""
+    try:
+        from .apiserver import live_server_url
+    except ImportError:
+        return None
+    return live_server_url(resolve_home(home))
+
+
+def _remote_main(args, url: Optional[str] = None) -> int:
+    """Thin-client mode: KFX_SERVER points at a running `kfx server`
+    (or one was detected owning the home); state and gangs live there
+    (the kubectl model — see apiserver)."""
+    import urllib.error
+
+    from .apiserver import SERVER_MARKER, ApiError, Client, read_admin_token
+
+    url = url or os.environ["KFX_SERVER"]
+    # Local possession of the home's 0600 token file == cluster-admin —
+    # but only toward the server that OWNS this home. Sending it to an
+    # arbitrary KFX_SERVER would hand the credential to whoever runs
+    # that endpoint (cleartext HTTP). Trust derives from the FILESYSTEM,
+    # never from the endpoint's own responses (a malicious server could
+    # simply echo the guessable home path): the flock-holding owner
+    # writes its URL into the home's server.json marker, and the token
+    # rides along only when KFX_SERVER matches that marker. Mismatch
+    # (incl. no marker) fails closed — requests still go out, just
+    # unprivileged.
+    home = resolve_home(getattr(args, "home", None))
+    token = read_admin_token(home)
+    if token:
+        marker_url = None
+        try:
+            with open(os.path.join(home, SERVER_MARKER)) as f:
+                marker_url = json.load(f).get("url")
+        except (OSError, ValueError):
+            pass
+        if not marker_url or not _same_server(marker_url, url):
+            # Visible, because the symptom downstream is otherwise an
+            # unexplained 403 on admin surfaces.
+            print(f"note: admin token withheld — KFX_SERVER {url!r} does "
+                  f"not match this home's server marker "
+                  f"({marker_url!r}); requests proceed unprivileged",
+                  file=sys.stderr)
+            token = None
+    client = Client(url, admin_token=token)
+    try:
+        return _remote_dispatch(client, args)
+    except ApiError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    except (urllib.error.URLError, ConnectionError, TimeoutError) as e:
+        reason = getattr(e, "reason", e)
+        print(f"error: cannot reach kfx server at {url}: {reason} "
+              f"(is `kfx server` running? unset KFX_SERVER for local mode)",
+              file=sys.stderr)
+        return 1
+
+
+def _remote_dispatch(client, args) -> int:
+    if args.cmd in ("apply", "run"):
+        import yaml
+
+        from .kfctl import expand_manifest_file
+
+        applied = []
+        for path in args.filename:
+            # KfDef expands client-side (kfctl model); the server receives
+            # plain rendered resources.
+            text = "---\n".join(
+                yaml.safe_dump(d, sort_keys=False)
+                for d in expand_manifest_file(path))
+            for item in client.apply_text(text):
+                print(f"{item['kind'].lower()}/{item['name']} "
+                      f"{item['verb']}")
+                applied.append(item)
+        wait = args.cmd == "run" or getattr(args, "wait", False)
+        if not wait:
+            return 0
+        follow = args.cmd == "run" and not getattr(args, "no_follow", False)
+        return _remote_wait(client, applied, args.timeout, follow)
+    if args.cmd == "get":
+        if args.name:
+            objs = [client.get(args.kind, args.namespace, args.name)]
+        else:
+            objs = client.list(args.kind, args.namespace)
+        if args.output == "json":
+            print(json.dumps(objs[0] if args.name else objs, indent=2))
+        elif args.output == "yaml":
+            import yaml
+
+            print("---\n".join(yaml.safe_dump(o, sort_keys=False)
+                               for o in objs), end="")
+        else:
+            rows = [[o["metadata"]["name"], _dict_state(o),
+                     str(o.get("status", {}).get("restartCount", 0)),
+                     _fmt_age(o["metadata"].get("creationTimestamp", ""))]
+                    for o in objs]
+            headers = ["NAME", "STATE", "RESTARTS", "AGE"]
+            if any(o.get("status", {}).get("pooledModels") for o in objs):
+                # Same POOLED column the embedded path renders —
+                # thin-client mode is how a live plane is queried.
+                headers.append("POOLED")
+                for row, o in zip(rows, objs):
+                    row.append(_fmt_pooled(
+                        o.get("status", {}).get("pooledModels") or {}))
+            _print_table(rows, headers)
+        return 0
+    if args.cmd == "describe":
+        import yaml
+
+        obj = client.get(args.kind, args.namespace, args.name)
+        print(yaml.safe_dump(obj, sort_keys=False), end="")
+        events = client.events(args.kind, args.namespace, args.name)
+        if events:
+            print("events:")
+            for e in events:
+                print(f"  {e['timestamp']} {e['type']} {e['reason']}: "
+                      f"{e['message']}")
+        return 0
+    if args.cmd == "delete":
+        if getattr(args, "filename", None):
+            from .apiserver import ApiError
+
+            def delete(kind: str, name: str, ns: str) -> bool:
+                try:
+                    client.delete(kind, ns, name)
+                    return True
+                except ApiError as e:
+                    if e.status != 404:
+                        raise
+                    return False
+
+            return _delete_rendered(args.filename, delete)
+        if not (args.kind and args.name):
+            print("error: delete needs KIND NAME or -f FILE",
+                  file=sys.stderr)
+            return 2
+        client.delete(args.kind, args.namespace, args.name)
+        print(f"{args.kind.lower()}/{args.name} deleted")
+        return 0
+    if args.cmd == "logs":
+        print(client.logs(args.kind, args.namespace, args.name,
+                          args.replica), end="")
+        return 0
+    if args.cmd == "events":
+        for e in client.events(args.kind, args.namespace, args.name):
+            trace = f" [trace={e['traceId']}]" if e.get("traceId") else ""
+            print(f"{e['timestamp']} {e['type']} {e['reason']}: "
+                  f"{e['message']}{trace}")
+        return 0
+    if args.cmd == "top":
+        from .apiserver import ApiError
+
+        watch = getattr(args, "watch", 0.0)
+        window = getattr(args, "window", 30.0)
+        while True:
+            print(_remote_capacity_summary(client))
+            rows = []
+            for kind in _training_kinds():
+                for o in client.list(kind):
+                    ns = o["metadata"].get("namespace", "default")
+                    name = o["metadata"]["name"]
+                    try:
+                        # Tail: don't download whole logs for a few
+                        # lines.
+                        text = client.logs_tail(kind, ns, name)
+                    except ApiError:
+                        text = ""
+                    rows.append([name, kind, ns, _dict_state(o)]
+                                + _telemetry_cells(text))
+            rc = _print_top(rows)
+            _print_serving_top(_serving_top_rows(
+                _remote_isvcs(client),
+                rates_fn=_remote_rates_fn(client, window)))
+            if watch <= 0:
+                return rc
+            try:
+                time.sleep(watch)
+            except KeyboardInterrupt:
+                return rc
+            print(f"\n--- kfx top (refresh every {watch:g}s, rates "
+                  f"over {window:g}s) ---")
+    if args.cmd == "query":
+        from .apiserver import ApiError
+
+        try:
+            return _print_query(client.query(
+                args.family, args.fn,
+                _selector_dict(args.labels), args.since),
+                as_json=args.as_json)
+        except (ApiError, ValueError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+    if args.cmd == "alerts":
+        return _print_alerts(client.alerts(), as_json=args.as_json)
+    if args.cmd == "slo":
+        return _print_slos(client.slos(), as_json=args.as_json)
+    if args.cmd == "usage":
+        return _print_usage(client.usage(args.tenant or None,
+                                         args.window),
+                            args.window, as_json=args.as_json)
+    if args.cmd == "queue":
+        print(_remote_capacity_summary(client))
+        running, queued = _slice_state(_remote_jobs(client))
+        return _print_queue(
+            running + _serving_slice_rows(_remote_isvcs(client)), queued)
+    if args.cmd == "rollout":
+        if args.name:
+            isvcs = [client.get("InferenceService", args.namespace,
+                                args.name)]
+        else:
+            isvcs = client.list("InferenceService", args.namespace)
+        from .api.base import from_manifest
+
+        return _print_rollouts([from_manifest(o) for o in isvcs])
+    raise AssertionError(f"unhandled remote cmd {args.cmd}")
+
+
+def _remote_jobs(client):
+    """(kind, Resource) pairs rebuilt from the server's dicts, so the
+    remote `kfx queue` shares the local view's derivation exactly."""
+    from .api.base import from_manifest
+
+    for kind in _training_kinds():
+        for o in client.list(kind):
+            try:
+                yield kind, from_manifest(o)
+            except Exception:
+                continue
+
+
+def _remote_isvcs(client):
+    """InferenceService resources rebuilt from the server's dicts (the
+    remote serving rows share the local derivation)."""
+    from .api.base import from_manifest
+
+    out = []
+    try:
+        for o in client.list("InferenceService"):
+            try:
+                out.append(from_manifest(o))
+            except Exception:
+                continue
+    except Exception:
+        pass
+    return out
+
+
+def _remote_capacity_summary(client) -> str:
+    try:
+        sched = client.metrics_json().get("sched") or {}
+    except Exception:
+        sched = {}
+    capacity = int(sched.get("capacity") or 0)
+    reserved = int(sched.get("reserved") or 0)
+    return _capacity_summary(capacity, reserved,
+                             int(sched.get("queued") or 0))
+
+
+def _remote_wait(client, applied: List[dict], timeout: float,
+                 follow: bool) -> int:
+    from .apiserver import ApiError
+
+    rc = 0
+    for item in applied:
+        kind, ns, name = item["kind"], item["namespace"], item["name"]
+        try:
+            is_job = issubclass(resource_class(kind), TrainingJob)
+        except KeyError:
+            continue
+        if not is_job and kind not in ("Experiment", "Pipeline"):
+            continue
+        deadline = time.monotonic() + timeout
+        offset = 0
+        state = "Pending"
+        while time.monotonic() < deadline:
+            obj = client.get(kind, ns, name)
+            if follow and is_job:  # experiments have no chief log
+                try:
+                    text, offset = client.logs_from(kind, ns, name, "",
+                                                    offset)
+                except ApiError:
+                    text = ""
+                if text:
+                    sys.stdout.write(text)
+                    sys.stdout.flush()
+            state = _dict_state(obj)
+            if state in ("Succeeded", "Failed"):
+                break
+            time.sleep(0.3)
+        else:
+            raise SystemExit(f"timeout: {kind} {ns}/{name} still {state} "
+                             f"after {timeout}s")
+        print(f"{kind.lower()}/{name} {state.lower()}")
+        if state != "Succeeded":
+            rc = 1
+    return rc
 
 
 def _wait_jobs(cli: KfxCLI, jobs: List[Resource], timeout: float) -> int:

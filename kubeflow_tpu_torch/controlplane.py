@@ -12,9 +12,9 @@ observation store behind the db-manager), the serving, pipeline,
 Notebook, Profile and SLO controllers, ``PlatformAdmission`` in every
 workload controller, the telemetry store with its central scraper and
 the rule and SLO engines it drives, the metrics registry, the span sink
-and the chaos listener: the reference's plane. Only KfDef has no
-controller yet (``UNPORTED_KINDS`` names its ROADMAP.md item): ``apply``
-refuses it, so no resource is stored that nothing would reconcile.
+and the chaos listener: the reference's plane. ``apiserver.py`` serves it
+over HTTP (`kfx server`); a KfDef never reaches it, since the CLI expands
+one client-side (``kfctl.py``), as in the reference.
 """
 
 from __future__ import annotations
@@ -32,31 +32,6 @@ from .obs import trace as obs_trace
 from .obs.metrics import MetricsRegistry
 from .operators import training_controllers
 from .runtime.gang import GangManager
-
-
-# The parts of the reference's plane that later slices port (ROADMAP.md
-# Queue A 8): the item each one waits on.
-QUEUE_A8 = {
-    "8.4": "the apiserver and kfctl with the remote CLI",
-    "8.6": "profiling.py",
-}
-
-# Kinds the port's API validates but no ported controller reconciles.
-UNPORTED_KINDS = {"KfDef": "8.4"}
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The refusal for a part of the reference's plane the port lacks."""
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue A {item}: "
-        f"{QUEUE_A8[item]})")
-
-
-def refuse_unported_kind(kind: str) -> None:
-    """Raise ``not_ported`` for a kind whose controller is not ported."""
-    item = UNPORTED_KINDS.get(kind)
-    if item is not None:
-        raise not_ported(f"kind {kind}: its controller", item)
 
 
 def default_home() -> str:
@@ -122,8 +97,8 @@ class ControlPlane:
             os.path.join(self.home, obs_trace.SPANS_DIRNAME), "plane")
         # One registry per plane: reconcile histograms recorded live by
         # the controllers, plus pull-time collectors for state that
-        # lives elsewhere (store counts, workqueue depths). The
-        # apiserver's /metrics renders it (Queue A 8.4).
+        # lives elsewhere (store counts, workqueue depths). Both
+        # /metrics formats render from this single snapshot path.
         self.metrics = MetricsRegistry()
         self.metrics.add_collector(self._collect_platform_metrics)
         # Training-loop families (kfx_train_mfu, kfx_train_step_seconds,
@@ -363,8 +338,6 @@ class ControlPlane:
         # admission span is the ROOT of the submission's trace tree —
         # its ID is annotated onto each new object so reconcile spans
         # (and everything under them) parent to it.
-        for obj in resources:
-            refuse_unported_kind(obj.KIND)
         trace_id = trace_id or obs_trace.new_trace_id()
         out = []
         with obs_trace.span("admission", trace_id=trace_id,

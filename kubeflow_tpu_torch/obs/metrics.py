@@ -1,8 +1,7 @@
 """Process-wide metrics registry: Counter / Gauge / Histogram with
-label sets, thread-safe, renderable to Prometheus exposition text — the
-port's copy of ``kubeflow_tpu/obs/metrics.py``, cut to what the model
-server, the training control plane and the serving tier reach (no JSON
-snapshot).
+label sets, thread-safe, renderable to Prometheus exposition text and to
+the JSON snapshot behind the apiserver's ``/metrics?format=json`` — the
+port's copy of ``kubeflow_tpu/obs/metrics.py``.
 
   * instruments are get-or-create by name (idempotent; a type conflict
     raises), so call sites can ask for their instrument inline;
@@ -21,7 +20,7 @@ import math
 import threading
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
-from ..utils.prom import HistogramValue, prom_text
+from ..utils.prom import HistogramValue, fmt_le, prom_text
 
 # Default buckets tuned for request latencies in seconds.
 DEFAULT_BUCKETS: Tuple[float, ...] = (
@@ -264,16 +263,35 @@ class MetricsRegistry:
                 metrics.setdefault(name, m)
         return sorted(metrics.values(), key=lambda m: m.name)
 
-    def render(self) -> str:
-        """Prometheus exposition text for every registered metric."""
+    def _collected(self):
+        """Run the collectors, then gather: (metric, samples) pairs read
+        under the render lock, the one path both outputs take."""
         with self._render_lock:
             with self._lock:
                 collectors = list(self._collectors)
             for fn in collectors:
                 fn(self)
-            metrics = self._gathered()
-            return prom_text([(m.name, m.TYPE, m.help, m.samples())
-                              for m in metrics])
+            return [(m, m.samples()) for m in self._gathered()]
+
+    def render(self) -> str:
+        """Prometheus exposition text for every registered metric."""
+        return prom_text([(m.name, m.TYPE, m.help, samples)
+                          for m, samples in self._collected()])
+
+    def snapshot(self) -> Dict[str, Dict]:
+        """JSON-able view of the same state the exposition text shows —
+        the single snapshot path both /metrics formats derive from."""
+        out: Dict[str, Dict] = {}
+        for m, samples in self._collected():
+            if isinstance(m, Histogram):
+                rows = [{"labels": lab,
+                         "buckets": [[fmt_le(b), c] for b, c in hv.buckets],
+                         "sum": hv.sum, "count": hv.count}
+                        for lab, hv in samples]
+            else:
+                rows = [{"labels": lab, "value": v} for lab, v in samples]
+            out[m.name] = {"type": m.TYPE, "help": m.help, "samples": rows}
+        return out
 
 
 _default = MetricsRegistry()

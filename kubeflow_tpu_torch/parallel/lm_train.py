@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import Dict, Iterable, List, Optional, Tuple, Union
 
@@ -61,6 +62,7 @@ from torch.utils import checkpoint as _ckpt
 from ..device import resolve_device
 from ..models.transformer import (TransformerConfig, TransformerLM,
                                   full_from_shards, local_shard)
+from ..obs.metrics import default_registry
 from . import comm
 from .mesh import MeshPlan
 from .overlap import GradBuckets
@@ -183,6 +185,20 @@ class LMTrainLoop:
         # is only computed on a CUDA device, against its peak.
         self.last_step_seconds: Optional[float] = None
         self.last_mfu: Optional[float] = None
+        # The same numbers on the process registry, as the reference's
+        # loop records them (the plane's /metrics bridges kfx_train_*):
+        # kfx_train_step_seconds{job,config}, and kfx_train_mfu where an
+        # MFU is computed (on a CUDA device). The labels resolve at the
+        # first record: the pipelined subclass swaps self.plan.
+        obs = default_registry()
+        self._obs_step = obs.histogram(
+            "kfx_train_step_seconds",
+            "Per-optimizer-step wall time (fused dispatches amortised).")
+        self._obs_mfu = obs.gauge(
+            "kfx_train_mfu",
+            "Model FLOPs utilisation of the most recent training "
+            "dispatch (fraction of the cards' peak bf16 FLOP/s).")
+        self._obs_labels: Optional[Dict[str, str]] = None
 
     # -- state --------------------------------------------------------------
     def init_state(self, state_dict: Optional[Dict[str, torch.Tensor]] = None
@@ -518,6 +534,15 @@ class LMTrainLoop:
         if seconds <= 0 or n_steps <= 0 or n_tokens <= 0:
             return
         self.last_step_seconds = seconds / n_steps
+        if self._obs_labels is None:
+            plan, cfg = self.plan, self.cfg
+            self._obs_labels = {
+                "job": os.environ.get("KFX_JOB_NAME", "local"),
+                "config": (f"pp{plan.pp}/dp{plan.dp}/cp{plan.cp}/"
+                           f"tp{plan.tp}" + ("/fsdp" if plan.fsdp else "")
+                           + f"-d{cfg.d_model}L{cfg.n_layers}")}
+        self._obs_step.observe(self.last_step_seconds, n=n_steps,
+                               **self._obs_labels)
         if self.device.type == "cuda":
             from ..utils.flops import mfu, transformer_train_flops_per_token
 
@@ -525,6 +550,7 @@ class LMTrainLoop:
                                 transformer_train_flops_per_token(
                                     self.cfg, seq_len),
                                 n_cards=self._n_cards())
+            self._obs_mfu.set(round(self.last_mfu, 6), **self._obs_labels)
 
     # -- steps --------------------------------------------------------------
     def _train_one(self, tokens: torch.Tensor):

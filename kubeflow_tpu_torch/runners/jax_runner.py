@@ -27,8 +27,9 @@ reference's spans go to its spans file (``obs/trace.py``):
 pays the warm-up; the name is the reference's, so one waterfall reads
 both), a ``train.window`` a log interval, ``checkpoint.save`` and
 ``checkpoint.restore`` (``training/checkpoint.py``), ``runner.eval`` and
-``runner.export``. The reference's profiler server is not ported
-(ROADMAP.md Queue A 8.6).
+``runner.export``. After distributed init it starts the worker's trace
+server (``profiling.maybe_start_profiler_server``; ``KFX_PROFILE=0`` opts
+out), which `kfx profile` reads.
 
 Several processes (``KFX_NUM_PROCESSES``, ``KFX_PROCESS_ID``,
 ``KFX_COORDINATOR_ADDRESS``, as the JAXJob operator and the mpirun shim
@@ -166,6 +167,10 @@ def main(argv=None) -> int:
             rdv_sp.attrs["processes"] = os.environ.get(
                 "KFX_NUM_PROCESSES", "1")
             device = initialize_distributed(resolve_device(args.device))
+
+        from ..profiling import maybe_start_profiler_server
+
+        maybe_start_profiler_server()
         rank, world = rank_world()
 
         import numpy as np

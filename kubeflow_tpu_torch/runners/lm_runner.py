@@ -30,6 +30,9 @@ nccl). With ``KFX_WORKDIR`` set, the reference's ``runner.init``
 (interpreter start to the rendezvous' end, with ``rendezvous.wait``
 inside it), ``xla.compile`` (the first step), ``train.window`` and
 ``train.collective`` spans go to its spans file (``obs/trace.py``).
+After distributed init it starts the worker's trace server
+(``profiling.maybe_start_profiler_server``; ``KFX_PROFILE=0`` opts out),
+which `kfx profile` reads.
 """
 
 from __future__ import annotations
@@ -165,6 +168,10 @@ def main(argv=None) -> int:
             rdv_sp.attrs["processes"] = os.environ.get(
                 "KFX_NUM_PROCESSES", "1")
             device = initialize_distributed(resolve_device(args.device))
+
+        from ..profiling import maybe_start_profiler_server
+
+        maybe_start_profiler_server()
 
         from ..data.lm import get_lm_dataset
         from ..models.transformer import preset_config

@@ -1,14 +1,16 @@
 """The control plane's chaos points in the port (kubeflow_tpu_torch), ported
 from tests/test_chaos.py: store faults (store.read/store.write), workqueue
 requeue storms, gang spawn failure and supervisor member kill, and the
-plane's chaos listener (events + kfx_chaos_injected_total), plus the
-seeded smoke of a JAXJob whose runner crashes on a corrupted latest
-checkpoint. The reference's apiserver 503 case waits for its apiserver
-(ROADMAP.md Queue A 8.4)."""
+plane's chaos listener (events + kfx_chaos_injected_total), the
+apiserver's 503 with Retry-After on a storage fault, plus the seeded smoke
+of a JAXJob whose runner crashes on a corrupted latest checkpoint."""
 
+import json
 import os
 import sys
 import time
+import urllib.error
+import urllib.request
 
 import pytest
 
@@ -62,6 +64,30 @@ class TestStoreFaults:
             store.delete("JAXJob", "w")
         assert store.get("JAXJob", "w").metadata.labels == {}
         assert chaos.injected_counts() == {"store.write": 3}
+
+    def test_apiserver_answers_503_with_retry_after(self, tmp_path):
+        from kubeflow_tpu_torch.apiserver import ApiServer
+        from kubeflow_tpu_torch.controlplane import ControlPlane
+
+        plane = ControlPlane(home=str(tmp_path / "home"))
+        server = ApiServer(plane, port=0)
+        server.start()
+        try:
+            chaos.install(chaos.parse_spec("store.read:count=1"))
+            with pytest.raises(urllib.error.HTTPError) as e:
+                urllib.request.urlopen(
+                    f"{server.url}/apis/jaxjob", timeout=10)
+            assert e.value.code == 503
+            assert e.value.headers.get("Retry-After") == "1"
+            body = json.loads(e.value.read())
+            assert "storage temporarily unavailable" in body["error"]
+            # The retry the header promised actually works.
+            with urllib.request.urlopen(
+                    f"{server.url}/apis/jaxjob", timeout=10) as r:
+                assert r.status == 200
+        finally:
+            server.stop()
+            plane.stop()
 
     def test_store_fault_lands_in_events_and_metrics(self, tmp_path):
         from kubeflow_tpu_torch.controlplane import ControlPlane

@@ -1300,3 +1300,132 @@ def test_nas_search_on_cuda_is_deterministic(cuda_nas):
     np.testing.assert_array_equal(c.logits, d.logits)
     assert [h["reward_mean"] for h in c.history] == \
         [h["reward_mean"] for h in d.history]
+
+
+def _lm_job(name, steps):
+    """A one-Worker JAXJob of the LM runner at the small preset, S 1024,
+    b2: head dim 64 in bf16, inside the flash window, so its attention
+    runs the three wgmma kernels (the tiny preset's head dim 32 is outside
+    the kernels' shapes)."""
+    import sys
+
+    from kubeflow_tpu_torch.api.base import from_manifest
+
+    return from_manifest({
+        "apiVersion": "kubeflow.org/v1", "kind": "JAXJob",
+        "metadata": {"name": name, "namespace": "default"},
+        "spec": {"jaxReplicaSpecs": {"Worker": {
+            "replicas": 1, "restartPolicy": "Never",
+            "template": {"spec": {"containers": [{
+                "name": "lm", "command": [
+                    sys.executable, "-m",
+                    "kubeflow_tpu_torch.runners.lm_runner",
+                    "--preset=small", "--dataset=lm-small",
+                    "--seq-len=1024", "--batch-size=2",
+                    f"--steps={steps}", "--warmup-steps=1",
+                    "--log-every=1", "--no-checkpoint"]}]}}}}}})
+
+
+def _wait_log(cp, name, text, timeout=300):
+    import time
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        try:
+            if text in cp.job_logs("JAXJob", name):
+                return True
+        except (FileNotFoundError, KeyError):
+            pass
+        time.sleep(0.2)
+    return False
+
+
+def test_kfx_profile_of_a_cuda_lm_job_names_the_flash_kernels(cuda_plane,
+                                                               tmp_path,
+                                                               capsys):
+    """`kfx profile` of an LM job training on the card (the plane's
+    default device): the trace names flash_fwd_wgmma_kernel,
+    flash_dq_wgmma_kernel and flash_dkv_wgmma_kernel, launched through
+    ctypes from the port's library, and holds aten:: ops of the worker's
+    main thread."""
+    from kubeflow_tpu_torch import profiling
+    from kubeflow_tpu_torch.cli import KfxCLI
+    from kubeflow_tpu_torch.controlplane import ControlPlane
+
+    with ControlPlane(home=str(tmp_path / "kfx")) as cp:
+        cp.apply([_lm_job("prof-lm", 2000)])
+        try:
+            assert _wait_log(cp, "prof-lm", "step=2 "), \
+                cp.job_logs("JAXJob", "prof-lm")
+            rc = KfxCLI(cp).profile("JAXJob", "prof-lm", "default", "",
+                                    duration_ms=1000,
+                                    logdir=str(tmp_path / "trace"))
+            out = capsys.readouterr().out
+            assert rc == 0, out
+        finally:
+            cp.store.delete("JAXJob", "prof-lm")
+    [path] = [ln for ln in out.splitlines()
+              if ln.endswith(profiling.TRACE_SUFFIX)]
+    trace = profiling.load_trace(path)
+    head = trace["kfxCapture"]
+    kernels = {e["name"] for e in trace["traceEvents"]
+               if e.get("cat") == "kernel"}
+    for sym in ("flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel",
+                "flash_dkv_wgmma_kernel"):
+        assert any(sym in k for k in kernels), (sym, sorted(kernels)[:20])
+    assert any(e.get("cat") == "cpu_op" and e["name"].startswith("aten::")
+               and e.get("tid") == head["main_tid"]
+               for e in trace["traceEvents"])
+    assert "CUDA" in head["activities"]
+
+
+def test_kfx_server_maps_no_libcuda_while_its_job_trains(cuda_plane,
+                                                         tmp_path):
+    """`kfx server` is a torch-free process: while a job it owns trains on
+    the card, its address space maps no libcuda (and no torch); SIGTERM
+    stops it with rc 0 and removes its marker."""
+    import os
+    import signal
+    import subprocess
+    import sys
+    import time
+
+    import yaml
+
+    from kubeflow_tpu_torch.apiserver import Client, live_server_url
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    home = str(tmp_path / "home")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("KFX_")}
+    env["PYTHONPATH"] = repo
+    server = subprocess.Popen(
+        [sys.executable, "-m", "kubeflow_tpu_torch.cli", "--home", home,
+         "server", "--port", "0"], cwd=repo, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + 60
+        url = None
+        while url is None and time.monotonic() < deadline:
+            url = live_server_url(home) if os.path.isdir(home) else None
+            time.sleep(0.1)
+        assert url, "kfx server never answered /healthz"
+        client = Client(url)
+        client.apply_text(yaml.safe_dump(_lm_job("owned-lm", 400).to_dict()))
+        deadline = time.monotonic() + 300
+        log = ""
+        while "step=2 " not in log and time.monotonic() < deadline:
+            log = client.logs("jaxjob", "default", "owned-lm")
+            time.sleep(0.2)
+        assert "step=2 " in log and "device=cuda" in log, log
+        with open(f"/proc/{server.pid}/maps") as f:
+            maps = f.read()
+        assert "libcuda" not in maps and "libtorch" not in maps
+        client.delete("jaxjob", "default", "owned-lm")
+        server.send_signal(signal.SIGTERM)
+        out, _ = server.communicate(timeout=60)
+        assert server.returncode == 0, out
+        assert not os.path.exists(os.path.join(home, "server.json"))
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.wait()

@@ -163,7 +163,11 @@ def test_every_module_imports_with_jax_blocked():
             "kubeflow_tpu_torch.operators.slo",
             "kubeflow_tpu_torch.obs.rules",
             "kubeflow_tpu_torch.obs.slo",
-            "kubeflow_tpu_torch.obs.timeline"} <= set(_modules())
+            "kubeflow_tpu_torch.obs.timeline",
+            # the apiserver, kfctl and the profiler
+            "kubeflow_tpu_torch.apiserver",
+            "kubeflow_tpu_torch.kfctl",
+            "kubeflow_tpu_torch.profiling"} <= set(_modules())
 
 
 def test_hpo_turns_grpc_fork_support_off():
@@ -195,6 +199,21 @@ def test_plane_loads_no_nas_module():
             "import kubeflow_tpu_torch.operators.hpo\n"
             "print(sorted(m for m in sys.modules if m.endswith(("
             "'.darts', '.enas')) or m == 'torch'))" % REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", res.stdout
+
+
+def test_server_and_cli_import_no_torch():
+    """`kfx server` and the CLI stay torch-free processes: importing the
+    apiserver, kfctl, the profiler's client and the CLI loads neither
+    torch nor grpc; only a job's workers touch the card."""
+    code = ("import sys; sys.path.insert(0, %r)\n"
+            "import kubeflow_tpu_torch.apiserver, kubeflow_tpu_torch.kfctl\n"
+            "import kubeflow_tpu_torch.cli, kubeflow_tpu_torch.profiling\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'grpc')))" % REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr

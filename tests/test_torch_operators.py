@@ -586,24 +586,56 @@ class TestKfxCLIPort:
     """The port's CLI: the reference's verbs' surface, with the verbs and
     kinds of later slices refused by name."""
 
-    @pytest.mark.parametrize("verb,item", [
-        ("profile", "8.6"), ("server", "8.4"), ("init", "8.4"),
-        ("generate", "8.4")])
-    def test_deferred_verb_names_its_item(self, tmp_path, capsys, verb,
-                                          item):
+    @pytest.mark.parametrize("verb", ["init", "generate", "server",
+                                      "profile"])
+    def test_kfctl_server_and_profile_verbs_run(self, tmp_path, capsys,
+                                                monkeypatch, verb):
+        """init, generate, server and profile run in the port (A 8.4 and
+        A 8.6): init scaffolds a KfDef, generate renders it, `kfx server`
+        starts, writes its marker and stops on SIGTERM with rc 0, and
+        profile of a ghost job answers the reference's NotFound."""
+        import signal
+        import subprocess
+
         from kubeflow_tpu_torch.cli import main as kfx_main
 
-        argv = {"trace": ["trace", "jaxjob", "x"], "top": ["top"],
-                "query": ["query", "kfx_x"], "alerts": ["alerts"],
-                "slo": ["slo"], "usage": ["usage"],
-                "profile": ["profile", "jaxjob", "x"], "server": ["server"],
-                "init": ["init", "x"],
-                "generate": ["generate", "-f", "x.yaml"]}[verb]
         home = str(tmp_path / "home")
-        assert kfx_main(["--home", home] + argv) == 1
-        err = capsys.readouterr().err
-        assert f"ROADMAP.md Queue A {item}" in err and verb in err
-        assert not os.path.exists(os.path.join(home, "state.db"))
+        monkeypatch.chdir(tmp_path)
+        if verb == "server":
+            repo = os.path.dirname(os.path.dirname(os.path.abspath(
+                __file__)))
+            env = {k: v for k, v in os.environ.items()
+                   if not k.startswith("KFX_")}
+            proc = subprocess.Popen(
+                [PY, "-m", "kubeflow_tpu_torch.cli", "--home", home,
+                 "server", "--port", "0"], cwd=repo, env=env, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            marker = os.path.join(home, "server.json")
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline and not os.path.exists(
+                    marker):
+                time.sleep(0.05)
+            assert os.path.exists(marker)
+            proc.send_signal(signal.SIGTERM)
+            text, _ = proc.communicate(timeout=60)
+            assert proc.returncode == 0, text
+            assert "kfx apiserver + dashboard on http://127.0.0.1:" in text
+            assert not os.path.exists(marker)
+        else:
+            if verb == "generate":
+                assert kfx_main(["init", "plat"]) == 0
+                capsys.readouterr()
+            argv, rc, want = {
+                "init": (["init", "plat"], 0, "wrote kfdef.yaml"),
+                "generate": (["generate", "-f", "kfdef.yaml"], 0,
+                             "00-profile-plat.yaml"),
+                "profile": (["profile", "jaxjob", "ghost"], 1,
+                            "JAXJob default/ghost not found")}[verb]
+            assert kfx_main(["--home", home] + argv) == rc
+            cap = capsys.readouterr()
+            text = cap.out + cap.err
+            assert want in text
+        assert "is not ported yet" not in text
 
     @pytest.mark.parametrize("argv,rc,text", [
         (["trace", "jaxjob", "x"], 1, "not found"),
@@ -618,10 +650,8 @@ class TestKfxCLIPort:
         against the home's journal, on a passive plane (no scrape, no
         reconcile): on an empty home each answers as the reference's
         does."""
-        from kubeflow_tpu_torch.cli import DEFERRED_VERBS
         from kubeflow_tpu_torch.cli import main as kfx_main
 
-        assert argv[0] not in DEFERRED_VERBS
         home = str(tmp_path / "home")
         assert kfx_main(["--home", home] + argv) == rc
         cap = capsys.readouterr()
@@ -651,18 +681,6 @@ class TestKfxCLIPort:
             assert "env" not in c
         finally:
             cp.stop()
-        from kubeflow_tpu_torch.controlplane import (
-            UNPORTED_KINDS,
-            refuse_unported_kind,
-        )
-
-        for kind in ("Experiment", "Suggestion", "Trial", "Pipeline",
-                     "Notebook", "Profile", "PodDefault", "SLO"):
-            assert kind not in UNPORTED_KINDS
-            refuse_unported_kind(kind)
-        assert UNPORTED_KINDS == {"KfDef": "8.4"}
-        with pytest.raises(NotImplementedError, match="Queue A 8.4"):
-            refuse_unported_kind("KfDef")
 
     def test_run_experiment_example_on_the_cpu(self, tmp_path, capsys,
                                                 monkeypatch):
@@ -706,31 +724,44 @@ class TestKfxCLIPort:
         assert best["bestTrialName"] == max(accs, key=accs.get)
         assert best["bestTrialName"] in best_line
 
-    def test_unported_kind_and_remote_mode_refused(self, tmp_path, capsys,
-                                                   monkeypatch):
+    def test_profile_and_kfdef_file_applies(self, tmp_path, capsys):
+        """A Profile beside a KfDef in one file: `kfx apply` stores the
+        Profile and what the KfDef renders (its namespace's Profile, then
+        its application stamped with the namespace and commonLabels); the
+        KfDef itself is never stored."""
         from kubeflow_tpu_torch.cli import main as kfx_main
+        from kubeflow_tpu_torch.core.store import ResourceStore
 
         home = str(tmp_path / "home")
-        # A KfDef (kfctl's platform document, Queue A 8.4) beside a
-        # Profile it would render: the file is refused whole.
-        kfdef = tmp_path / "kfdef.yaml"
-        kfdef.write_text(
+        mixed = tmp_path / "mixed.yaml"
+        mixed.write_text(
             "apiVersion: kubeflow.org/v1\nkind: Profile\n"
             "metadata: {name: team-a}\n"
             "spec: {owner: {kind: User, name: a@example.com}}\n---\n"
             "apiVersion: kfdef.apps.kubeflow.org/v1\nkind: KfDef\n"
-            "metadata: {name: p}\nspec: {applications: []}\n")
-        rc = kfx_main(["--home", home, "apply", "-f", str(kfdef)])
-        assert rc == 1
-        assert "ROADMAP.md Queue A 8.4" in capsys.readouterr().err
-        # Nothing that nothing would reconcile was stored.
-        assert kfx_main(["--home", home, "get", "jaxjobs"]) == 0
-        assert "NAME" in capsys.readouterr().out
-        from kubeflow_tpu_torch.core.store import ResourceStore
-
+            "metadata: {name: p}\n"
+            "spec:\n  namespace: team-b\n  commonLabels: {team: b}\n"
+            "  applications:\n  - name: defaults\n    resource:\n"
+            "      apiVersion: kubeflow.org/v1alpha1\n"
+            "      kind: PodDefault\n      metadata: {name: env-b}\n"
+            "      spec: {selector: {matchLabels: {team: b}},\n"
+            "             env: [{name: TEAM, value: b}]}\n")
+        rc = kfx_main(["--home", home, "apply", "-f", str(mixed)])
+        out = capsys.readouterr().out
+        assert rc == 0, out
+        for line in ("profile/team-a created", "profile/team-b created",
+                     "poddefault/env-b created"):
+            assert line in out
         store = ResourceStore(os.path.join(home, "state.db"))
-        assert store.list_all() == []
-        store.close()
-        monkeypatch.setenv("KFX_SERVER", "http://127.0.0.1:1")
-        assert kfx_main(["--home", home, "get", "jaxjobs"]) == 1
-        assert "Queue A 8.4" in capsys.readouterr().err
+        try:
+            kinds = sorted((o.KIND, o.namespace, o.name)
+                           for o in store.list_all())
+            assert kinds == [("PodDefault", "team-b", "env-b"),
+                             ("Profile", "default", "team-a"),
+                             ("Profile", "default", "team-b")], kinds
+            assert store.get("Profile", "team-b").owner() == {
+                "kind": "User", "name": "p@kfdef"}
+            pd = store.get("PodDefault", "env-b", "team-b")
+            assert pd.metadata.labels == {"team": "b"}
+        finally:
+            store.close()

@@ -397,15 +397,20 @@ class TestSchedulerInPlane:
         step and completes, all with the port's runner on the CPU. The
         kfx_sched_* families are live on the plane's registry and the
         sched.admit span sits between reconcile and gang.spawn in the
-        plane's span log. (The reference also scrapes them through its
-        ApiServer and rebuilds the tree with obs.timeline: Queue A 8.4
-        and 8.5.) The reference marks its copy slow (~99 s there); the
-        port's runner takes ~25 s, so this one runs in tier-1."""
+        plane's span log. /metrics through the port's ApiServer passes
+        scrape_metrics.py with the kfx_sched_* families --require'd, as
+        in the reference. The reference marks its copy slow (~99 s
+        there); the port's runner takes ~25 s, so this one runs in
+        tier-1."""
         import json
 
         from kubeflow_tpu_torch.api import training as T
+        from kubeflow_tpu_torch.apiserver import ApiServer
         from kubeflow_tpu_torch.controlplane import ControlPlane
         from kubeflow_tpu_torch.obs.trace import SPANS_DIRNAME, trace_of
+
+        sys.path.insert(0, os.path.join(REPO_ROOT, "scripts"))
+        import scrape_metrics
 
         monkeypatch.setenv("KFX_SLICE_CHIPS", "1")
         # One intra-op thread for the runner (the gang env inherits it).
@@ -455,6 +460,13 @@ class TestSchedulerInPlane:
                            "kfx_sched_admitted_total",
                            "kfx_sched_capacity_chips"):
                 assert f"# TYPE {family} " in text, family
+            with ApiServer(cp, port=0) as srv:
+                assert scrape_metrics.main(
+                    [f"{srv.url}/metrics",
+                     "--require", "kfx_sched_queue_seconds",
+                     "--require", "kfx_sched_admitted_total",
+                     "--require", "kfx_sched_preempted_total",
+                     "--require", "kfx_sched_capacity_chips"]) == 0
 
             # Trace: high's admission -> reconcile -> sched.admit (+
             # gang.spawn under the same reconcile chain).

@@ -9,12 +9,11 @@ TestCrossProcessReconstruction (a 2-replica JAXJob of the port's
 jax_runner whose merged timeline spans admission -> reconcile ->
 gang.spawn -> runner.init -> rendezvous.wait -> xla.compile ->
 train.window -> checkpoint -> runner.eval across three processes),
-tests/test_telemetry.py TestQuerySurfaces, TestTopWatchRates and
+tests/test_telemetry.py TestQuerySurfaces (``/query`` and ``/alerts``
+through the port's apiserver and its ``Client``), TestTopWatchRates and
 TestTraceFilters, and tests/test_obs.py TestTracePropagation (the trace
-ID from admission to the runner's env and the events, `kfx top`).
-TestQuerySurfaces reads the reference's /query and /alerts through its
-apiserver, which the port does not have yet (ROADMAP.md Queue A 8.4): its
-two cases drive the same queries through the CLI verbs here.
+ID from admission to the runner's env and the events, `kfx top`). Beside
+TestQuerySurfaces, the CLI verbs' answers to the same bad queries.
 
 Beside them, both packages on the same inputs: span files written from a
 numpy seed (several processes, nesting, orphans, overlaps and gaps) give
@@ -48,27 +47,7 @@ class TestCrossProcessReconstruction(_trace.TestCrossProcessReconstruction):
 
 
 class TestQuerySurfaces(_telemetry.TestQuerySurfaces):
-    def test_query_alerts_endpoints_and_cli(self, plane, capsys):
-        from kubeflow_tpu_torch.cli import KfxCLI
-
-        deadline = time.monotonic() + 20
-        while plane.scraper.cycles < 3 and time.monotonic() < deadline:
-            time.sleep(0.05)
-        out = plane.telemetry.query("kfx_gangs", "latest", None, 60)
-        assert out.points and out.value == 0.0
-        assert {a["name"] for a in plane.alerts.states()} >= {
-            "router-5xx-rate", "replica-restart-rate"}
-        cli = KfxCLI(plane)
-        assert cli.query("kfx_gangs", "latest", "", 60) == 0
-        text = capsys.readouterr().out
-        assert "kfx_gangs latest[60s]" in text
-        assert cli.query("kfx_nope", "rate", "", 60) == 1
-        capsys.readouterr()
-        rc = cli.alerts()
-        text = capsys.readouterr().out
-        assert "replica-restart-rate" in text and rc == 0
-
-    def test_bad_query_params_are_400(self, plane, capsys):
+    def test_bad_query_params_cli_rc2(self, plane, capsys):
         """The apiserver's 400s are the CLI's rc 2 with the same
         message; the JSON forms of query and alerts round-trip."""
         from kubeflow_tpu_torch.cli import KfxCLI
